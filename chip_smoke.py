@@ -7,17 +7,26 @@ Needs one CUDA card and nvcc (the kernels are built from
 verkle_kzg_tpu_torch/csrc/ into the git-ignored verkle_kzg_tpu_torch/_build/),
 and no JAX. Phases, each of which raises on failure:
 
-  1. the card's name and power limit, and the kernels' build;
-  2. each kernel (K1-K4) against its plain PyTorch version on the card, at
-     the shapes the IPA at domain 256 gives it, exact;
-  3. the main path: IPA at domain 256 (commit, prove, verify, commitment
-     proof) with its checks, launch counts and timings;
+  1. the card's name and power limit, and the kernels' build (one nvcc per
+     source, in parallel);
+  2. each kernel (K1-K7) against its plain PyTorch version on the card, at
+     the shapes the main paths give it, exact, with its time and the least
+     time the card could take for the same work;
+  3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
+     checks, launch counts and timings;
   4. one MSM of 2^20 points through msm_auto, against an exact oracle, and
-     its rate.
+     its rate;
+  5. the verkle tree at Ethereum geometry (BASELINE.json config 4: 32-unit
+     keys, width-256 nodes, 10,000 leaves): insert, commit, prove 16
+     present and 3 absent keys with one multiproof, verify statelessly;
+     sampled commitments against the native C++ oracle, a 300-leaf tree on
+     the card against the CPU plain path, and a profile of the commit;
+  6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3).
 
-The last two lines of standard output are the card's name and power limit
-and a JSON object {"ok": true, "device": {...}}; the line before them holds
-the per-kernel JSON record.
+Each of phases 3, 5 and 6 sets the launch counts to 0 just before its path
+and reads them just after. The last two lines of standard output are the
+card's name and power limit and a JSON object {"ok": true, "device": {...}};
+the line before them holds the per-kernel JSON record.
 """
 
 from __future__ import annotations
@@ -65,12 +74,31 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
 
 
-def phase_kernels(dev) -> dict:
-    """K1-K4 against their plain versions on the card, exact."""
+# The least time one H100 SXM could take for a kernel's work: the larger of
+# the bytes it must move (each input read once, each output written once)
+# over the HBM rate, and its 32-bit integer multiplies over the SMs' integer
+# rate (64 INT32 lanes per SM per clock, the Hopper white paper's unit count,
+# at the 1,980 MHz boost clock; no published peak exists for this type).
+HBM_BYTES_PER_S = 3.35e12
+INT32_MULS_PER_S = 132 * 64 * 1.98e9
+# 32-bit multiplies in one 8-word CIOS Montgomery product: 8 rounds of
+# 8 wide a*b products (low and high halves), one q = t0 * n0, 8 wide q*m.
+FMUL_MULS = 8 * (2 * 8 + 1 + 2 * 8)
+ADD_FMULS, MIXED_FMULS, DOUBLE_FMULS = 12, 11, 8  # RCB16 algorithms 7, 8, 9
+
+
+def bound(nbytes: float, fmuls: float) -> dict:
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = fmuls * FMUL_MULS / INT32_MULS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def phase_kernels(dev, crs) -> dict:
+    """K1-K7 against their plain versions on the card, exact."""
     import torch
 
-    from verkle_kzg_tpu.hostmath import curve as hc
-    from verkle_kzg_tpu.params import FQ, FR, R
+    from verkle_kzg_tpu_torch.hostmath import curve as hc
+    from verkle_kzg_tpu_torch.params import FQ, FR, R
     from verkle_kzg_tpu_torch.ops import cuda_curve, cuda_field
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
     from verkle_kzg_tpu_torch.ops import curve as C
@@ -95,6 +123,7 @@ def phase_kernels(dev) -> dict:
         "ms": cuda_ms(lambda: cuda_field.binop("mul", a, b, "fq"), 50),
         "plain_ms": cuda_ms(lambda: cuda_field.plain("mul", a, b, "fq"), 3),
         "shape": "2^16 Fq mont_mul",
+        **bound(a.numel() * 4 * 3, a.shape[0]),
     }
 
     # K2: the IPA MSM's first segment fold, 32 x 8 x 128 point pairs, with
@@ -112,6 +141,7 @@ def phase_kernels(dev) -> dict:
     assert C.projective_to_host_points(got[:4]) == [hc.g1_add(a_, b_) for a_, b_ in zip(ps[:4], qs[:4])]
     rec["K2"]["ms"] = cuda_ms(lambda: cuda_curve.add(p, q), 20)
     rec["K2"]["plain_ms"] = cuda_ms(lambda: cuda_curve.plain(p, q), 2)
+    rec["K2"].update(bound(3 * p.numel() * 4, n2 * ADD_FMULS))
 
     # K3 + K4: the 257-point IPA basis shape and 2^12 points, with zero
     # scalars, r - 1 and (0, 0) padding.
@@ -137,15 +167,22 @@ def phase_kernels(dev) -> dict:
         if n == 257:
             want = hc.g1_msm_naive(pts, ks)
             assert C.projective_to_host_points(M.msm_auto(pa[:n], sc[:n])) == [want]
+            live = (K.signed_digits(sc, masks) != 0) & ~C.affine_is_infinity(pa)[:, None]
             rec["K3"] = {
                 "ms": cuda_ms(lambda: K.accumulate(pa, sc, masks, nseg, seg_len), 20),
                 "plain_ms": cuda_ms(lambda: K.plain_accumulate(pa, sc, masks, nseg, seg_len), 2),
                 "shape": f"257 points, {nseg} segments",
+                **bound(4 * (pa.numel() + sc.numel() + masks.numel() + table.numel()),
+                        int(live.sum()) * MIXED_FMULS),
             }
+            # window sums 32 x 4 x 32 x 2 adds; chunk combine 32 x (2 x 2 + 4)
+            # adds and 5 doublings; Horner 31 x (8 doublings + 1 add)
+            adds, dbls = 32 * 4 * 32 * 2 + 32 * 8 + 31, 32 * 5 + 31 * 8
             rec["K4"] = {
                 "ms": cuda_ms(lambda: K.tail(buckets), 20),
                 "plain_ms": cuda_ms(lambda: K.plain_tail(buckets), 2),
                 "shape": "32 x 128 buckets",
+                **bound(4 * (buckets.numel() + 24), adds * ADD_FMULS + dbls * DOUBLE_FMULS),
             }
             rec["msm257"] = {
                 "ms": cuda_ms(lambda: M.msm_auto(pa[:n], sc[:n]), 20),
@@ -153,22 +190,123 @@ def phase_kernels(dev) -> dict:
             }
     rec["K3"]["max_abs_err"] = k3_err
     rec["K4"]["max_abs_err"] = k4_err
+    rec.update(_kernels_k5_k7(dev, crs, rng))
     return rec
 
 
-def phase_ipa(dev) -> dict:
-    """IPA at domain 256 on the card: checks, launch counts, timings."""
+def _k5_work(pa, ks) -> float:
+    """Montgomery products a double-and-add needs for these lanes: from the
+    top set bit down, a doubling per bit and a mixed add per further set
+    bit; a (0, 0) or zero-scalar lane needs none."""
+    from verkle_kzg_tpu_torch.ops import curve as C
+
+    inf = C.affine_is_infinity(pa).tolist()
+    total = 0
+    for k, dead in zip(ks, inf):
+        if k and not dead:
+            total += (k.bit_length() - 1) * DOUBLE_FMULS + (bin(k).count("1") - 1) * MIXED_FMULS
+    return total
+
+
+def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
+    """K5 on 2^12 edge-case lanes and at the shape of the verkle commit's
+    c1/c2 launch (40,000 lanes over the basis, half of them zero-scalar pad
+    lanes, 128-bit leaf halves in the others); K6 and K7 at the dense
+    verkle level (width 256, c = 5, 40 lanes) and at width 64 (c = 4)."""
     import torch
 
-    from verkle_kzg_tpu import native
-    from verkle_kzg_tpu.fiatshamir.transcript import Transcript
-    from verkle_kzg_tpu.hostmath.curve import g1_add, g1_generator
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import msm as M
+
+    rec = {}
+    basis = crs.g_affine  # (256, 2, 8)
+
+    # K5: edge lanes (zero scalars, r - 1, (0, 0) points), then the commit shape
+    errs = []
+    for n, bits in ((1 << 12, 254), (lanes, 128)):
+        idx = torch.tensor([rng.randrange(256) for _ in range(n)], device=dev)
+        pa = basis[idx].contiguous()
+        ks = [rng.getrandbits(bits) % R if i % 2 == 0 else 0 for i in range(n)]
+        if n == 1 << 12:
+            ks = [rng.randrange(R) for _ in range(n)]
+            ks[:4] = [0, 1, R - 1, 0]
+            pa[3:9] = 0  # (0, 0) lanes, one with a zero scalar
+        sc = F.ints_to_words(ks, dev)
+        out = K5.scalar_mul_affine(pa, sc)
+        errs.append(max_abs_err(out, K5.plain(pa, sc)))
+        assert errs[-1] == 0, n
+    hp = C.projective_to_host_points(out[:8])
+    gx = [crs.g_host[i] for i in idx[:8].tolist()]
+    from verkle_kzg_tpu_torch.hostmath import curve as hc
+
+    assert hp == [hc.g1_mul(g, k) for g, k in zip(gx, ks[:8])], "K5 != host scalar mul"
+    rec["K5"] = {
+        "max_abs_err": max(errs),
+        "ms": cuda_ms(lambda: K5.scalar_mul_affine(pa, sc), 5),
+        "plain_ms": cuda_ms(lambda: K5.plain(pa, sc), 1),
+        "shape": f"{lanes} lanes, 128-bit scalars on half",
+        **bound(4 * (pa.numel() + sc.numel() + out.numel()), _k5_work(pa, ks)),
+    }
+
+    # K6 and K7: 40 lanes over the basis, lane 0 all zero, ties in lane 1
+    k6_err = k7_err = 0
+    b = batch
+    for width in (64, 256):
+        c = M._auto_c_batched(width)
+        ks = [[rng.randrange(R) for _ in range(width)] for _ in range(b)]
+        ks[0] = [0] * width
+        ks[1][0] = (1 << (c - 1)) | (1 << (c - 1)) << c
+        scalars = F.ints_to_words([x for k in ks for x in k], dev).reshape(b, width, 8)
+        digits = M.window_digits_signed(scalars, c).to(torch.int32).contiguous()
+        nseg, seg_len = M.segments(width)
+        pts = basis[:width].contiguous()
+        table = KB.accumulate(pts, digits, nseg, seg_len, c)
+        k6_err = max(k6_err, max_abs_err(table, KB.plain_accumulate(pts, digits, nseg, seg_len, c)))
+        buckets = M.fold_reduce_lanes(table, dim=2)[:, :, 0].contiguous()
+        out = KB.tail(buckets, c)
+        k7_err = max(k7_err, max_abs_err(out, KB.plain_tail(buckets, c)))
+        assert k6_err == 0 and k7_err == 0, width
+        from verkle_kzg_tpu_torch import native
+
+        got = C.projective_to_host_points(out[:3])
+        assert got == [native.g1_msm(crs.g_host[:width], k) for k in ks[:3]], "K6 + K7 != native oracle"
+    w, rows = KB.windows(c), KB.rows(c)
+    live = int((digits != 0).sum())
+    rec["K6"] = {
+        "max_abs_err": k6_err,
+        "ms": cuda_ms(lambda: KB.accumulate(pts, digits, nseg, seg_len, c), 20),
+        "plain_ms": cuda_ms(lambda: KB.plain_accumulate(pts, digits, nseg, seg_len, c), 1),
+        "shape": f"width 256, c = 5, {b} lanes, {nseg} segments",
+        **bound(4 * (digits.numel() + pts.numel() + table.numel()), live * MIXED_FMULS),
+    }
+    adds, dbls = w * 2 * rows + (w - 1), (w - 1) * c
+    rec["K7"] = {
+        "max_abs_err": k7_err,
+        "ms": cuda_ms(lambda: KB.tail(buckets, c), 20),
+        "plain_ms": cuda_ms(lambda: KB.plain_tail(buckets, c), 1),
+        "shape": f"width 256, c = 5, {b} lanes",
+        **bound(4 * (buckets.numel() + out.numel()), b * (adds * ADD_FMULS + dbls * DOUBLE_FMULS)),
+    }
+    return rec
+
+
+def phase_ipa(dev, crs):
+    """IPA at domain 256 on the card: checks, launch counts, timings. Also
+    returns the data vector and its commitment for phase 6."""
+    import torch
+
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
+    from verkle_kzg_tpu_torch.hostmath.curve import g1_add, g1_generator
     from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.poly import FrVector
-    from verkle_kzg_tpu_torch.schemes import IPA, IPAParams, ipa_setup
+    from verkle_kzg_tpu_torch.schemes import IPA, IPAParams
 
     n = 256
-    crs = ipa_setup(n, device=dev)
     rng = random.Random(256)
     vals = [rng.randrange(1 << 253) for _ in range(n)]
     data = FrVector.from_ints(vals, crs.domain, device=dev)
@@ -213,13 +351,13 @@ def phase_ipa(dev) -> dict:
     assert counts["commit"]["K3"] == 1 and counts["commit"]["K4"] == 1
     assert counts["prove"]["K3"] == 16 and counts["prove"]["K4"] == 16
     assert counts["verify"]["K3"] == 1 and counts["verify"]["K4"] == 1
-    assert min(main_path_launches.values()) > 0, main_path_launches
+    assert min(main_path_launches[k] for k in ("K1", "K2", "K3", "K4")) > 0, main_path_launches
 
     # the same proof from the plain path on this machine's CPU
-    cpu = IPAParams(n=n, g_host=crs.g_host, q_host=crs.q_host, domain=crs.domain)
+    cpu = IPAParams(n=n, g_host=crs.g_host, q_host=crs.q_host, domain=crs.domain, device="cpu")
     t_cpu = Transcript("ipa")
     t0 = time.perf_counter()
-    cpu_proof = IPA.prove_point(cpu, commit, index, FrVector.from_ints(vals, crs.domain), t_cpu)
+    cpu_proof = IPA.prove_point(cpu, commit, index, FrVector.from_ints(vals, crs.domain, device="cpu"), t_cpu)
     cpu_s = time.perf_counter() - t0
     assert (cpu_proof.l, cpu_proof.r, cpu_proof.tip, cpu_proof.y) == (proof.l, proof.r, proof.tip, proof.y)
     assert bytes(t_cpu._state) == bytes(t_gpu._state), "transcript states differ"
@@ -228,16 +366,16 @@ def phase_ipa(dev) -> dict:
         "launches_per_call": counts,
         "main_path_launches": main_path_launches,
         "cpu_plain_prove_s": cpu_s,
-    }
+    }, (vals, data, commit)
 
 
 def _multiples_of_g(n: int) -> list:
     """Affine k*G for k = 1..n, by doubling the range each level: the points
     m+1..2m are P_m + P_j, independent additions sharing one inversion
     (Montgomery's trick); 2m is a doubling."""
-    from verkle_kzg_tpu.hostmath.curve import g1_add, g1_generator
-    from verkle_kzg_tpu.hostmath.field import fq_batch_inverse
-    from verkle_kzg_tpu.params import Q
+    from verkle_kzg_tpu_torch.hostmath.curve import g1_add, g1_generator
+    from verkle_kzg_tpu_torch.hostmath.field import fq_batch_inverse
+    from verkle_kzg_tpu_torch.params import Q
 
     pts = [g1_generator()]
     while len(pts) < n:
@@ -266,7 +404,7 @@ def msm_points(n: int):
         arr = np.load(POINTS_CACHE)["points"]
         if arr.shape[0] >= n:
             return torch.from_numpy(arr[:n])
-    arr = C.host_points_to_affine(_multiples_of_g(n)).numpy()
+    arr = C.host_points_to_affine(_multiples_of_g(n), "cpu").numpy()
     np.savez(POINTS_CACHE, points=arr)
     return torch.from_numpy(arr)
 
@@ -276,9 +414,9 @@ def phase_msm(dev) -> dict:
     native C++ Pippenger on a random 2^16 subset as a second oracle."""
     import torch
 
-    from verkle_kzg_tpu import native
-    from verkle_kzg_tpu.hostmath.curve import g1_generator, g1_mul
-    from verkle_kzg_tpu.params import R
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.hostmath.curve import g1_generator, g1_mul
+    from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
@@ -326,6 +464,200 @@ def phase_msm(dev) -> dict:
     }
 
 
+def _stage(name, fn, ms, counts):
+    """Run one stage of a path: CUDA-event and wall milliseconds, and the
+    launches per kernel it made."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+
+    before = dict(cuda_lib.launches)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms[name] = {"events_ms": start.elapsed_time(end), "wall_ms": (time.perf_counter() - t0) * 1e3}
+    counts[name] = {k: cuda_lib.launches[k] - before[k] for k in before}
+    return out
+
+
+def _verkle_keys(n: int) -> list:
+    """``benchmarks/bench_all.py:142-143``: distinct (unit 0, unit 1) pairs
+    with a fixed tail, so sibling stems diverge one level below their parent."""
+    tail = tuple((11 * j) % 256 for j in range(32 - 3))
+    return [(i // 256, i % 256, (i * 7) % 256) + tail for i in range(n)]
+
+
+def _all_commits(tree) -> list:
+    out = []
+
+    def walk(node, path):
+        if hasattr(node, "stem"):
+            out.append((path, node.commit, node.c1_commit, node.c2_commit))
+            return
+        out.append((path, node.commit))
+        for unit in sorted(node.children):
+            walk(node.children[unit], path + (unit,))
+
+    walk(tree.root, ())
+    return out
+
+
+def _device_busy_ms(prof) -> tuple:
+    """Union of the CUDA kernel intervals of a profile, in ms, and the
+    kernel time by name."""
+    import torch
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy, cur_start, cur_end = 0.0, None, None
+    for a, b in sorted(spans):
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return busy / 1e3, top
+
+
+def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 300) -> dict:
+    """BASELINE.json config 4 at its published size: a verkle tree with
+    32-unit keys and width-256 nodes, 10,000 leaves, committed, 16 present
+    and 3 absent keys proved with one multiproof and verified statelessly."""
+    import torch
+
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.schemes import IPA, IPAParams
+    from verkle_kzg_tpu_torch.verkle import VerkleTree
+
+    keys = _verkle_keys(leaves)
+    rng = random.Random(10_000)
+    values = {k: rng.randrange(1 << 256) for k in keys}
+    tail = keys[0][3:]
+    absent_e = (200, 0, 0) + tail  # no root child 200: mode E
+    absent_o = (0, 0, 1) + tail  # reaches (0, 0, 0)'s extension: mode O
+    absent_l = (100, 0, 0) + tail  # an extension of this stem holding only unit 7: mode L
+
+    def build():
+        tree = VerkleTree(IPA, crs, key_len=32, ext_width=256)
+        for k in keys:
+            tree.insert_single(k, values[k])
+        tree._insert(tree.root, absent_l, [(7, 77)], 0)  # the multi-value insert surface
+        return tree
+
+    t0 = time.perf_counter()
+    tree = build()
+    insert_s = time.perf_counter() - t0
+
+    sample = keys[:: max(1, len(keys) // 16)][:16]  # bench_all.py:155
+    prove_keys = sample + [absent_e, absent_o, absent_l]
+    claims = {k: values.get(k) for k in prove_keys}
+
+    ms, counts = {}, {}
+    cuda_lib.reset_launches()
+    root = _stage("commit", tree.commitment, ms, counts)
+    proof = _stage("prove", lambda: tree.prove_keys(prove_keys), ms, counts)
+    ok = _stage("verify", lambda: tree.verify_keys(prove_keys, claims, proof), ms, counts)
+    path_launches = dict(cuda_lib.launches)
+
+    assert ok, "the honest verkle proof was rejected"
+    bad = dict(claims)
+    bad[sample[3]] += 1
+    assert not tree.verify_keys(prove_keys, bad, proof), "a wrong claimed value was accepted"
+    assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
+    assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
+    assert min(path_launches.values()) > 0, path_launches
+
+    # sampled commitments against the native C++ Pippenger
+    g = crs.g_host
+    assert root == native.g1_msm(g, tree._internal_vector(tree.root)), "root != native oracle"
+    inner = [node for node in tree.root.children.values() if hasattr(node, "children")]
+    for node in inner[:: max(1, len(inner) // 4)][:4]:
+        assert node.commit == native.g1_msm(g, tree._internal_vector(node)), "depth-1 node != native oracle"
+    exts = [ext for node in inner for ext in node.children.values()]
+    for ext in random.Random(64).sample(exts, min(64, len(exts))):
+        c1, c2 = tree._ext_leaf_vectors(ext)
+        assert ext.c1_commit == native.g1_msm(g, c1) and ext.c2_commit == native.g1_msm(g, c2)
+        assert ext.commit == native.g1_msm(g[:4], tree._ext_data_vector(ext)), "extension != native oracle"
+
+    # where the commit's time goes: a profiled commit of a second tree
+    from torch.profiler import ProfilerActivity, profile
+
+    again = build()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        assert again.commitment() == root
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = _device_busy_ms(prof)
+
+    # a 300-leaf tree of the same geometry, on the card and on the CPU path
+    small_keys = keys[:small_leaves]
+    cpu = IPAParams(n=crs.n, g_host=crs.g_host, q_host=crs.q_host, domain=crs.domain, device="cpu")
+    small = [VerkleTree(IPA, p, key_len=32, ext_width=256) for p in (crs, cpu)]
+    for t in small:
+        for k in small_keys:
+            t.insert_single(k, values[k])
+    small[0].commitment()
+    t0 = time.perf_counter()
+    small[1].commitment()
+    cpu_small_s = time.perf_counter() - t0
+    assert _all_commits(small[0]) == _all_commits(small[1]), "300-leaf tree: card != CPU"
+
+    return {
+        "leaves": leaves,
+        "insert_s": insert_s,
+        "ms": ms,
+        "leaves_per_s": leaves / (ms["commit"]["wall_ms"] / 1e3),
+        "launches_per_stage": counts,
+        "path_launches": path_launches,
+        "queries": len(prove_keys),
+        "profiled_commit": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms, "kernel_ms_by_name": top},
+        "cpu_plain_commit_300_s": cpu_small_s,
+    }
+
+
+def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
+    """BASELINE.json config 3 (``benchmarks/bench_all.py:103-123``, its first
+    size): 1,024 queries at random domain points of the phase-3 vector."""
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.schemes import IPA, ProverQuery, prove_multiproof, verify_multiproof
+
+    vals, data, commit = ipa_data
+    rng = random.Random(1024)
+    queries = []
+    for _ in range(m):
+        z = rng.randrange(crs.domain.size)
+        queries.append(ProverQuery(data=data, commit=commit, z=z, y=vals[z]))
+    vq = [q.to_verifier_query() for q in queries]
+    prove_multiproof(IPA, crs, queries)  # warm-up
+
+    ms, counts = {}, {}
+    cuda_lib.reset_launches()
+    proof = _stage("prove", lambda: prove_multiproof(IPA, crs, queries), ms, counts)
+    ok = _stage("verify", lambda: verify_multiproof(IPA, crs, vq, proof), ms, counts)
+    path_launches = dict(cuda_lib.launches)
+    assert ok, "the honest multiproof was rejected"
+    bad = [q.to_verifier_query() for q in queries]
+    bad[m // 2].y = (bad[m // 2].y + 1) % R
+    assert not verify_multiproof(IPA, crs, bad, proof), "a wrong y was accepted"
+    assert min(path_launches[k] for k in ("K1", "K2", "K3", "K4", "K5")) > 0, path_launches
+    return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches}
+
+
 def main() -> int:
     import torch
 
@@ -346,34 +678,54 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
 
-    kern = phase_kernels(dev)
+    from verkle_kzg_tpu_torch.schemes import ipa_setup
+
+    t0 = time.perf_counter()
+    crs = ipa_setup(256, device=dev)
+    print(f"crs: 257 hash-to-curve points in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    kern = phase_kernels(dev, crs)
     print("phase 2 kernels vs plain (exact, tolerance 0):", json.dumps(kern), flush=True)
 
-    ipa = phase_ipa(dev)
+    ipa, ipa_data = phase_ipa(dev, crs)
     print("phase 3 ipa@256:", json.dumps(ipa), f"[{card}]", flush=True)
 
     msm = phase_msm(dev)
     print("phase 4 msm 2^20:", json.dumps(msm), f"[{card}]", flush=True)
 
-    sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm.cu", "K4": "msm.cu"}
+    verkle = phase_verkle(dev, crs)
+    print("phase 5 verkle, 10k leaves, Ethereum geometry:", json.dumps(verkle), f"[{card}]", flush=True)
+
+    mp = phase_multiproof(dev, crs, ipa_data)
+    print("phase 6 multiproof, 1024 queries at 256:", json.dumps(mp), f"[{card}]", flush=True)
+
+    sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm.cu", "K4": "msm.cu",
+               "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         "K3": "verkle_kzg_tpu/ops/pallas_msm.py:700",
         "K4": "verkle_kzg_tpu/ops/pallas_msm.py:1041",
+        "K5": "verkle_kzg_tpu/ops/pallas_curve.py:432",
+        "K6": "verkle_kzg_tpu/ops/pallas_msm.py:853",
+        "K7": "verkle_kzg_tpu/ops/pallas_msm.py:1152",
     }
+    # launches: the verkle path of phase 5 (commit, prove, verify), which runs all seven
     kernels = [
         {
             "name": k,
             "route": "cuda",
             "source": f"verkle_kzg_tpu_torch/csrc/{sources[k]}",
             "replaces": replaces[k],
-            "launches": ipa["main_path_launches"][k],
+            "launches": verkle["path_launches"][k],
             "max_abs_err": kern[k]["max_abs_err"],
             "ms": kern[k]["ms"],
             "plain_ms": kern[k]["plain_ms"],
+            "bound_ms": kern[k]["bound_ms"],
+            "bound_by": kern[k]["bound_by"],
+            "library_ms": None,
         }
-        for k in ("K1", "K2", "K3", "K4")
+        for k in sources
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

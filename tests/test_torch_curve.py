@@ -22,7 +22,7 @@ torch.set_num_threads(1)
 def _to_port(arr) -> torch.Tensor:
     """JAX (k, 16, N) coordinate planes -> port (N, k, 8) words."""
     arr = np.asarray(arr)
-    return torch.stack([convert.limb_planes_to_tensor(arr[k]) for k in range(arr.shape[0])], dim=1)
+    return torch.stack([convert.limb_planes_to_tensor(arr[k], "cpu") for k in range(arr.shape[0])], dim=1)
 
 
 @pytest.fixture(scope="module")
@@ -64,12 +64,12 @@ def test_mixed_add_matches_jax(pairs):
 
 def test_affine_conversions(pairs):
     p, _ = pairs
-    aff = C.host_points_to_affine(p)
+    aff = C.host_points_to_affine(p, "cpu")
     assert torch.equal(aff, _to_port(JC.host_points_to_affine(p)))
     proj = C.from_affine(aff)
     assert torch.equal(proj, _to_port(JC.from_affine(JC.host_points_to_affine(p))))
     assert C.projective_to_host_points(proj) == p
-    assert C.projective_to_host_points(C.infinity((2,))) == [None, None]
+    assert C.projective_to_host_points(C.infinity((2,), "cpu")) == [None, None]
 
 
 @pytest.mark.parametrize("op", ["add", "mixed_add", "double"])
@@ -77,12 +77,12 @@ def test_lazy_group_law(pairs, op):
     """The lazy-domain formulas K3/K4 inline give the same group elements
     once reduced."""
     p, q = pairs
-    lp = F.to_limbs(C.from_affine(C.host_points_to_affine(p)))
+    lp = F.to_limbs(C.from_affine(C.host_points_to_affine(p, "cpu")))
     if op == "add":
-        out = C.add16(lp, F.to_limbs(C.from_affine(C.host_points_to_affine(q))), lazy=True)
+        out = C.add16(lp, F.to_limbs(C.from_affine(C.host_points_to_affine(q, "cpu"))), lazy=True)
         want = [hc.g1_add(a, b) for a, b in zip(p, q)]
     elif op == "mixed_add":
-        out = C.mixed_add16(lp, F.to_limbs(C.host_points_to_affine(q)), lazy=True)
+        out = C.mixed_add16(lp, F.to_limbs(C.host_points_to_affine(q, "cpu")), lazy=True)
         want = [hc.g1_add(a, b) for a, b in zip(p, q)]
     else:
         out = C.double16(lp, lazy=True)

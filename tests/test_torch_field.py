@@ -34,7 +34,7 @@ def _batch(fs, n, seed):
 def _both(xs):
     """The same ints as JAX limb planes and as port word rows."""
     planes = np.asarray(ints_to_limbs(xs).T)
-    return jnp.asarray(planes), convert.limb_planes_to_tensor(planes)
+    return jnp.asarray(planes), convert.limb_planes_to_tensor(planes, "cpu")
 
 
 @pytest.mark.parametrize("spec,fs", SPECS)
@@ -66,7 +66,7 @@ def test_lazy_domain_ops(spec, fs):
     rng = random.Random(13)
     xs = [0, 2 * m - 1, m, 5] + [rng.randrange(2 * m) for _ in range(60)]
     ys = [0, 2 * m - 1, m - 1, 5] + [rng.randrange(2 * m) for _ in range(60)]
-    a, b = F.to_limbs(F.ints_to_words(xs)), F.to_limbs(F.ints_to_words(ys))
+    a, b = F.to_limbs(F.ints_to_words(xs, "cpu")), F.to_limbs(F.ints_to_words(ys, "cpu"))
     rinv = pow(1 << 256, -1, m)
 
     def ints(t):
@@ -85,11 +85,11 @@ def test_lazy_domain_ops(spec, fs):
 def test_convert_round_trips():
     xs = _batch(FR, 33, 14)
     planes = np.asarray(ints_to_limbs(xs).T)
-    t = convert.limb_planes_to_tensor(planes)
+    t = convert.limb_planes_to_tensor(planes, "cpu")
     assert t.shape == (33, 8) and t.dtype == torch.int32
     assert F.words_to_ints(t) == xs
     assert np.array_equal(convert.tensor_to_limb_planes(t), planes)
-    assert F.mont_to_ints(F.ints_to_mont(xs, "fr"), "fr") == xs
+    assert F.mont_to_ints(F.ints_to_mont(xs, "fr", "cpu"), "fr") == xs
 
 
 def test_frvector_from_jax():
@@ -97,12 +97,17 @@ def test_frvector_from_jax():
 
     vals = [random.Random(15).randrange(FR.modulus) for _ in range(6)]
     jv = JFrVector.from_ints(vals)
-    tv = convert.frvector_from_jax(jv)
+    tv = convert.frvector_from_jax(jv, "cpu")
     assert tv.to_ints() == jv.to_ints() and tv.max == jv.max == 6
     assert tv.domain.size == jv.domain.size == 8
     assert tv.evaluate(3) == jv.evaluate(3) and tv.evaluate(7) == jv.evaluate(7)
     assert tv.evaluate(20) == jv.evaluate(20)
     assert tv.set_evaluation(2, 99).get(2) == jv.set_evaluation(2, 99).get(2) == 99
+    k = FR.modulus - 3
+    for got, want in ((tv + tv, jv + jv), (tv - tv.scale(k), jv - jv.scale(k)), (tv.scale(k), jv.scale(k))):
+        assert got.to_ints() == want.to_ints() and got.max == want.max
+    zero, jzero = type(tv).zero(tv.domain, "cpu"), JFrVector.zero(jv.domain)
+    assert zero.to_ints() == jzero.to_ints() and zero.max == jzero.max == 8
 
 
 def test_domain_mirrors_match_jax():
@@ -111,7 +116,7 @@ def test_domain_mirrors_match_jax():
 
     jd, td = JDomain(8), Domain(8)
     for name in ("d_omegas", "d_vanishing", "d_vanishing_inv"):
-        got = getattr(td, name)()
+        got = getattr(td, name)("cpu")
         assert got is getattr(td, name)("cpu")  # made once per device
         assert np.array_equal(convert.tensor_to_limb_planes(got), np.asarray(getattr(jd, name)))
 

@@ -32,11 +32,11 @@ def setup():
     """Both packages on one CRS and one data vector, with the port's
     commitment and proofs made once for the tests below."""
     jcrs = jax_ipa_setup(SIZE)
-    crs = convert.ipa_params_from_jax(jcrs)
+    crs = convert.ipa_params_from_jax(jcrs, "cpu")
     rng = random.Random(0x1A)
     vals = [rng.randrange(1, 2**64) for _ in range(SIZE - 2)]  # watermark 6: padded
     jdata = JFrVector.from_ints(vals, jcrs.domain)
-    data = convert.frvector_from_jax(jdata)
+    data = convert.frvector_from_jax(jdata, "cpu")
     commit = IPA.commit(crs, data)
     proofs = {}
     for point in (5, 2 * SIZE):
@@ -49,7 +49,7 @@ def test_commit_matches_jax(setup):
     jcrs, crs, jdata, data, vals, commit, _ = setup
     assert commit == JIPA.commit(jcrs, jdata)
     assert commit == native.g1_msm(crs.g_host[: len(vals)], vals)
-    assert FrVector.from_ints(vals, crs.domain).to_ints() == jdata.to_ints()
+    assert FrVector.from_ints(vals, crs.domain, "cpu").to_ints() == jdata.to_ints()
 
 
 @pytest.mark.parametrize("point", [5, 2 * SIZE])
@@ -91,10 +91,10 @@ def test_commitment_proof_matches_jax(setup):
 def test_domain_256_round_trip():
     """The slice's main path at the width of an Ethereum verkle node, port
     only, on the CPU: commit (against the native oracle), prove, verify."""
-    crs = ipa_setup(256)
+    crs = ipa_setup(256, device="cpu")
     rng = random.Random(256)
     vals = [rng.randrange(1 << 250) for _ in range(256)]
-    data = FrVector.from_ints(vals, crs.domain)
+    data = FrVector.from_ints(vals, crs.domain, "cpu")
     commit = IPA.commit(crs, data)
     assert commit == native.g1_msm(crs.g_host, vals)
     proof = IPA.prove(crs, commit, 17, data)

@@ -44,7 +44,7 @@ def _points(n, seed):
 def test_digits_match_jax(c):
     ks = _scalars(40, 31 + c)
     js = jnp.asarray(ints_to_limbs(ks).T)
-    ts = F.ints_to_words(ks)
+    ts = F.ints_to_words(ks, "cpu")
     assert np.array_equal(np.asarray(JM.window_digits(js, c)), M.window_digits(ts, c).numpy())
     assert np.array_equal(
         np.asarray(JM.window_digits_signed(js, c)), M.window_digits_signed(ts, c).numpy()
@@ -61,7 +61,7 @@ def test_msm_matches_jax_and_oracle(n):
     of 64) and the exact oracles: python ints up to 64 points, the native
     C++ Pippenger at every size (the python one takes 20 s at 257)."""
     pts, ks = _points(n, 40 + n), _scalars(n, 50 + n)
-    got = C.projective_to_host_points(M.msm_auto(C.host_points_to_affine(pts), F.ints_to_words(ks)))[0]
+    got = C.projective_to_host_points(M.msm_auto(C.host_points_to_affine(pts, "cpu"), F.ints_to_words(ks, "cpu")))[0]
     jax_out = JM.msm_auto(JC.host_points_to_affine(pts), jnp.asarray(ints_to_limbs(ks).T))
     assert got == JC.projective_to_host_points(jax_out)[0]
     assert got == native.g1_msm(pts, ks)
@@ -82,7 +82,7 @@ def test_msm_matches_pallas_interpret():
     sc_stream = jnp.moveaxis(js.reshape(16, steps, lanes), 1, 0)
     masks = jnp.moveaxis(JM.signed_carries(js, 8).reshape(2, steps, lanes), 1, 0)
     want = PM.msm_single_fused_sc_signed(pts_stream, sc_stream, masks, 8, interpret=True)
-    got = M.msm_auto(C.host_points_to_affine(pts), F.ints_to_words(ks))
+    got = M.msm_auto(C.host_points_to_affine(pts, "cpu"), F.ints_to_words(ks, "cpu"))
     assert C.projective_to_host_points(got) == JC.projective_to_host_points(want)
 
 
@@ -94,11 +94,11 @@ def test_plain_kernels_agree_with_oracle():
     pts, ks = _points(n, 70), _scalars(n, 71)
     nseg, seg_len = M.segments(n)
     assert (nseg, seg_len) == (3, 14)
-    pa = torch.nn.functional.pad(C.host_points_to_affine(pts), (0, 0, 0, 0, 0, 2))
-    sc = torch.nn.functional.pad(F.ints_to_words(ks), (0, 0, 0, 2))
+    pa = torch.nn.functional.pad(C.host_points_to_affine(pts, "cpu"), (0, 0, 0, 0, 0, 2))
+    sc = torch.nn.functional.pad(F.ints_to_words(ks, "cpu"), (0, 0, 0, 2))
     table = K.accumulate(pa, sc, M.signed_carries(sc, 8), nseg, seg_len)
     assert table.shape == (32, 3, 128, 3, 8)
-    digits = M.window_digits_signed(F.ints_to_words(ks), 8)  # no tie in these windows
+    digits = M.window_digits_signed(F.ints_to_words(ks, "cpu"), 8)  # no tie in these windows
     w = 0
     folded = M.fold_reduce_lanes(table, dim=1)[:, 0]
     for row in (0, 1, 127):

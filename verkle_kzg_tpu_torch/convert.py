@@ -13,11 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops import cuda_lib
 from .poly import Domain, FrVector
 from .schemes.ipa import IPAParams
 
 
-def limb_planes_to_tensor(planes, device="cpu") -> torch.Tensor:
+def limb_planes_to_tensor(planes, device) -> torch.Tensor:
     """(16, N) uint32 limb planes -> (N, 8) int32 words."""
     arr = np.asarray(planes, dtype=np.uint32)
     words = arr[0::2] | (arr[1::2] << np.uint32(16))
@@ -33,7 +34,7 @@ def tensor_to_limb_planes(t: torch.Tensor) -> np.ndarray:
     return out
 
 
-def ipa_params_from_jax(params, device="cpu") -> IPAParams:
+def ipa_params_from_jax(params, device=None) -> IPAParams:
     """``verkle_kzg_tpu.schemes.ipa.IPAParams`` -> the port's, reusing its
     host points (no second hash-to-curve run)."""
     return IPAParams(
@@ -41,10 +42,46 @@ def ipa_params_from_jax(params, device="cpu") -> IPAParams:
         g_host=list(params.g_host),
         q_host=params.q_host,
         domain=Domain(params.domain.size),
-        device=torch.device(device),
+        device=device,
     )
 
 
-def frvector_from_jax(vec, device="cpu") -> FrVector:
+def frvector_from_jax(vec, device=None) -> FrVector:
     """``verkle_kzg_tpu.poly.FrVector`` -> the port's (same Montgomery values)."""
-    return FrVector(limb_planes_to_tensor(np.asarray(vec.vals), device), vec.max, Domain(vec.domain.size))
+    vals = limb_planes_to_tensor(np.asarray(vec.vals), cuda_lib.resolve_device(device))
+    return FrVector(vals, vec.max, Domain(vec.domain.size))
+
+
+def prover_queries_from_jax(queries, device=None) -> list:
+    """A list of ``verkle_kzg_tpu.schemes.ProverQuery`` -> the port's, one
+    port vector per distinct JAX vector (queries that share a data object
+    share it here too)."""
+    from .schemes.multiproof import ProverQuery
+
+    vecs = {}
+    out = []
+    for q in queries:
+        if id(q.data) not in vecs:
+            vecs[id(q.data)] = frvector_from_jax(q.data, device)
+        out.append(ProverQuery(data=vecs[id(q.data)], commit=q.commit, z=q.z, y=q.y))
+    return out
+
+
+def verkle_tree_from_jax(jax_tree, params: IPAParams):
+    """A ``verkle_kzg_tpu.verkle.VerkleTree`` -> the port's tree over the
+    IPA and ``params``: the same geometry and the same nodes, stems and
+    leaves, with no commitment cached, so that both packages commit the
+    same state."""
+    from .schemes.ipa import IPA
+    from .verkle.tree import ExtensionNode, InternalNode, VerkleTree
+
+    def copy(node):
+        if hasattr(node, "stem"):
+            return ExtensionNode(stem=tuple(node.stem), leaves=dict(node.leaves))
+        return InternalNode(children={u: copy(ch) for u, ch in node.children.items()})
+
+    tree = VerkleTree(
+        IPA, params, jax_tree.key_len, ext_width=jax_tree.ext_width, internal_width=jax_tree.internal_width
+    )
+    tree.root = copy(jax_tree.root)
+    return tree

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels (K1-K4) and count their launches.
+"""Build and load the port's CUDA kernels (K1-K7) and count their launches.
 
-Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, into ``verkle_kzg_tpu_torch/_build/`` (git-ignored),
-under a name keyed by a digest of the sources, so an edited source is
-rebuilt and an unchanged one is loaded as it is. There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and the objects are
+linked into ONE shared library with a plain C interface, loaded with
+``ctypes``. The build runs at first use, into ``verkle_kzg_tpu_torch/_build/``
+(git-ignored), under a name keyed by a digest of the sources, so an edited
+source is rebuilt and an unchanged one is loaded as it is. There is no
+fallback: a missing ``nvcc`` or a failed build raises.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise through :func:`check` when it is not zero.
@@ -28,7 +29,7 @@ BUILD = _PKG / "_build"
 
 #: Launches per kernel since the last :func:`reset_launches`. Each wrapper
 #: adds one where it launches its kernel, and nowhere else.
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+launches = {f"K{i}": 0 for i in range(1, 8)}
 
 _lib = None
 _P = ctypes.c_void_p
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "vkzg_point_add": [_P, _P, _P, _I, _P],
     "vkzg_msm_accumulate": [_P, _P, _P, _P, _I, _I, _P],
     "vkzg_msm_tail": [_P, _P, _P],
+    "vkzg_scalar_mul": [_P, _P, _P, _I, _P],
+    "vkzg_msm_batched_accumulate": [_P, _I, _P, _P, ctypes.c_int, _I, _I, _I, ctypes.c_int, _P],
+    "vkzg_msm_batched_tail": [_P, _P, ctypes.c_int, _I, ctypes.c_int, ctypes.c_int, _P],
 }
 
 
@@ -68,22 +72,39 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels if this source digest has no library yet."""
-    so = BUILD / f"libvkzg_torch_{_digest()}.so"
+    """Compile the kernels if this source digest has no library yet: one
+    ``nvcc -c`` per source in parallel, then one link."""
+    digest = _digest()
+    so = BUILD / f"libvkzg_torch_{digest}.so"
     if so.exists():
         return so
-    BUILD.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD / f"obj_{digest}_{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    jobs = []
+    for src in _sources():
+        obj = objdir / (src.stem + ".o")
+        cmd = [nvcc, *flags, "-Xptxas", "-v", "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out[-4000:]}")
+    (BUILD / "ptxas.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-I", str(CSRC), "-o", str(tmp),
-    ] + [str(p) for p in _sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD / "ptxas.log").write_text(res.stdout + res.stderr)
+    res = subprocess.run([nvcc, *flags, "-shared", "-o", str(tmp)] + [str(o) for _, o, _ in jobs],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
     os.replace(tmp, so)
+    shutil.rmtree(objdir, ignore_errors=True)
     return so
 
 
@@ -118,3 +139,14 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must all lie on one CUDA device")
         if t.dtype != torch.int32 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned int32")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    CUDA card. Without a card and without an explicit device this raises;
+    the entry points never fall back to the CPU quietly."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain PyTorch versions")
+    return torch.device("cuda")

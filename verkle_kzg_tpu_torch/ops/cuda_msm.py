@@ -48,18 +48,23 @@ CHUNKS = 4  # K4 threads per window
 MASK_WORDS = 2  # carry_mask_words(32)
 
 
+def signed_digits(sc, masks) -> torch.Tensor:
+    """The digits K3 derives: (n, 8) standard scalars x (n, 2) carry words
+    -> (n, 32) int64, d_w = byte w + carry-in bit w - (carry-out bit w+1) << 8."""
+    dev = sc.device
+    v = sc.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.tensor([0, 8, 16, 24], device=dev)
+    raw = ((v[..., None] >> shifts) & 0xFF).reshape(-1, W)
+    mv = masks.to(torch.int64) & 0xFFFFFFFF
+    bits = ((mv[..., None] >> torch.arange(32, device=dev)) & 1).reshape(-1, 32 * MASK_WORDS)
+    return raw + bits[:, :W] - (bits[:, 1 : W + 1] << 8)
+
+
 def plain_accumulate(pts, sc, masks, nseg: int, seg_len: int) -> torch.Tensor:
     """K3's plain version: (S*L, 2, 8) affine x (S*L, 8) standard scalars x
     (S*L, 2) carry words -> (32, S, 128, 3, 8) reduced bucket tables."""
     dev = pts.device
-    n = nseg * seg_len
-    v = sc.to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.tensor([0, 8, 16, 24], device=dev)
-    raw = ((v[..., None] >> shifts) & 0xFF).reshape(n, W)
-    mv = masks.to(torch.int64) & 0xFFFFFFFF
-    bits = ((mv[..., None] >> torch.arange(32, device=dev)) & 1).reshape(n, 32 * MASK_WORDS)
-    d = raw + bits[:, :W] - (bits[:, 1 : W + 1] << 8)  # (n, W)
-    d = d.reshape(nseg, seg_len, W).permute(2, 0, 1)  # (W, S, L)
+    d = signed_digits(sc, masks).reshape(nseg, seg_len, W).permute(2, 0, 1)  # (W, S, L)
 
     p = F.to_limbs(pts).reshape(nseg, seg_len, 2, F.LIMBS)
     neg_y = F.sub16(torch.zeros_like(p[..., 1, :]), p[..., 1, :], "fq")

@@ -1,0 +1,148 @@
+"""Kernels K6 and K7: the lane-batched Pippenger accumulation and tail.
+
+A batch of B independent MSMs, each lane its own MSM over N points: the
+dense verkle node commits (``verkle/tree.py::_dense_commit`` ->
+``ops/msm.py::msm_fixed_base``, the 256-point basis shared by every lane)
+and ``msm_batched`` (points per lane). Digits are the balanced signed
+window digits of ``ops/msm.py::window_digits_signed``, c in [2, 7], so a
+window has 2^(c-1) bucket rows, row |d| - 1 holding the bucket of digit
++-|d|.
+
+K6 replaces ``verkle_kzg_tpu/ops/pallas_msm.py``: the launch at line 853 in
+``_bucket_accumulate_impl`` with body ``_accum_kernel_pair`` (helpers
+``_gather_scatter_step_pair``, ``_negate_y_sel``). The TPU cannot scatter,
+so each of its lanes kept a private bucket column and every step gathered
+and scattered the whole table with masks, two windows interleaved for
+latency. Hopper scatters freely, so here one thread owns one (window,
+lane, point segment) with its own 2^(c-1)-row table in global memory
+(16 rows x 96 bytes at c = 5): a step reads the row |d| - 1, does one lazy
+mixed add (11 Montgomery products) with y negated for d < 0 and writes the
+row back; the rows are reduced at the end. A verkle level of 40 dense
+nodes at width 256 is only W x B = 52 x 40 = 2,080 (window, lane) pairs,
+under one warp per SM, so the point stream is cut into segments as K3
+does (``ops/msm.py::segments``, 16 at N = 256) and K2 folds the partial
+tables. The kernel is bound by the latency of its scattered 96-byte row
+accesses and of the serial mixed adds of a segment more than by multiply
+throughput.
+
+K7 replaces the launch at line 1152, ``_batched_tail_kernel``: per lane,
+each window's weighted bucket sum sum_i (i + 1) B_i, then Horner from the
+top window (c doublings, then an add), output reduced. One block per lane,
+one thread per window for the weighted sums (2 x 2^(c-1) lazy adds each,
+in parallel), then thread 0 runs Horner's W (c + 1) dependent point
+operations (about 312 at width 256), which bound the kernel by latency,
+whatever B is.
+
+Both plain versions follow their kernel's order of additions and domain
+(lazy, reduced at the end), so kernel and plain version agree bit for bit.
+The tail adds in another order than the JAX double suffix scan, so against
+the JAX package only the group element is compared.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import cuda_lib
+from . import curve as C
+from . import field as F
+
+
+def windows(c: int) -> int:
+    return math.ceil(256 / c)
+
+
+def rows(c: int) -> int:
+    """Bucket rows per signed window (``pallas_msm.signed_table_size``)."""
+    return 1 << (c - 1)
+
+
+def _check_c(c: int) -> None:
+    if not 2 <= c <= 7:
+        raise ValueError(f"the batched MSM kernels take c in [2, 7], got {c}")
+
+
+def plain_accumulate(pts, digits, nseg: int, seg_len: int, c: int) -> torch.Tensor:
+    """K6's plain version: (S*L, 2, 8) shared or (B, S*L, 2, 8) per-lane
+    affine points x (W, B, S*L) int32 signed digits -> (W, B, S, rows, 3, 8)
+    reduced bucket tables."""
+    _check_c(c)
+    w, b, n = digits.shape
+    dev = digits.device
+    d = digits.to(torch.int64).reshape(w, b, nseg, seg_len)
+    p = F.to_limbs(pts).reshape(-1, nseg, seg_len, 2, F.LIMBS)  # (1 or B, S, L, 2, 16)
+    neg_y = F.sub16(torch.zeros_like(p[..., 1, :]), p[..., 1, :], "fq")
+    table = C.infinity16((w, b, nseg, rows(c)), dev)
+    wi = torch.arange(w, device=dev)[:, None, None]
+    bi = torch.arange(b, device=dev)[None, :, None]
+    si = torch.arange(nseg, device=dev)[None, None, :]
+    for i in range(seg_len):
+        di = d[..., i]  # (W, B, S)
+        x = p[None, :, :, i, 0].expand(w, b, nseg, F.LIMBS)
+        y = torch.where((di < 0)[..., None], neg_y[None, :, :, i], p[None, :, :, i, 1])
+        q = torch.stack([x, y], dim=-2)
+        row = di.abs().clamp(min=1) - 1
+        cur = table[wi, bi, si, row]
+        new = C.mixed_add16(cur, q, lazy=True)  # the (0, 0) sentinel leaves cur
+        table[wi, bi, si, row] = torch.where((di != 0)[..., None, None], new, cur)
+    return F.from_limbs(C.reduce16(table))
+
+
+def accumulate(pts, digits, nseg: int, seg_len: int, c: int) -> torch.Tensor:
+    if pts.device.type == "cpu" and digits.device.type == "cpu":
+        return plain_accumulate(pts, digits, nseg, seg_len, c)
+    _check_c(c)
+    w, b, n = digits.shape
+    shared = pts.dim() == 3
+    if n != nseg * seg_len or w != windows(c) or pts.shape != ((n, 2, 8) if shared else (b, n, 2, 8)):
+        raise ValueError("msm_batched accumulate: shapes do not match the segmentation")
+    cuda_lib.require_cuda("msm_batched.accumulate", pts, digits)
+    table = torch.empty((w, b, nseg, rows(c), 3, 8), dtype=torch.int32, device=pts.device)
+    if table.numel():
+        err = cuda_lib.lib().vkzg_msm_batched_accumulate(
+            pts.data_ptr(), 0 if shared else n * 16, digits.data_ptr(), table.data_ptr(),
+            w, b, nseg, seg_len, rows(c), cuda_lib.stream(pts),
+        )
+        cuda_lib.check(err, "vkzg_msm_batched_accumulate")
+        cuda_lib.launches["K6"] += 1
+    return table
+
+
+def plain_tail(buckets: torch.Tensor, c: int) -> torch.Tensor:
+    """K7's plain version: (W, B, rows, 3, 8) reduced buckets (row i = the
+    bucket of digit i + 1) -> (B, 3, 8) reduced projective, per lane
+    sum_w 2^(cw) sum_i (i + 1) B_wi."""
+    _check_c(c)
+    w, b = buckets.shape[:2]
+    bk = F.to_limbs(buckets)
+    s = C.infinity16((w, b), buckets.device)
+    t = s
+    for j in range(rows(c) - 1, -1, -1):
+        s = C.add16(s, bk[:, :, j], lazy=True)
+        t = C.add16(t, s, lazy=True)
+    acc = t[w - 1]
+    for win in range(w - 2, -1, -1):
+        for _ in range(c):
+            acc = C.double16(acc, lazy=True)
+        acc = C.add16(acc, t[win], lazy=True)
+    return F.from_limbs(C.reduce16(acc))
+
+
+def tail(buckets: torch.Tensor, c: int) -> torch.Tensor:
+    if buckets.device.type == "cpu":
+        return plain_tail(buckets, c)
+    _check_c(c)
+    w, b = buckets.shape[:2]
+    if buckets.shape != (windows(c), b, rows(c), 3, 8):
+        raise ValueError("msm_batched tail: buckets must be (W, B, 2^(c-1), 3, 8)")
+    cuda_lib.require_cuda("msm_batched.tail", buckets)
+    out = torch.empty((b, 3, 8), dtype=torch.int32, device=buckets.device)
+    if b:
+        err = cuda_lib.lib().vkzg_msm_batched_tail(
+            buckets.data_ptr(), out.data_ptr(), w, b, rows(c), c, cuda_lib.stream(buckets)
+        )
+        cuda_lib.check(err, "vkzg_msm_batched_tail")
+        cuda_lib.launches["K7"] += 1
+    return out

@@ -13,16 +13,17 @@ the plain versions of the group law in ``csrc/bn254_curve.cuh``: each
 follows the same sequence of field operations as its Pallas twin in
 ``verkle_kzg_tpu/ops/pallas_curve.py``, so in the same domain (reduced or
 lazy) all three give the same projective representative. ``add`` on word
-tensors is kernel K2 (``cuda_curve.py``); ``double`` and ``mixed_add`` on
-word tensors exist for the CPU only, because their standalone kernels are
-still to be ported.
+tensors is kernel K2 (``cuda_curve.py``) and ``scalar_mul_affine`` is kernel
+K5 (``cuda_scalar_mul.py``); ``double``, ``mixed_add`` and ``scalar_mul``
+on word tensors exist for the CPU only, because their standalone kernels
+are still to be ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from verkle_kzg_tpu.params import Q
+from ..params import Q
 
 from . import field as F
 
@@ -149,14 +150,46 @@ def mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
     return F.from_limbs(mixed_add16(F.to_limbs(p), F.to_limbs(q_aff)))
 
 
-def infinity(shape=(), device="cpu") -> torch.Tensor:
+def scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """Branchless double-and-add on CPU word tensors (``ops/curve.py::scalar_mul``):
+    (..., 3, 8) projective points x (..., 8) standard scalars, reduced
+    domain, the complete add and a per-bit select, as the JAX package's XLA
+    path runs it."""
+    _cpu_only("scalar_mul", p)
+    q = F.to_limbs(p)
+    acc = infinity16(p.shape[:-2], p.device)
+    for bit in scalar_bits_msb(scalars):
+        acc = double16(acc)
+        acc = torch.where(bit[..., None, None] != 0, add16(acc, q), acc)
+    return F.from_limbs(acc)
+
+
+def scalar_mul_affine(pts: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """(n, 2, 8) canonical affine x (n, 8) standard scalars -> (n, 3, 8)
+    reduced projective products (``pallas_curve.scalar_mul_affine``). K5."""
+    return _k5.scalar_mul_affine(pts, scalars)
+
+
+def affine_is_infinity(a: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 8) affine -> (...) bool: the (0, 0) sentinel."""
+    return (a == 0).flatten(-2).all(-1)
+
+
+def scalar_bits_msb(scalars: torch.Tensor) -> torch.Tensor:
+    """(..., 8) standard scalar words -> (256, ...) int64 bits, MSB first."""
+    v = scalars.to(torch.int64) & 0xFFFFFFFF
+    bits = (v[..., None] >> torch.arange(32, device=v.device)) & 1  # bit j of word w
+    return bits.flatten(-2).flip(-1).movedim(-1, 0)
+
+
+def infinity(shape, device) -> torch.Tensor:
     return F.from_limbs(infinity16(shape, device))
 
 
 def from_affine(a: torch.Tensor) -> torch.Tensor:
     """(..., 2, 8) affine with the (0, 0) sentinel -> (..., 3, 8) projective."""
     one = F.const_words(F.SPECS[_FQ].r_mod, a.device)
-    inf = (a == 0).flatten(-2).all(-1)[..., None]
+    inf = affine_is_infinity(a)[..., None]
     x, y = a.unbind(-2)
     y = torch.where(inf, one, y)
     z = torch.where(inf, torch.zeros_like(one), one).expand_as(x)
@@ -172,7 +205,7 @@ def to_affine(p: torch.Tensor) -> torch.Tensor:
     return torch.stack([F.mont_mul(x, zinv, _FQ), F.mont_mul(y, zinv, _FQ)], dim=-2)
 
 
-def host_points_to_affine(points, device="cpu") -> torch.Tensor:
+def host_points_to_affine(points, device) -> torch.Tensor:
     """Host affine points ((x, y) ints or None) -> (N, 2, 8) Montgomery words
     with the (0, 0) sentinel."""
     coords = []
@@ -198,3 +231,4 @@ def projective_to_host_points(p: torch.Tensor) -> list:
 
 
 from . import cuda_curve as _k2  # noqa: E402  (K2 wrapper; it imports this module)
+from . import cuda_scalar_mul as _k5  # noqa: E402  (K5 wrapper; it imports this module)

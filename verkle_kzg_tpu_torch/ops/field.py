@@ -9,10 +9,12 @@ Montgomery *integers* equal the JAX package's; only the limb split differs
 
 Two layers live here:
 
-  * the public element-wise API (``mont_mul``, ``add``, ``sub``, ``neg``,
-    ``to_mont``, ``from_mont``, ``inv_mont``, ``sum_lanes``) on word tensors. Products and
-    modular add/sub go through kernel K1 (``cuda_field.py``), which runs its
-    plain version only for tensors on the CPU;
+  * the public API on word tensors: element-wise ``mont_mul``, ``add``,
+    ``sub``, ``neg``, ``to_mont``, ``from_mont``, ``inv_mont``, and across
+    elements ``sum_lanes``/``sum_axis``, ``batch_inv_mont`` and
+    ``powers_of_mont``. Every product and modular add/sub goes through
+    kernel K1 (``cuda_field.py``), which runs its plain version only for
+    tensors on the CPU;
   * the plain arithmetic itself, on 16-bit limbs widened to ``int64``
     (``(..., 16)``). PyTorch on the CPU has no unsigned 32-bit ``+``, ``>>``
     or comparisons, and a 32x32-bit product does not fit in signed int64,
@@ -32,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from verkle_kzg_tpu.params import FQ, FR, FieldSpec
+from ..params import FQ, FR, FieldSpec
 
 SPECS: dict[str, FieldSpec] = {"fq": FQ, "fr": FR}
 WORDS = 8
@@ -45,7 +47,7 @@ _M16 = 0xFFFF
 # ---------------------------------------------------------------------------
 
 
-def ints_to_words(xs, device="cpu") -> torch.Tensor:
+def ints_to_words(xs, device) -> torch.Tensor:
     """Python ints in [0, 2^256) -> (len(xs), 8) int32 words."""
     buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
     arr = np.frombuffer(buf, dtype="<u4").reshape(len(xs), WORDS)
@@ -59,7 +61,7 @@ def words_to_ints(t: torch.Tensor) -> list:
     return [int.from_bytes(flat[32 * i : 32 * i + 32], "little") for i in range(len(flat) // 32)]
 
 
-def ints_to_mont(xs, spec: str, device="cpu") -> torch.Tensor:
+def ints_to_mont(xs, spec: str, device) -> torch.Tensor:
     """Python ints -> (len(xs), 8) Montgomery words, computed on the host."""
     m = SPECS[spec].modulus
     return ints_to_words([(int(x) % m << 256) % m for x in xs], device)
@@ -283,6 +285,55 @@ def sum_lanes(a: torch.Tensor, spec: str) -> torch.Tensor:
             folded = torch.cat([folded, a[..., 2 * half :, :]], dim=-2)
         a = folded
     return a
+
+
+def sum_axis(a: torch.Tensor, dim: int, spec: str) -> torch.Tensor:
+    """Modular sum over a batch axis ``dim`` (not the word axis), kept with
+    size 1: the exact counterpart of the JAX package's ``lazy_sum``, as the
+    K1 add tree of :func:`sum_lanes`."""
+    dim = dim % a.dim()
+    assert dim != a.dim() - 1, "sum_axis: the word axis is not a batch axis"
+    return sum_lanes(a.movedim(dim, -2), spec).movedim(-2, dim)
+
+
+def _scan_products(a: torch.Tensor, spec: str) -> torch.Tensor:
+    """Inclusive prefix products over the element axis (-2), Hillis-Steele:
+    log2(N) rounds of K1 products."""
+    k = 1
+    while k < a.shape[-2]:
+        a = torch.cat([a[..., :k, :], mont_mul(a[..., k:, :], a[..., :-k, :], spec)], dim=-2)
+        k *= 2
+    return a
+
+
+def batch_inv_mont(a: torch.Tensor, spec: str) -> torch.Tensor:
+    """Montgomery's trick over the element axis (-2) of (..., N, 8)
+    Montgomery words, each leading index on its own: prefix and suffix
+    products, ONE Fermat inversion of each total, two products per element
+    (``ops/field.py::batch_inv_mont``). Zero entries invert to zero
+    (ark_ff::batch_inversion skips zeros)."""
+    z = (a == 0).all(-1, keepdim=True)
+    one = const_words(SPECS[spec].r_mod, a.device).expand_as(a[..., :1, :])
+    safe = torch.where(z, one, a)
+    prefix = _scan_products(safe, spec)
+    suffix = _scan_products(safe.flip(-2), spec).flip(-2)
+    total_inv = inv_mont(prefix[..., -1:, :].contiguous(), spec)
+    left = torch.cat([one, prefix[..., :-1, :]], dim=-2)
+    right = torch.cat([suffix[..., 1:, :], one], dim=-2)
+    inv = mont_mul(mont_mul(left, right, spec), total_inv.expand_as(a), spec)
+    return torch.where(z, a, inv)
+
+
+def powers_of_mont(x: torch.Tensor, n: int, spec: str) -> torch.Tensor:
+    """[1, x, ..., x^(n-1)] of one (8,) Montgomery element -> (n, 8), by
+    doubling the known prefix with one K1 product per round
+    (``ops/field.py::powers_of_mont``, ``utils.rs:44-55``)."""
+    out = const_words(SPECS[spec].r_mod, x.device)[None]
+    step = x[None]  # x^len(out)
+    while out.shape[0] < n:
+        out = torch.cat([out, mont_mul(out, step.expand_as(out), spec)])
+        step = mont_mul(step, step, spec)
+    return out[:n]
 
 
 from . import cuda_field as _k1  # noqa: E402  (K1 wrapper; it imports this module)

@@ -1,8 +1,9 @@
-"""Single multi-scalar multiplication (MSM): signed-digit Pippenger.
+"""Multi-scalar multiplication (MSM): signed-digit Pippenger, single and
+lane-batched, and double-and-add for small N.
 
-The counterpart of the single-MSM half of ``verkle_kzg_tpu/ops/msm.py``.
-One MSM of N (affine point, standard scalar) pairs -> one projective point
-``(3, 8)`` with reduced coordinates, in three launches:
+The counterpart of ``verkle_kzg_tpu/ops/msm.py``. A single MSM of N >= 64
+(affine point, standard scalar) pairs -> one projective point ``(3, 8)``
+with reduced coordinates, in three launches:
 
   1. K3 (``cuda_msm.accumulate``): balanced signed c = 8 digits derived
      from the scalar words and the packed carry bits of
@@ -11,10 +12,18 @@ One MSM of N (affine point, standard scalar) pairs -> one projective point
   2. K2 (``curve.add``) folds the S segments (:func:`fold_reduce_lanes`);
   3. K4 (``cuda_msm.tail``): the weighted bucket sums and Horner.
 
-Every size goes through these kernels, small MSMs included: the JAX
-package's double-and-add kernel for N < 64 (``pallas_curve.scalar_mul_affine``)
-is still to be ported. Only the group element is contract; the JAX
-package's own paths return other projective representatives.
+Below 64 points ``msm_auto`` multiplies each point by its scalar with K5
+(``curve.scalar_mul_affine``) and folds the products with K2, as the JAX
+package does on the chip: the bucket machinery costs W x 2^(c-1) rows
+whatever N is.
+
+A batch of B independent MSMs (``msm_fixed_base``: one basis for every
+lane, the dense verkle node commits; ``msm_batched``: points per lane)
+takes K6 (``cuda_msm_batched.accumulate``) over LSB-carry signed digits
+(:func:`window_digits_signed`) with c from :func:`_auto_c_batched`, the K2
+fold of the point segments, and K7 (``cuda_msm_batched.tail``); below 64
+points per lane, K5 and a K2 fold. Only the group element is contract; the
+JAX package's own paths return other projective representatives.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ import torch
 
 from ..utils import metrics
 from . import cuda_msm as K
+from . import cuda_msm_batched as KB
 from . import curve as C
+from . import field as F
 
 TOTAL_BITS = 256
 SEG_MIN = 16  # points per segment at least
@@ -143,8 +154,77 @@ def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | N
 
 
 def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None):
-    """Single MSM entry point (``ops/msm.py::msm_auto``): every size runs
-    the Pippenger kernels."""
+    """Single MSM entry point (``ops/msm.py::msm_auto``): double-and-add
+    (K5) and a K2 fold below 64 points, Pippenger (K3, K2, K4) from 64 on."""
     metrics.record("msm.single.calls")
     metrics.record("msm.single.points", points_affine.shape[0])
+    if points_affine.shape[0] < 64:
+        return fold_reduce_lanes(C.scalar_mul_affine(points_affine, scalars), dim=0)[0]
     return msm_pippenger(points_affine, scalars, c=c)
+
+
+# ---------------------------------------------------------------------------
+# Lane-batched MSMs: each lane of a batch is an independent MSM
+# ---------------------------------------------------------------------------
+
+
+def _auto_c_batched(n: int, c: int | None = None) -> int:
+    """Window width for the lane-batched path (``ops/msm.py::_auto_c_batched``):
+    the bucket tails cost W x 2^(c-1) point adds per MSM, which do not
+    amortize over a large N, so c ~ log2(N) / 2 + 1: 4 at N = 64, 5 at 256."""
+    return c if c is not None else min(6, max(2, (n.bit_length() - 1) // 2 + 1))
+
+
+def _batched_naive_affine(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """(B, N, 2, 8) affine x (B, N, 8) standard scalars -> (B, 3, 8): the
+    B * N scalar multiplications in ONE K5 launch, then a K2 fold over N
+    (``ops/msm.py::_batched_naive_affine``)."""
+    b, n = scalars.shape[:2]
+    prods = C.scalar_mul_affine(
+        points_affine.reshape(b * n, 2, F.WORDS).contiguous(), scalars.reshape(b * n, F.WORDS).contiguous()
+    )
+    return fold_reduce_lanes(prods.reshape(b, n, 3, F.WORDS), dim=1)[:, 0]
+
+
+def _msm_lanewise(points_affine: torch.Tensor, scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """Core batched Pippenger (``ops/msm.py::_msm_lanewise``): (N, 2, 8)
+    shared or (B, N, 2, 8) per-lane points x (B, N, 8) standard scalars ->
+    (B, 3, 8). The scalars become (W, B, N) LSB-carry signed digits, the
+    point stream is cut into segments (zero digits and (0, 0) points pad
+    it), K6 fills one bucket table per (window, lane, segment), K2 folds
+    the segments and K7 runs the tails."""
+    digits = window_digits_signed(scalars, c).to(torch.int32)
+    n = digits.shape[-1]
+    nseg, seg_len = segments(n)
+    pad = nseg * seg_len - n
+    if pad:
+        digits = torch.nn.functional.pad(digits, (0, pad))
+        points_affine = torch.nn.functional.pad(points_affine, (0, 0, 0, 0, 0, pad))  # N is dim -3
+    table = KB.accumulate(points_affine.contiguous(), digits.contiguous(), nseg, seg_len, c)
+    buckets = fold_reduce_lanes(table, dim=2)[:, :, 0].contiguous()
+    return KB.tail(buckets, c)
+
+
+def msm_batched(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:
+    """Batch of B independent MSMs (``ops/msm.py::msm_batched``):
+    (B, N, 2, 8) affine x (B, N, 8) standard scalars -> (B, 3, 8) reduced."""
+    b, n = scalars.shape[:2]
+    metrics.record("msm.batched.calls")
+    metrics.record("msm.batched.points", b * n)
+    if n < 64:
+        return _batched_naive_affine(points_affine, scalars)
+    c = _auto_c_batched(n, c)
+    return _msm_lanewise(points_affine, scalars, c)
+
+
+def msm_fixed_base(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:
+    """Fixed-basis MSM for a stack of scalar vectors (``ops/msm.py::msm_fixed_base``):
+    (N, 2, 8) affine x (B, N, 8) standard scalars -> (B, 3, 8) reduced. The
+    basis is read by every lane and never copied per lane."""
+    b, n = scalars.shape[:2]
+    metrics.record("msm.fixed_base.calls")
+    metrics.record("msm.fixed_base.points", b * n)
+    if n < 64:
+        return _batched_naive_affine(points_affine[None].expand(b, n, 2, F.WORDS), scalars)
+    c = _auto_c_batched(n, c)
+    return _msm_lanewise(points_affine, scalars, c)

@@ -2,7 +2,8 @@
 
 The host keeps python-int mirrors (the IPA needs just the barycentric
 coefficients of one point at a time); the device mirrors are Montgomery
-``(N, 8)`` word tensors, made once per device on first use.
+``(N, 8)`` word tensors, made once per device on first use, and
+``invdiff_rows`` feeds the multiproof's in-domain quotients.
 """
 
 from __future__ import annotations
@@ -11,8 +12,8 @@ import functools
 
 import torch
 
-from verkle_kzg_tpu.hostmath.field import fr_batch_inverse, fr_inv
-from verkle_kzg_tpu.params import R, fr_root_of_unity
+from ..hostmath.field import fr_batch_inverse, fr_inv
+from ..params import R, fr_root_of_unity
 
 from ..ops import field as F
 
@@ -38,14 +39,24 @@ class Domain:
         self.vanishing_inv = fr_batch_inverse(self.vanishing)
         self._mirrors: dict = {}
 
-    def d_omegas(self, device="cpu") -> torch.Tensor:
+    def d_omegas(self, device) -> torch.Tensor:
         return self._mirror("omegas", device)
 
-    def d_vanishing(self, device="cpu") -> torch.Tensor:
+    def d_vanishing(self, device) -> torch.Tensor:
         return self._mirror("vanishing", device)
 
-    def d_vanishing_inv(self, device="cpu") -> torch.Tensor:
+    def d_vanishing_inv(self, device) -> torch.Tensor:
         return self._mirror("vanishing_inv", device)
+
+    def invdiff_rows(self, z_sel: torch.Tensor) -> torch.Tensor:
+        """(Zq,) domain indices (an int64 tensor on the target device) ->
+        (Zq, N, 8) Montgomery rows InvDiff[k, i] = 1 / (w^i - w^z_k), zero
+        where i == z_k (``poly/domain.py::invdiff_rows``): one broadcast
+        subtract and one batched inversion per row, for the selected
+        indices only."""
+        omegas = self.d_omegas(z_sel.device)
+        diff = F.sub(omegas[None], omegas[z_sel][:, None], "fr")
+        return F.batch_inv_mont(diff, "fr")
 
     def _mirror(self, name: str, device) -> torch.Tensor:
         key = (name, torch.device(device))

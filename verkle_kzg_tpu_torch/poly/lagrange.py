@@ -1,10 +1,11 @@
 """Evaluation-form data vector (``verkle_kzg_tpu/poly/lagrange.py``),
-limited to what the IPA uses.
+limited to what the IPA and the multiproof use.
 
 ``vals`` is an ``(N, 8)`` int32 tensor of Montgomery words on one device,
 zero-padded past the ``max`` watermark. ``evaluate`` keeps the reference's
-three paths and their boundaries (COMPAT quirks 2 and 3). The quotients
-come with the multiproof slice.
+three paths and their boundaries (COMPAT quirks 2 and 3). The in-domain
+quotient is :func:`_quotient_in_domain`, batched over its leading axis for
+the multiproof.
 """
 
 from __future__ import annotations
@@ -13,10 +14,26 @@ import dataclasses
 
 import torch
 
-from verkle_kzg_tpu.params import R
+from ..params import R
 
+from ..ops import cuda_lib
 from ..ops import field as F
 from .domain import Domain
+
+
+def _quotient_in_domain(vals, invdiff_rows, ratio_rows, index):
+    """q = (f - f[z]) / (X - w^z) on the domain, with the q[z] correction
+    term of ``lagrange_basis.rs:91-119`` (``poly/lagrange.py::_quotient_in_domain``),
+    for a batch of rows at once: vals, invdiff_rows (1 / (w^i - w^z), zero
+    at i = z) and ratio_rows (A'(w^z) / A'(w^i)) are (Zq, N, 8) Montgomery
+    words, index the (Zq,) int64 domain indices z."""
+    rows = torch.arange(vals.shape[0], device=vals.device)
+    f_z = vals[rows, index][:, None]  # (Zq, 1, 8)
+    q = F.mont_mul(F.sub(vals, f_z, "fr"), invdiff_rows, "fr")  # zero at i = z
+    # q[z] = sum_i -(f_i - f_z) * ratio_i * invdiff_i
+    corr = F.sum_lanes(F.neg(F.mont_mul(q, ratio_rows, "fr"), "fr"), "fr")  # (Zq, 1, 8)
+    at_z = torch.arange(vals.shape[1], device=vals.device)[None, :] == index[:, None]
+    return torch.where(at_z[..., None], corr, q)
 
 
 @dataclasses.dataclass
@@ -26,13 +43,19 @@ class FrVector:
     domain: Domain
 
     @staticmethod
-    def from_ints(data, domain: Domain | None = None, device="cpu") -> "FrVector":
+    def from_ints(data, domain: Domain | None = None, device=None) -> "FrVector":
+        """On the CUDA card unless ``device`` says otherwise."""
         data = [d % R for d in data]
         if domain is None:
             domain = Domain(len(data))
         assert len(data) <= domain.size
         padded = data + [0] * (domain.size - len(data))
-        return FrVector(F.ints_to_mont(padded, "fr", device), len(data), domain)
+        return FrVector(F.ints_to_mont(padded, "fr", cuda_lib.resolve_device(device)), len(data), domain)
+
+    @staticmethod
+    def zero(domain: Domain, device=None) -> "FrVector":
+        vals = torch.zeros((domain.size, F.WORDS), dtype=torch.int32, device=cuda_lib.resolve_device(device))
+        return FrVector(vals, domain.size, domain)
 
     @property
     def device(self) -> torch.device:
@@ -60,6 +83,18 @@ class FrVector:
     def evaluate_outside_domain(self, point: int) -> int:
         b = self.domain.barycentric_coefficients(point)
         return sum(v * c % R for v, c in zip(self.to_ints(), b)) % R
+
+    def __add__(self, other: "FrVector") -> "FrVector":
+        assert self.domain is other.domain
+        return FrVector(F.add(self.vals, other.vals, "fr"), max(self.max, other.max), self.domain)
+
+    def __sub__(self, other: "FrVector") -> "FrVector":
+        assert self.domain is other.domain
+        return FrVector(F.sub(self.vals, other.vals, "fr"), max(self.max, other.max), self.domain)
+
+    def scale(self, k: int) -> "FrVector":
+        k_mont = F.ints_to_mont([k], "fr", self.device)
+        return FrVector(F.mont_mul(self.vals, k_mont, "fr"), self.max, self.domain)
 
     def set_evaluation(self, index: int, value: int) -> "FrVector":
         """Returns the updated vector; ``self`` is left as it was."""

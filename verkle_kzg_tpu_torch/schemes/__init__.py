@@ -1,7 +1,9 @@
-"""Commitment schemes: the IPA (KZG, FK and the multiproof come later)."""
+"""Commitment schemes: the IPA and the multiproof over it (KZG and FK come
+later)."""
 
 from .generators import DEFAULT_IPA_SEED, ipa_generate_points
 from .ipa import IPA, IPACommitProof, IPAParams, IPAProof, ipa_setup
+from .multiproof import Multiproof, ProverQuery, VerifierQuery, prove_multiproof, verify_multiproof
 
 __all__ = [
     "DEFAULT_IPA_SEED",
@@ -9,6 +11,11 @@ __all__ = [
     "IPACommitProof",
     "IPAParams",
     "IPAProof",
+    "Multiproof",
+    "ProverQuery",
+    "VerifierQuery",
     "ipa_generate_points",
     "ipa_setup",
+    "prove_multiproof",
+    "verify_multiproof",
 ]

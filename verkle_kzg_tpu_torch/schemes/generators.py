@@ -4,7 +4,7 @@ the reference's SHA-256 try-and-increment hash-to-curve points
 
 from __future__ import annotations
 
-from verkle_kzg_tpu.hostmath.hashing import eth_try_and_increment
+from ..hostmath.hashing import eth_try_and_increment
 
 DEFAULT_IPA_SEED = b"eth_verkle_oct_2021"
 

@@ -34,9 +34,10 @@ import functools
 import numpy as np
 import torch
 
-from verkle_kzg_tpu.fiatshamir.transcript import Transcript
-from verkle_kzg_tpu.params import R
+from ..fiatshamir.transcript import Transcript
+from ..params import R
 
+from ..ops import cuda_lib
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as M
@@ -48,13 +49,17 @@ from .generators import DEFAULT_IPA_SEED, ipa_generate_points
 @dataclasses.dataclass
 class IPAParams:
     """N basis points g, the inner-product point q, the domain, and the
-    device the CRS tensors live on (``ipa/mod.rs:22-68``)."""
+    device the CRS tensors live on (``ipa/mod.rs:22-68``): the CUDA card
+    unless ``device`` says otherwise."""
 
     n: int
     g_host: list
     q_host: tuple
     domain: Domain
-    device: torch.device = torch.device("cpu")
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        self.device = cuda_lib.resolve_device(self.device)
 
     @functools.cached_property
     def g_affine(self) -> torch.Tensor:
@@ -80,16 +85,23 @@ class IPACommitProof:
     tip: int
 
 
-def ipa_setup(n: int, seed: bytes = DEFAULT_IPA_SEED, device="cpu") -> IPAParams:
-    """N + 1 hash-to-curve points (``ipa/mod.rs:121-128``)."""
+def ipa_setup(n: int, seed: bytes = DEFAULT_IPA_SEED, device=None) -> IPAParams:
+    """N + 1 hash-to-curve points (``ipa/mod.rs:121-128``), on the CUDA card
+    unless ``device`` says otherwise."""
+    device = cuda_lib.resolve_device(device)
     pts = ipa_generate_points(n + 1, seed)
-    return IPAParams(n=n, g_host=pts[:n], q_host=pts[n], domain=Domain(n), device=torch.device(device))
+    return IPAParams(n=n, g_host=pts[:n], q_host=pts[n], domain=Domain(n), device=device)
 
 
 class IPA:
     """Namespace mirroring the reference's VectorCommitment impl for IPA."""
 
     transcript_label = "ipa"
+
+    @staticmethod
+    def basis_affine(params: IPAParams) -> torch.Tensor:
+        """The (N, 2, 8) commitment basis, for batched commits (the verkle tree)."""
+        return params.g_affine
 
     @staticmethod
     def commit(params: IPAParams, data: FrVector):
