@@ -9,7 +9,7 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K7) against its plain PyTorch version on the card, at
+  2. each kernel (K1-K10) against its plain PyTorch version on the card, at
      the shapes the main paths give it, exact, with its time and the least
      time the card could take for the same work;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
@@ -21,10 +21,13 @@ and no JAX. Phases, each of which raises on failure:
      present and 3 absent keys with one multiproof, verify statelessly;
      sampled commitments against the native C++ oracle, a 300-leaf tree on
      the card against the CPU plain path, and a profile of the commit;
-  6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3).
+  6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3);
+  7. the single-MSM sweep of BASELINE.json config 5, 2^16-2^22 points, at
+     c = 8, 4, 12 and 16 signed, and at 2^20 also unsigned c = 8 and 16 and
+     signed c = 5, 10 and 13, each run exact against an oracle.
 
-Each of phases 3, 5 and 6 sets the launch counts to 0 just before its path
-and reads them just after. The last two lines of standard output are the
+Each of phases 3, 5 and 6, and each run of phase 7, sets the launch
+counts to 0 just before its path and reads them just after. The last two lines of standard output are the
 card's name and power limit and a JSON object {"ok": true, "device": {...}};
 the line before them holds the per-kernel JSON record.
 """
@@ -32,6 +35,7 @@ the line before them holds the per-kernel JSON record.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import random
 import statistics
@@ -94,7 +98,7 @@ def bound(nbytes: float, fmuls: float) -> dict:
 
 
 def phase_kernels(dev, crs) -> dict:
-    """K1-K7 against their plain versions on the card, exact."""
+    """K1-K10 against their plain versions on the card, exact."""
     import torch
 
     from verkle_kzg_tpu_torch.hostmath import curve as hc
@@ -167,7 +171,7 @@ def phase_kernels(dev, crs) -> dict:
         if n == 257:
             want = hc.g1_msm_naive(pts, ks)
             assert C.projective_to_host_points(M.msm_auto(pa[:n], sc[:n])) == [want]
-            live = (K.signed_digits(sc, masks) != 0) & ~C.affine_is_infinity(pa)[:, None]
+            live = (K.scalar_digits(sc, masks, 8, True) != 0) & ~C.affine_is_infinity(pa)[:, None]
             rec["K3"] = {
                 "ms": cuda_ms(lambda: K.accumulate(pa, sc, masks, nseg, seg_len), 20),
                 "plain_ms": cuda_ms(lambda: K.plain_accumulate(pa, sc, masks, nseg, seg_len), 2),
@@ -175,14 +179,11 @@ def phase_kernels(dev, crs) -> dict:
                 **bound(4 * (pa.numel() + sc.numel() + masks.numel() + table.numel()),
                         int(live.sum()) * MIXED_FMULS),
             }
-            # window sums 32 x 4 x 32 x 2 adds; chunk combine 32 x (2 x 2 + 4)
-            # adds and 5 doublings; Horner 31 x (8 doublings + 1 add)
-            adds, dbls = 32 * 4 * 32 * 2 + 32 * 8 + 31, 32 * 5 + 31 * 8
             rec["K4"] = {
                 "ms": cuda_ms(lambda: K.tail(buckets), 20),
                 "plain_ms": cuda_ms(lambda: K.plain_tail(buckets), 2),
                 "shape": "32 x 128 buckets",
-                **bound(4 * (buckets.numel() + 24), adds * ADD_FMULS + dbls * DOUBLE_FMULS),
+                **bound(4 * (buckets.numel() + 24), tail_fmuls(32, 128, 8)),
             }
             rec["msm257"] = {
                 "ms": cuda_ms(lambda: M.msm_auto(pa[:n], sc[:n]), 20),
@@ -191,6 +192,102 @@ def phase_kernels(dev, crs) -> dict:
     rec["K3"]["max_abs_err"] = k3_err
     rec["K4"]["max_abs_err"] = k4_err
     rec.update(_kernels_k5_k7(dev, crs, rng))
+    rec.update(_kernels_windows(dev, base, rng))
+    return rec
+
+
+def tail_fmuls(w: int, rows: int, c: int) -> int:
+    """Montgomery products of K4 on (W, rows) buckets: two adds a row for
+    the chunk sums; per combine group of m >= 2 pairs 2 (m - 2) + 1 + m adds
+    and 5 doublings a level; Horner (W - 1) (c doublings + 1 add)."""
+    from verkle_kzg_tpu_torch.ops import cuda_msm as K
+
+    adds, dbls = w * 2 * rows, 0
+    for level, n in enumerate(K.tail_levels(rows)[:-1], start=1):
+        for g in range(math.ceil(n / K.CHUNK)):
+            m = min(K.CHUNK, n - K.CHUNK * g)
+            if m > 1:
+                adds += w * (2 * (m - 2) + 1 + m)
+                dbls += w * K.LOG2_CHUNK * level
+    adds += w - 1
+    dbls += (w - 1) * c
+    return adds * ADD_FMULS + dbls * DOUBLE_FMULS
+
+
+def _kernels_windows(dev, base, rng, n: int = 1 << 12) -> dict:
+    """The single MSM's other modes on 2^12 points (zero scalars, r - 1,
+    ties, (0, 0) points), exact against their plain versions: K3 at c = 1
+    and 4, K9 (c = 16), K8 (unsigned, c = 8 and 16), K6 unsigned at c = 5,
+    K10 at c = 12 signed and c = 9 unsigned, and K4 at c in {1, 4, 12, 16}
+    on the folded tables, each tail also against the native oracle."""
+    import torch
+
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.ops import cuda_msm as K
+    from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import msm as M
+
+    pts = [base[i % 64] for i in range(n)]
+    pts[1] = None
+    ks = [rng.randrange(R) for _ in range(n)]
+    ks[0], ks[2], ks[3] = 0, R - 1, (1 << 15) | (1 << 31) | (1 << 200)  # ties at c = 1, 4, 8 and 16
+    want = native.g1_msm(pts, ks)
+    pa0, sc0 = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
+    rec, buckets = {}, {}
+    modes = [  # name, c, signed, route (scalar words or digit tensor)
+        ("K3@c1", 1, True, "words"), ("K3@c4", 4, True, "words"), ("K9", 16, True, "words"),
+        ("K8", 8, False, "words"), ("K8@c16", 16, False, "words"), ("K6@c5-unsigned", 5, False, "digits"),
+        ("K10", 12, True, "digits"), ("K10@c9-unsigned", 9, False, "digits"),
+    ]
+    for name, c, signed, route in modes:
+        nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
+        pad = nseg * seg_len - n
+        pa = torch.nn.functional.pad(pa0, (0, 0, 0, 0, 0, pad)).contiguous()
+        sc = torch.nn.functional.pad(sc0, (0, 0, 0, pad)).contiguous()
+        dead = C.affine_is_infinity(pa)
+        if route == "words":
+            masks = M.signed_carries(sc, c).contiguous() if signed else None
+            args = (pa, sc, masks, nseg, seg_len, c, signed)
+            run, plain = (lambda a=args: K.accumulate(*a)), (lambda a=args: K.plain_accumulate(*a))
+            live = int(((K.scalar_digits(sc, masks, c, signed) != 0) & ~dead[:, None]).sum())
+            inputs = pa.numel() + sc.numel() + (masks.numel() if signed else 0)
+        else:
+            digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
+            digits = digits.to(torch.int32)[:, None].contiguous()
+            args = (pa, digits, nseg, seg_len, c, signed)
+            run, plain = (lambda a=args: KB.accumulate(*a)), (lambda a=args: KB.plain_accumulate(*a))
+            live = int(((digits[:, 0] != 0) & ~dead[None, :]).sum())
+            inputs = pa.numel() + digits.numel()
+        table = run().reshape(K.windows(c), nseg, K.rows(c, signed), 3, 8)
+        err = max_abs_err(table, plain().reshape(table.shape))
+        assert err == 0, name
+        rec[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(run, 5),
+            "plain_ms": cuda_ms(plain, 1),
+            "library_ms": None,
+            "shape": f"{n} points, c = {c}, {'signed' if signed else 'unsigned'}, {nseg} segments",
+            **bound(4 * (inputs + table.numel()), live * MIXED_FMULS),
+        }
+        if signed:
+            buckets[c] = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
+
+    for c in (1, 4, 12, 16):
+        bk = buckets[c]
+        out = K.tail(bk, c)
+        err = max_abs_err(out, K.plain_tail(bk, c))
+        assert err == 0 and C.projective_to_host_points(out) == [want], c
+        rec[f"K4@c{c}"] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: K.tail(bk, c), 5),
+            "plain_ms": cuda_ms(lambda: K.plain_tail(bk, c), 1),
+            "library_ms": None,
+            "shape": f"{bk.shape[0]} x {bk.shape[1]} buckets, c = {c}",
+            **bound(4 * (bk.numel() + 24), tail_fmuls(bk.shape[0], bk.shape[1], c)),
+        }
     return rec
 
 
@@ -464,6 +561,84 @@ def phase_msm(dev) -> dict:
     }
 
 
+SWEEP_SIGNED_C = (8, 4, 12, 16)  # at every n: the default and three other widths
+
+
+def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extra_n: int = 1 << 20) -> dict:
+    """BASELINE.json config 5, the MSM sweep of 2^16-2^22 points, at every
+    window width the single MSM takes: at each n, c = 8 signed (the
+    default) and c in {4, 12, 16} signed; at ``extra_n`` also c in {8, 16}
+    unsigned and c in {5, 10, 13} signed. Point j is ((j mod 2^20) + 1) G,
+    phase 4's points tiled, so every run is checked exactly against
+    (sum_j k_j ((j mod 2^20) + 1)) G; at 2^16 also against the native C++
+    Pippenger. Each run prints one line: the median of 3 CUDA-event reps
+    after the checked call, points/s, and the launches per kernel of the
+    checked call, whose counts start from 0."""
+    import torch
+
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.hostmath.curve import g1_generator, g1_mul
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import msm as M
+
+    period = 1 << 20
+    n_max = max(sizes)
+    t0 = time.perf_counter()
+    base = msm_points(min(period, n_max)).to(dev)
+    pts_all = base.repeat(math.ceil(n_max / base.shape[0]), 1, 1)[:n_max].contiguous()
+    rng = random.Random(22)
+    ks = [rng.randrange(R) for _ in range(n_max)]
+    sc_all = F.ints_to_words(ks, dev)
+    want, acc = {}, 0
+    for j, k in enumerate(ks):
+        acc += k * (j % period + 1)
+        if j + 1 in sizes:
+            want[j + 1] = g1_mul(g1_generator(), acc % R)
+    small = min(sizes)
+    native_want = native.g1_msm(C.projective_to_host_points(C.from_affine(pts_all[:small])), ks[:small])
+    setup_s = time.perf_counter() - t0
+
+    plan = [(n, c, True) for n in sizes for c in SWEEP_SIGNED_C]
+    plan += [(extra_n, c, False) for c in (8, 16)] + [(extra_n, c, True) for c in (5, 10, 13)]
+    runs, path_launches = [], dict.fromkeys(cuda_lib.launches, 0)
+    for n, c, signed in plan:
+        pts, sc = pts_all[:n], sc_all[:n]
+        if signed:
+            run = lambda: M.msm_auto(pts, sc, c=c)  # noqa: E731
+        else:
+            run = lambda: M.msm_pippenger(pts, sc, c=c, signed=False)  # noqa: E731
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_lib.launches.items() if v}
+        got = C.projective_to_host_points(out)
+        assert got == [want[n]], f"n = {n}, c = {c}, signed = {signed}: != (sum k_i s_i) G"
+        if n == small:
+            assert got == [native_want], f"n = {n}, c = {c}: != native oracle"
+        for k, v in counts.items():
+            path_launches[k] += v
+        reps = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            reps.append(start.elapsed_time(end))
+        med = statistics.median(reps)
+        line = {"n": n, "c": c, "signed": signed, "median_ms": med, "reps_ms": reps,
+                "points_per_s": n / (med / 1e3), "launches": counts}
+        runs.append(line)
+        print("phase 7 msm sweep:", json.dumps(line), f"[{card}]", flush=True)
+    for k in ("K2", "K3", "K4", "K6", "K8", "K9", "K10"):
+        assert path_launches[k] > 0, (k, path_launches)
+    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches}
+
+
 def _stage(name, fn, ms, counts):
     """Run one stage of a path: CUDA-event and wall milliseconds, and the
     launches per kernel it made."""
@@ -577,7 +752,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 300) -> dic
     assert not tree.verify_keys(prove_keys, bad, proof), "a wrong claimed value was accepted"
     assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
     assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
-    assert min(path_launches.values()) > 0, path_launches
+    assert min(path_launches[f"K{i}"] for i in range(1, 8)) > 0, path_launches
 
     # sampled commitments against the native C++ Pippenger
     g = crs.g_host
@@ -699,8 +874,14 @@ def main() -> int:
     mp = phase_multiproof(dev, crs, ipa_data)
     print("phase 6 multiproof, 1024 queries at 256:", json.dumps(mp), f"[{card}]", flush=True)
 
+    t0 = time.perf_counter()
+    sweep = phase_sweep(dev, card)
+    print(f"phase 7 msm sweep: {time.perf_counter() - t0:.1f} s, launches {json.dumps(sweep['path_launches'])}",
+          f"[{card}]", flush=True)
+
     sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm.cu", "K4": "msm.cu",
-               "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu"}
+               "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu",
+               "K8": "msm.cu", "K9": "msm.cu", "K10": "msm_batched.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
@@ -709,24 +890,32 @@ def main() -> int:
         "K5": "verkle_kzg_tpu/ops/pallas_curve.py:432",
         "K6": "verkle_kzg_tpu/ops/pallas_msm.py:853",
         "K7": "verkle_kzg_tpu/ops/pallas_msm.py:1152",
+        "K8": "verkle_kzg_tpu/ops/pallas_msm.py:330",
+        "K9": "verkle_kzg_tpu/ops/pallas_msm.py:719",
+        "K10": "verkle_kzg_tpu/ops/pallas_msm.py:883",
     }
-    # launches: the verkle path of phase 5 (commit, prove, verify), which runs all seven
-    kernels = [
-        {
+    # launches: K1-K7 from the verkle path of phase 5 (commit, prove,
+    # verify), which runs all seven; K8-K10 from the sweep of phase 7.
+    # Timings: each kernel's first record in phase 2; max_abs_err over all
+    # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
+    kernels = []
+    for k in sources:
+        first = kern[k] if k in kern else kern[min(r for r in kern if r.startswith(k + "@"))]
+        mine = [r for r in kern if r == k or r.startswith(k + "@")]
+        kernels.append({
             "name": k,
             "route": "cuda",
             "source": f"verkle_kzg_tpu_torch/csrc/{sources[k]}",
             "replaces": replaces[k],
-            "launches": verkle["path_launches"][k],
-            "max_abs_err": kern[k]["max_abs_err"],
-            "ms": kern[k]["ms"],
-            "plain_ms": kern[k]["plain_ms"],
-            "bound_ms": kern[k]["bound_ms"],
-            "bound_by": kern[k]["bound_by"],
+            "launches": (verkle["path_launches"] if k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+                         else sweep["path_launches"])[k],
+            "max_abs_err": max(kern[r]["max_abs_err"] for r in mine),
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
             "library_ms": None,
-        }
-        for k in sources
-    ]
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -82,6 +82,23 @@ def test_lazy_domain_ops(spec, fs):
     ]
 
 
+@pytest.mark.parametrize("spec,fs", SPECS)
+def test_int_path_matches_limb_path(spec, fs, monkeypatch):
+    """Batches of at most F.SMALL elements take Python ints, larger ones the
+    limb tensors: both must give the same limbs, in both domains."""
+    m = fs.modulus
+    rng = random.Random(14)
+    xs = [0, 2 * m - 1, m, m - 1, 1] + [rng.randrange(2 * m) for _ in range(59)]
+    ys = [2 * m - 1, 0, m - 1, m, 1] + [rng.randrange(2 * m) for _ in range(59)]
+    a, b = F.to_limbs(F.ints_to_words(xs, "cpu")), F.to_limbs(F.ints_to_words(ys, "cpu"))
+    ops = [(fn, lazy) for fn in (F.add16, F.sub16, F.mont_mul16) for lazy in (False, True)]
+    small = [fn(a, b, spec, lazy) for fn, lazy in ops] + [F.cond_sub16(a, spec)]
+    monkeypatch.setattr(F, "SMALL", 0)
+    large = [fn(a, b, spec, lazy) for fn, lazy in ops] + [F.cond_sub16(a, spec)]
+    for s, t in zip(small, large):
+        assert torch.equal(s, t)
+
+
 def test_convert_round_trips():
     xs = _batch(FR, 33, 14)
     planes = np.asarray(ints_to_limbs(xs).T)

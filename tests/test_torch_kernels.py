@@ -1,4 +1,4 @@
-"""K1-K7 on a CUDA card against their plain versions, bit for bit, and the
+"""K1-K10 on a CUDA card against their plain versions, bit for bit, and the
 port's IPA and a width-16 verkle tree on the card against their CPU path.
 
 These tests need a card and skip without one. They import no JAX, since
@@ -84,7 +84,41 @@ def test_kernels_match_plain_on_card(cuda):
         got = C.projective_to_host_points(M.msm_fixed_base(basis, scalars, c=c))
         assert got == [native.g1_msm(pts[:64], ks[64 * i : 64 * i + 64]) for i in range(3)]
     torch.cuda.synchronize()
-    assert min(cuda_lib.launches.values()) > 0
+    assert min(cuda_lib.launches[f"K{i}"] for i in range(1, 8)) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "c,signed,key",
+    [(16, False, "K8"), (4, False, "K8"), (16, True, "K9"), (12, True, "K10"), (9, False, "K10"), (5, False, "K6")],
+)
+def test_window_modes_match_plain_on_card(cuda, c, signed, key):
+    """The single MSM's other widths and signs: the accumulation (K8, K9,
+    K10, K6 unsigned) and K4 on its folded tables, against their plain
+    versions, and the whole MSM against the native oracle."""
+    n = 300
+    pts, ks = _inputs(n, 90 + c)
+    nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
+    pad = nseg * seg_len - n
+    pa = torch.nn.functional.pad(C.host_points_to_affine(pts, cuda), (0, 0, 0, 0, 0, pad)).contiguous()
+    sc = torch.nn.functional.pad(F.ints_to_words(ks, cuda), (0, 0, 0, pad)).contiguous()
+    cuda_lib.reset_launches()
+    if c in K.IN_KERNEL_C:
+        masks = M.signed_carries(sc, c).contiguous() if signed else None
+        table = K.accumulate(pa, sc, masks, nseg, seg_len, c, signed)
+        assert torch.equal(table, K.plain_accumulate(pa, sc, masks, nseg, seg_len, c, signed))
+    else:
+        digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)[:, None].contiguous()
+        table = KB.accumulate(pa, digits, nseg, seg_len, c, signed)
+        assert torch.equal(table, KB.plain_accumulate(pa, digits, nseg, seg_len, c, signed))
+        table = table[:, 0]
+    assert cuda_lib.launches[key] == 1
+    buckets = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
+    out = K.tail(buckets, c)
+    assert torch.equal(out, K.plain_tail(buckets, c))
+    assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
+    got = M.msm_pippenger(pa[:n], sc[:n], c=c, signed=signed)
+    assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
-// K3 and K4: the single-MSM Pippenger kernels, balanced signed digits with
-// c = 8 (W = 32 windows, bucket |d| in row |d| - 1 of a 128-row table).
-// See ops/cuda_msm.py for what they replace and why they are shaped so.
+// K4, the single-MSM tail at any (W, rows), and the entry point of the
+// accumulation with digits from the scalar words (K3, K8, K9), whose kernel
+// is in msm_accumulate.cuh. See ops/cuda_msm.py for what they replace and
+// why they are shaped so.
 #include <cuda_runtime.h>
 
 #include "bn254_curve.cuh"
@@ -8,133 +9,133 @@
 using namespace vkzg;
 
 namespace {
-constexpr int W = 32;      // windows of 8 bits over a 256-bit scalar
-constexpr int ROWS = 128;  // 2^(c-1) buckets per signed window
-constexpr int CHUNKS = 4;  // K4: threads per window
-constexpr int CHUNK_ROWS = ROWS / CHUNKS;
+constexpr int CHUNK = 32;  // K4: rows a thread sums, pairs a combine step takes
+constexpr int LOG2_CHUNK = 5;
 }  // namespace
 
-// K3. Thread t owns window w = t % 32 of point segment s = t / 32 and a
-// private 128-row bucket table in global memory, laid out (W, S, 128, 3, 8).
-// It walks its segment in order: digit d = byte w of the scalar + carry-in
-// bit w - (carry-out bit w + 1) << 8; d = 0 and the (0, 0) sentinel add
-// nothing; d < 0 negates y; the point is added into row |d| - 1 with the
-// lazy mixed add. At the end the rows are reduced to [0, m).
-__global__ void __launch_bounds__(128) msm_accumulate_kernel(
-    const uint32_t* __restrict__ pts, const uint32_t* __restrict__ sc,
-    const uint32_t* __restrict__ masks, uint32_t* __restrict__ table, int64_t nseg,
-    int64_t seg_len) {
+// K4, first launch. Thread t = (w, k) runs the suffix sum over rows
+// [32k, min(32k + 32, rows)) of window w from the top, keeping S = sum of
+// the rows seen and T = sum of the running S, so T = sum_j (j + 1) B_{32k+j};
+// it writes the lazy pair (S, T) to pairs (W, K, 2, 3, 8).
+__global__ void __launch_bounds__(128) msm_tail_chunks_kernel(const uint32_t* __restrict__ buckets,
+                                                              uint32_t* __restrict__ pairs,
+                                                              int nwin, int rows, int nchunks) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= W * nseg) return;
-  const int w = (int)(t % W);
-  const int64_t s = t / W;
-  uint32_t* tbl = table + ((int64_t)w * nseg + s) * ROWS * 24;
-
-  Point inf;
-  set_infinity(inf);
-  for (int r = 0; r < ROWS; ++r) store_point(tbl + 24 * r, inf);
-
-  const int sc_word = w >> 2, sc_shift = 8 * (w & 3);
-  const int in_word = w >> 5, in_bit = w & 31;
-  const int out_word = (w + 1) >> 5, out_bit = (w + 1) & 31;
-  for (int64_t i = 0; i < seg_len; ++i) {
-    const int64_t k = s * seg_len + i;
-    const int raw = (int)((sc[8 * k + sc_word] >> sc_shift) & 0xFFu);
-    const int ci = (int)((masks[2 * k + in_word] >> in_bit) & 1u);
-    const int co = (int)((masks[2 * k + out_word] >> out_bit) & 1u);
-    int d = raw + ci - (co << 8);
-    if (d == 0) continue;
-    uint32_t ax[8], ay[8];
-    load8(ax, pts + 16 * k);
-    load8(ay, pts + 16 * k + 8);
-    if (is_zero(ax) && is_zero(ay)) continue;
-    if (d < 0) {
-      uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      fsub<Fq, false>(ay, zero, ay);
-      d = -d;
-    }
-    uint32_t* row = tbl + 24 * (d - 1);
-    Point acc;
-    load_point(acc, row);
-    mixed_add_lazy(acc, ax, ay);
-    store_point(row, acc);
-  }
-
-  for (int r = 0; r < ROWS; ++r) {
-    Point p;
-    load_point(p, tbl + 24 * r);
-    reduce_point(p);
-    store_point(tbl + 24 * r, p);
-  }
-}
-
-// K4. One block of 128 threads: thread (w, k) runs the suffix sum over rows
-// [32k, 32k + 32) of window w from the top, keeping S = sum of the rows seen
-// and T = sum of the running S, so T = sum_j (j + 1) B_{32k + j}. Lane k = 0
-// of each window then forms the window sum
-//   sum_i (i + 1) B_i = T_0 + T_1 + T_2 + T_3 + 32 (U_1 + U_2 + U_3),
-// with U_k = S_k + ... + S_3, and thread 0 runs Horner from the top window
-// down (8 doublings, then an add) and reduces the result to [0, m).
-__global__ void __launch_bounds__(W * CHUNKS) msm_tail_kernel(const uint32_t* __restrict__ buckets,
-                                                              uint32_t* __restrict__ out) {
-  __shared__ Point sums[W][CHUNKS];
-  __shared__ Point tri[W][CHUNKS];
-  const int w = threadIdx.x / CHUNKS;
-  const int k = threadIdx.x % CHUNKS;
-
+  if (t >= (int64_t)nwin * nchunks) return;
+  const int64_t w = t / nchunks;
+  const int k = (int)(t % nchunks);
+  const int len = min(CHUNK, rows - k * CHUNK);
   Point S, T;
   set_infinity(S);
   set_infinity(T);
-  for (int j = CHUNK_ROWS - 1; j >= 0; --j) {
+  for (int j = len - 1; j >= 0; --j) {
     Point b;
-    load_point(b, buckets + (int64_t)(w * ROWS + k * CHUNK_ROWS + j) * 24);
+    load_point(b, buckets + (w * rows + (int64_t)k * CHUNK + j) * 24);
     point_add<true>(S, S, b);
     point_add<true>(T, T, S);
   }
-  sums[w][k] = S;
-  tri[w][k] = T;
-  __syncthreads();
+  store_point(pairs + t * 48, S);
+  store_point(pairs + t * 48 + 24, T);
+}
 
-  if (k == 0) {
-    Point U = sums[w][CHUNKS - 1];
-    Point V = U;
-    for (int c = CHUNKS - 2; c >= 1; --c) {
-      point_add<true>(U, U, sums[w][c]);
+// K4, a combine launch. Thread t = (w, g) takes the m <= 32 pairs
+// g*32 .. g*32 + m - 1 of window w, each over 2^log2_len rows, and writes
+//   S = sum_k S_k,  T = sum_k T_k + 2^log2_len sum_k k S_k,
+// with sum_k k S_k = U_1 + ... + U_{m-1}, U_k = S_k + ... + S_{m-1}, run
+// from the top pair; a group of one pair is copied. At c = 8 (4 chunks, one
+// level) that is 5 doublings, then T_0 .. T_3 added.
+__global__ void __launch_bounds__(128) msm_tail_combine_kernel(const uint32_t* __restrict__ in,
+                                                               uint32_t* __restrict__ out, int nwin,
+                                                               int nin, int nout, int log2_len) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (int64_t)nwin * nout) return;
+  const int64_t w = t / nout;
+  const int g = (int)(t % nout);
+  const int m = min(CHUNK, nin - g * CHUNK);
+  const uint32_t* src = in + (w * nin + (int64_t)g * CHUNK) * 48;
+  Point U, V;
+  if (m == 1) {
+    load_point(U, src);
+    load_point(V, src + 24);
+  } else {
+    load_point(U, src + 48 * (m - 1));
+    V = U;
+    for (int k = m - 2; k >= 1; --k) {
+      Point x;
+      load_point(x, src + 48 * k);
+      point_add<true>(U, U, x);
       point_add<true>(V, V, U);
     }
-    for (int i = 0; i < 5; ++i) double_lazy(V);  // x 32 = CHUNK_ROWS
-    for (int c = 0; c < CHUNKS; ++c) point_add<true>(V, V, tri[w][c]);
-    tri[w][0] = V;
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    Point acc = tri[W - 1][0];
-    for (int win = W - 2; win >= 0; --win) {
-      for (int i = 0; i < 8; ++i) double_lazy(acc);
-      point_add<true>(acc, acc, tri[win][0]);
+    Point x;
+    load_point(x, src);
+    point_add<true>(U, U, x);
+    for (int i = 0; i < log2_len; ++i) double_lazy(V);
+    for (int k = 0; k < m; ++k) {
+      load_point(x, src + 48 * k + 24);
+      point_add<true>(V, V, x);
     }
-    reduce_point(acc);
-    store_point(out, acc);
   }
+  store_point(out + t * 48, U);
+  store_point(out + t * 48 + 24, V);
 }
+
+// K4, last launch: one thread runs Horner over the window sums T_w (pairs
+// (W, 1, 2, 3, 8)) from the top window down, c lazy doublings then an add,
+// and reduces the result to [0, m).
+__global__ void msm_tail_horner_kernel(const uint32_t* __restrict__ pairs,
+                                       uint32_t* __restrict__ out, int nwin, int c) {
+  Point acc;
+  load_point(acc, pairs + (int64_t)(nwin - 1) * 48 + 24);
+  for (int win = nwin - 2; win >= 0; --win) {
+    for (int i = 0; i < c; ++i) double_lazy(acc);
+    Point x;
+    load_point(x, pairs + (int64_t)win * 48 + 24);
+    point_add<true>(acc, acc, x);
+  }
+  reduce_point(acc);
+  store_point(out, acc);
+}
+
+extern "C" int vkzg_msm_accumulate_signed(const void*, const void*, const void*, void*, int64_t,
+                                          int64_t, int, cudaStream_t);
+extern "C" int vkzg_msm_accumulate_unsigned(const void*, const void*, const void*, void*, int64_t,
+                                            int64_t, int, cudaStream_t);
 
 // pts (nseg * seg_len, 2, 8) affine, sc (.., 8) standard scalars, masks
-// (.., 2) carry words -> table (32, nseg, 128, 3, 8).
+// (.., W / 32 + 1) carry words (signed only) -> table (W, nseg, rows, 3, 8).
 extern "C" int vkzg_msm_accumulate(const void* pts, const void* sc, const void* masks,
-                                   void* table, int64_t nseg, int64_t seg_len,
-                                   void* stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((W * nseg + threads - 1) / threads);
-  msm_accumulate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)pts, (const uint32_t*)sc, (const uint32_t*)masks, (uint32_t*)table,
-      nseg, seg_len);
-  return (int)cudaGetLastError();
+                                   void* table, int64_t nseg, int64_t seg_len, int c,
+                                   int is_signed, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_signed ? vkzg_msm_accumulate_signed(pts, sc, masks, table, nseg, seg_len, c, st)
+                   : vkzg_msm_accumulate_unsigned(pts, sc, masks, table, nseg, seg_len, c, st);
 }
 
-// buckets (32, 128, 3, 8) reduced -> out (3, 8) reduced.
-extern "C" int vkzg_msm_tail(const void* buckets, void* out, void* stream) {
-  msm_tail_kernel<<<1, W * CHUNKS, 0, (cudaStream_t)stream>>>((const uint32_t*)buckets,
-                                                              (uint32_t*)out);
+// buckets (W, rows, 3, 8) reduced -> out (3, 8) reduced. first holds
+// (W, ceil(rows / 32), 2, 3, 8) pairs, second (W, ceil(rows / 1024), 2, 3, 8);
+// the combine levels write to them in turn.
+extern "C" int vkzg_msm_tail(const void* buckets, void* first, void* second, void* out, int nwin,
+                             int rows, int c, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int threads = 128;
+  int n = (rows + CHUNK - 1) / CHUNK;
+  msm_tail_chunks_kernel<<<(unsigned)(((int64_t)nwin * n + threads - 1) / threads), threads, 0, st>>>(
+      (const uint32_t*)buckets, (uint32_t*)first, nwin, rows, n);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  uint32_t* src = (uint32_t*)first;
+  uint32_t* dst = (uint32_t*)second;
+  for (int log2_len = LOG2_CHUNK; n > 1; log2_len += LOG2_CHUNK) {
+    const int next = (n + CHUNK - 1) / CHUNK;
+    msm_tail_combine_kernel<<<(unsigned)(((int64_t)nwin * next + threads - 1) / threads), threads, 0,
+                              st>>>(src, dst, nwin, n, next, log2_len);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    uint32_t* tmp = src;
+    src = dst;
+    dst = tmp;
+    n = next;
+  }
+  msm_tail_horner_kernel<<<1, 1, 0, st>>>(src, (uint32_t*)out, nwin, c);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,9 @@
+// The signed instances of the single-MSM accumulation (K3 and K9); see
+// msm_accumulate.cuh.
+#include "msm_accumulate.cuh"
+
+extern "C" int vkzg_msm_accumulate_signed(const void* pts, const void* sc, const void* masks,
+                                        void* table, int64_t nseg, int64_t seg_len, int c,
+                                        cudaStream_t stream) {
+  return vkzg::launch_accumulate_any<true>(pts, sc, masks, table, nseg, seg_len, c, stream);
+}

@@ -27,8 +27,10 @@ from . import field as F
 
 
 def plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """K2's plain version on (..., 3, 8) int32 words, any device."""
-    return F.from_limbs(C.add16(F.to_limbs(p), F.to_limbs(q)))
+    """K2's plain version on (..., 3, 8) int32 words, any device. Pairs of
+    identities are not computed (:func:`curve.add_sparse`): the segment
+    folds of wide bucket tables are mostly such pairs."""
+    return C.add_sparse(p, q)
 
 
 def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

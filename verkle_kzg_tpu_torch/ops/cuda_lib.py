@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1-K7) and count their launches.
+"""Build and load the port's CUDA kernels (K1-K10) and count their launches.
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and the objects are
@@ -28,8 +28,10 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 
 #: Launches per kernel since the last :func:`reset_launches`. Each wrapper
-#: adds one where it launches its kernel, and nowhere else.
-launches = {f"K{i}": 0 for i in range(1, 8)}
+#: adds one where it launches its kernel, and nowhere else. There is one
+#: key per TPU counterpart: K3, K8 and K9 are instances of one CUDA kernel,
+#: as are K6 and K10 (``cuda_msm.py``, ``cuda_msm_batched.py``).
+launches = {f"K{i}": 0 for i in range(1, 11)}
 
 _lib = None
 _P = ctypes.c_void_p
@@ -39,8 +41,8 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "vkzg_field_binop": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _I, _P],
     "vkzg_point_add": [_P, _P, _P, _I, _P],
-    "vkzg_msm_accumulate": [_P, _P, _P, _P, _I, _I, _P],
-    "vkzg_msm_tail": [_P, _P, _P],
+    "vkzg_msm_accumulate": [_P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P],
+    "vkzg_msm_tail": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "vkzg_scalar_mul": [_P, _P, _P, _I, _P],
     "vkzg_msm_batched_accumulate": [_P, _I, _P, _P, ctypes.c_int, _I, _I, _I, ctypes.c_int, _P],
     "vkzg_msm_batched_tail": [_P, _P, ctypes.c_int, _I, ctypes.c_int, ctypes.c_int, _P],

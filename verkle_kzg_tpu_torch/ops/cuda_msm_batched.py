@@ -1,12 +1,18 @@
-"""Kernels K6 and K7: the lane-batched Pippenger accumulation and tail.
+"""Kernels K6, K10 and K7: the digit-tensor Pippenger accumulation and the
+lane-batched tail.
 
 A batch of B independent MSMs, each lane its own MSM over N points: the
 dense verkle node commits (``verkle/tree.py::_dense_commit`` ->
 ``ops/msm.py::msm_fixed_base``, the 256-point basis shared by every lane)
-and ``msm_batched`` (points per lane). Digits are the balanced signed
-window digits of ``ops/msm.py::window_digits_signed``, c in [2, 7], so a
-window has 2^(c-1) bucket rows, row |d| - 1 holding the bucket of digit
-+-|d|.
+and ``msm_batched`` (points per lane), with the balanced signed digits of
+``ops/msm.py::window_digits_signed``, c in [2, 7]. The single MSM at a
+width whose digits are not taken in the kernel (c in {3, 5, 6, 7, 9 ...
+15}, ``ops/msm.py::msm_pippenger``) runs the same accumulation with one
+lane, signed or unsigned (``window_digits``). A window has ``rows(c,
+signed)`` bucket rows, row |d| - 1 holding the bucket of digit +-|d|: the
+kernel never reads the sign of the mode, only of each digit. Its launches
+count as K6 up to 128 rows and as K10 above (c >= 9), after the two TPU
+kernels the JAX package chose between by table size.
 
 K6 replaces ``verkle_kzg_tpu/ops/pallas_msm.py``: the launch at line 853 in
 ``_bucket_accumulate_impl`` with body ``_accum_kernel_pair`` (helpers
@@ -24,6 +30,14 @@ does (``ops/msm.py::segments``, 16 at N = 256) and K2 folds the partial
 tables. The kernel is bound by the latency of its scattered 96-byte row
 accesses and of the serial mixed adds of a segment more than by multiply
 throughput.
+
+K10 is the same kernel over wider tables, and replaces the launch at line
+883, ``_accum_kernel`` (the unpaired window). The TPU kept a table in VMEM,
+so it could not pair windows past 8 MiB of tables; a table here lives in
+global memory at any size (2^14 signed or 2^15 - 1 unsigned rows at
+c = 15), so the only cost of a wide window is its bytes, which
+``ops/msm.py::segments`` caps by taking fewer segments. Its plain version
+is ``cuda_msm.plain_tables``, shared with K3, K8 and K9.
 
 K7 replaces the launch at line 1152, ``_batched_tail_kernel``: per lane,
 each window's weighted bucket sum sum_i (i + 1) B_i, then Horner from the
@@ -46,6 +60,7 @@ import math
 import torch
 
 from . import cuda_lib
+from . import cuda_msm as K
 from . import curve as C
 from . import field as F
 
@@ -54,59 +69,55 @@ def windows(c: int) -> int:
     return math.ceil(256 / c)
 
 
-def rows(c: int) -> int:
-    """Bucket rows per signed window (``pallas_msm.signed_table_size``)."""
-    return 1 << (c - 1)
+def rows(c: int, signed: bool = True) -> int:
+    """Bucket rows per window (``pallas_msm.signed_table_size`` signed;
+    2^c - 1 unsigned, digit d in row d - 1, as ``cuda_msm.rows``)."""
+    return K.rows(c, signed)
+
+
+def launch_key(c: int, signed: bool) -> str:
+    """K6 while a table has at most 128 rows (the TPU's window-paired
+    ``_accum_kernel_pair``), K10 beyond (its unpaired ``_accum_kernel``,
+    taken when a paired table would pass the VMEM cap, ``pallas_msm.py:838``)."""
+    return "K6" if rows(c, signed) <= 128 else "K10"
 
 
 def _check_c(c: int) -> None:
     if not 2 <= c <= 7:
-        raise ValueError(f"the batched MSM kernels take c in [2, 7], got {c}")
+        raise ValueError(f"the batched MSM tail takes c in [2, 7], got {c}")
 
 
-def plain_accumulate(pts, digits, nseg: int, seg_len: int, c: int) -> torch.Tensor:
-    """K6's plain version: (S*L, 2, 8) shared or (B, S*L, 2, 8) per-lane
-    affine points x (W, B, S*L) int32 signed digits -> (W, B, S, rows, 3, 8)
-    reduced bucket tables."""
-    _check_c(c)
+def plain_accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True) -> torch.Tensor:
+    """The plain version of K6 / K10: (S*L, 2, 8) shared or (B, S*L, 2, 8)
+    per-lane affine points x (W, B, S*L) int32 digits (balanced signed, or
+    unsigned in [0, 2^c)) -> (W, B, S, rows, 3, 8) reduced bucket tables."""
     w, b, n = digits.shape
     dev = digits.device
-    d = digits.to(torch.int64).reshape(w, b, nseg, seg_len)
-    p = F.to_limbs(pts).reshape(-1, nseg, seg_len, 2, F.LIMBS)  # (1 or B, S, L, 2, 16)
-    neg_y = F.sub16(torch.zeros_like(p[..., 1, :]), p[..., 1, :], "fq")
-    table = C.infinity16((w, b, nseg, rows(c)), dev)
-    wi = torch.arange(w, device=dev)[:, None, None]
-    bi = torch.arange(b, device=dev)[None, :, None]
-    si = torch.arange(nseg, device=dev)[None, None, :]
-    for i in range(seg_len):
-        di = d[..., i]  # (W, B, S)
-        x = p[None, :, :, i, 0].expand(w, b, nseg, F.LIMBS)
-        y = torch.where((di < 0)[..., None], neg_y[None, :, :, i], p[None, :, :, i, 1])
-        q = torch.stack([x, y], dim=-2)
-        row = di.abs().clamp(min=1) - 1
-        cur = table[wi, bi, si, row]
-        new = C.mixed_add16(cur, q, lazy=True)  # the (0, 0) sentinel leaves cur
-        table[wi, bi, si, row] = torch.where((di != 0)[..., None, None], new, cur)
-    return F.from_limbs(C.reduce16(table))
+    d = digits.to(torch.int64).reshape(w * b * nseg, seg_len)
+    lane = torch.arange(b, device=dev)[:, None] * (0 if pts.dim() == 3 else n)
+    base = (lane + torch.arange(nseg, device=dev)[None, :] * seg_len).flatten().repeat(w)
+    table = K.plain_tables(pts.reshape(-1, 2, 8), d, base, rows(c, signed))
+    return table.reshape(w, b, nseg, rows(c, signed), 3, 8)
 
 
-def accumulate(pts, digits, nseg: int, seg_len: int, c: int) -> torch.Tensor:
+def accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True) -> torch.Tensor:
     if pts.device.type == "cpu" and digits.device.type == "cpu":
-        return plain_accumulate(pts, digits, nseg, seg_len, c)
-    _check_c(c)
+        return plain_accumulate(pts, digits, nseg, seg_len, c, signed)
+    if not 1 <= c <= 16:
+        raise ValueError(f"the bucket accumulation takes c in [1, 16], got {c}")
     w, b, n = digits.shape
     shared = pts.dim() == 3
     if n != nseg * seg_len or w != windows(c) or pts.shape != ((n, 2, 8) if shared else (b, n, 2, 8)):
         raise ValueError("msm_batched accumulate: shapes do not match the segmentation")
     cuda_lib.require_cuda("msm_batched.accumulate", pts, digits)
-    table = torch.empty((w, b, nseg, rows(c), 3, 8), dtype=torch.int32, device=pts.device)
+    table = torch.empty((w, b, nseg, rows(c, signed), 3, 8), dtype=torch.int32, device=pts.device)
     if table.numel():
         err = cuda_lib.lib().vkzg_msm_batched_accumulate(
             pts.data_ptr(), 0 if shared else n * 16, digits.data_ptr(), table.data_ptr(),
-            w, b, nseg, seg_len, rows(c), cuda_lib.stream(pts),
+            w, b, nseg, seg_len, rows(c, signed), cuda_lib.stream(pts),
         )
         cuda_lib.check(err, "vkzg_msm_batched_accumulate")
-        cuda_lib.launches["K6"] += 1
+        cuda_lib.launches[launch_key(c, signed)] += 1
     return table
 
 

@@ -75,6 +75,24 @@ def add16(p: torch.Tensor, q: torch.Tensor, lazy: bool = False) -> torch.Tensor:
     return _finish(mul, add, sub, t0, t1, t2, t3, t4, Y3)
 
 
+def add_sparse(p: torch.Tensor, q: torch.Tensor, lazy: bool = False) -> torch.Tensor:
+    """:func:`add16` on (..., 3, 8) words, computed only where p or q is not
+    the identity's words (0, R mod m, 0): RCB16 maps that pair to the same
+    words in both domains, so the result is the same. The plain versions of
+    K2 and K4 meet mostly such pairs in wide bucket tables (2^15 rows a
+    window at c = 16) and are bound by the rows they compute."""
+    p, q = torch.broadcast_tensors(p, q)
+    inf = infinity((), p.device)
+    live = ~((p == inf) & (q == inf)).flatten(-2).all(-1)
+    if bool(live.all()):
+        return F.from_limbs(add16(F.to_limbs(p), F.to_limbs(q), lazy))
+    out = p.clone()
+    idx = live.nonzero(as_tuple=True)
+    if idx[0].numel():
+        out[idx] = F.from_limbs(add16(F.to_limbs(p[idx]), F.to_limbs(q[idx]), lazy))
+    return out
+
+
 def mixed_add16(p: torch.Tensor, q_aff: torch.Tensor, lazy: bool = False) -> torch.Tensor:
     """RCB16 algorithm 8 with q affine (Z2 = 1); the (0, 0) sentinel
     selects p (``k_point_mixed_add`` / ``k_point_mixed_add_lazy``)."""
@@ -183,7 +201,8 @@ def scalar_bits_msb(scalars: torch.Tensor) -> torch.Tensor:
 
 
 def infinity(shape, device) -> torch.Tensor:
-    return F.from_limbs(infinity16(shape, device))
+    """(*shape, 3, 8) words of the identity (0 : 1 : 0)."""
+    return F.from_limbs(infinity16((), device)).expand(tuple(shape) + (3, F.WORDS)).clone()
 
 
 def from_affine(a: torch.Tensor) -> torch.Tensor:

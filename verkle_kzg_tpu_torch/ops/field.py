@@ -179,9 +179,41 @@ def _conv(a: torch.Tensor, b: torch.Tensor, low_only: bool = False) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
+# Small batches on the CPU take the same integers through Python ints: a
+# chain of one-point operations (a Horner loop, a double-and-add over a few
+# lanes) is otherwise bound by the per-call cost of the ~70 tensor ops of
+# one limb product. Each int formula below is the integer its limb twin
+# computes (the twin's docstring), so the two paths agree bit for bit.
+SMALL = 128  # elements
+
+
+def _small(*xs: torch.Tensor) -> bool:
+    return all(x.device.type == "cpu" and x.numel() <= SMALL * LIMBS for x in xs)
+
+
+def _ints(x: torch.Tensor) -> list:
+    """(..., 16) normalized limbs -> python ints, row-major."""
+    buf = x.numpy().astype("<u2").tobytes()
+    return [int.from_bytes(buf[i : i + 32], "little") for i in range(0, len(buf), 32)]
+
+
+def _limbs(vals, like: torch.Tensor) -> torch.Tensor:
+    """Python ints in [0, 2^256) -> limbs shaped like ``like``."""
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    return torch.from_numpy(np.frombuffer(buf, dtype="<u2").astype(np.int64)).reshape(like.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _nprime(spec: str) -> int:
+    return (-pow(SPECS[spec].modulus, -1, 1 << 256)) % (1 << 256)
+
+
 def cond_sub16(x: torch.Tensor, spec: str) -> torch.Tensor:
     """[0, 2m) -> [0, m): subtract m when the complement add x + (2^256 - m)
     carries out of the top limb."""
+    if _small(x):
+        m = SPECS[spec].modulus
+        return _limbs([v - m if v >= m else v for v in _ints(x)], x)
     t = carry(torch.nn.functional.pad(x + consts(spec, str(x.device))["neg_m"], (0, 1)), 18)
     return torch.where(t[..., LIMBS:] > 0, t[..., :LIMBS], x)
 
@@ -194,7 +226,12 @@ def _pick(keep_if_carry: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
 
 
 def add16(a: torch.Tensor, b: torch.Tensor, spec: str, lazy: bool = False) -> torch.Tensor:
-    """a + b, minus m (2m when ``lazy``) when that carries past 2^256."""
+    """a + b, minus m (2m when ``lazy``) when that carries past 2^256, i.e.
+    when a + b >= m (2m)."""
+    a, b = torch.broadcast_tensors(a, b)
+    if _small(a):
+        m = SPECS[spec].modulus << lazy
+        return _limbs([s - m if s >= m else s for s in map(int.__add__, _ints(a), _ints(b))], a)
     c = consts(spec, str(a.device))
     s = a + b
     return _pick(s + (c["neg_m2"] if lazy else c["neg_m"]), s)
@@ -203,18 +240,53 @@ def add16(a: torch.Tensor, b: torch.Tensor, spec: str, lazy: bool = False) -> to
 def sub16(a: torch.Tensor, b: torch.Tensor, spec: str, lazy: bool = False) -> torch.Tensor:
     """a - b when a + ~b + 1 carries (a >= b), else a - b + m (2m when
     ``lazy``) taken mod 2^256."""
+    a, b = torch.broadcast_tensors(a, b)
+    if _small(a):
+        m, top = SPECS[spec].modulus << lazy, (1 << 256) - 1
+        return _limbs([x - y if x >= y else (x - y + m) & top for x, y in zip(_ints(a), _ints(b))], a)
     c = consts(spec, str(a.device))
     d = a + (b ^ _M16) + c["e0"]
     return _pick(d, d + (c["m2"] if lazy else c["m"]))
 
 
+@functools.lru_cache(maxsize=None)
+def _toeplitz(spec: str, name: str, device: str, low_only: bool) -> torch.Tensor:
+    """(16, 31) float64 matrix (16 columns when ``low_only``) with row i
+    holding the constant's limbs at columns i .. i + 15: x @ it gives the
+    column sums of the schoolbook product of x with the constant."""
+    k = consts(spec, device)[name]
+    i = torch.arange(LIMBS, device=device)
+    out = torch.zeros(LIMBS, 2 * LIMBS - 1, dtype=torch.float64, device=device)
+    out[i[:, None], i[:, None] + i[None, :]] = k.to(torch.float64)[None, :].expand(LIMBS, LIMBS)
+    return out[:, :LIMBS] if low_only else out
+
+
+def _conv_const(x: torch.Tensor, spec: str, name: str, low_only: bool = False) -> torch.Tensor:
+    """:func:`_conv` of normalized limbs x with a field constant, as one
+    float64 matrix product: each column is below 16 * 2^32 = 2^36, so every
+    sum is exact in a double's 53-bit mantissa."""
+    t = _toeplitz(spec, name, str(x.device), low_only)
+    return (x.to(torch.float64) @ t).to(torch.int64)
+
+
 def mont_mul16(a: torch.Tensor, b: torch.Tensor, spec: str, lazy: bool = False) -> torch.Tensor:
-    """Montgomery product a*b/R. Inputs in [0, 2m) give a lazy result in
-    [0, 2m) (4m < R for BN254); ``lazy=False`` reduces it to [0, m)."""
-    c = consts(spec, str(a.device))
+    """Montgomery product a*b/R = (T + m p) / R with T = a b and
+    m = T (-p^-1) mod R, taken mod 2^256. Inputs in [0, 2m) give a lazy
+    result in [0, 2m) (4m < R for BN254); ``lazy=False`` reduces it to
+    [0, m)."""
+    a, b = torch.broadcast_tensors(a, b)
+    if _small(a):
+        p, np_, top = SPECS[spec].modulus, _nprime(spec), (1 << 256) - 1
+        out = []
+        for x, y in zip(_ints(a), _ints(b)):
+            t = x * y
+            u = ((t + ((t & top) * np_ & top) * p) >> 256) & top
+            out.append(u - p if not lazy and u >= p else u)
+        return _limbs(out, a)
     t = _conv(a, b)  # 31 columns < 2^36
-    m = carry(_conv(t[..., :LIMBS], c["nprime"], low_only=True), 57)
-    u = carry(torch.nn.functional.pad(t + _conv(m, c["m"]), (0, 2)), 38)
+    low = carry(t[..., :LIMBS], 37)  # T mod R, normalized
+    m = carry(_conv_const(low, spec, "nprime", low_only=True), 37)
+    u = carry(torch.nn.functional.pad(t + _conv_const(m, spec, "m"), (0, 2)), 38)
     out = u[..., LIMBS : 2 * LIMBS]
     return out if lazy else cond_sub16(out, spec)
 

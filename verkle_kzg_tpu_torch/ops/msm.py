@@ -3,12 +3,16 @@ lane-batched, and double-and-add for small N.
 
 The counterpart of ``verkle_kzg_tpu/ops/msm.py``. A single MSM of N >= 64
 (affine point, standard scalar) pairs -> one projective point ``(3, 8)``
-with reduced coordinates, in three launches:
+with reduced coordinates, at any window width c in [1, 16] and either
+digit sign (default c = 8, signed), in three steps:
 
-  1. K3 (``cuda_msm.accumulate``): balanced signed c = 8 digits derived
-     from the scalar words and the packed carry bits of
-     :func:`signed_carries`, accumulated into (32, S, 128) partial bucket
-     tables, one per (window, point segment);
+  1. the bucket accumulation into (W, S, rows) partial tables, one per
+     (window, point segment), bucket |d| in row |d| - 1. For c dividing 16
+     the kernel takes the digits from the scalar words (``cuda_msm``: K3,
+     K9 at c = 16, K8 unsigned), signed ones with the packed carry bits of
+     :func:`signed_carries`; for any other c it reads the digit tensor of
+     :func:`window_digits_signed` or :func:`window_digits` with one lane
+     (``cuda_msm_batched``: K6 up to 128 rows, K10 above);
   2. K2 (``curve.add``) folds the S segments (:func:`fold_reduce_lanes`);
   3. K4 (``cuda_msm.tail``): the weighted bucket sums and Horner.
 
@@ -41,21 +45,19 @@ from . import field as F
 TOTAL_BITS = 256
 SEG_MIN = 16  # points per segment at least
 SEG_MAX = 1024  # segments at most: 32 x 1024 K3 threads fill 132 SMs
+TABLE_BYTES = 1 << 30  # partial bucket tables of a single MSM at most
+ROW_BYTES = 96  # one projective bucket, 3 x 8 words
 
 
 def window_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
     """(..., N, 8) standard scalars -> (W, ..., N) int64 digits in [0, 2^c),
-    LSB window first, W = ceil(256 / c)."""
-    v = scalars.to(torch.int64) & 0xFFFFFFFF
-    w = math.ceil(TOTAL_BITS / c)
-    if 32 % c == 0:
-        shifts = torch.arange(0, 32, c, device=v.device)
-        dig = ((v[..., None] >> shifts) & ((1 << c) - 1)).flatten(-2)
-    else:
-        bits = ((v[..., None] >> torch.arange(32, device=v.device)) & 1).flatten(-2)
-        bits = torch.nn.functional.pad(bits, (0, w * c - TOTAL_BITS))
-        weights = 1 << torch.arange(c, device=v.device)
-        dig = (bits.reshape(bits.shape[:-1] + (w, c)) * weights).sum(-1)
+    LSB window first, W = ceil(256 / c). Digit w is bits [w c, w c + c),
+    taken from the one or two 32-bit words it spans (a zero word past the
+    top pads the last window)."""
+    v = torch.nn.functional.pad(scalars.to(torch.int64) & 0xFFFFFFFF, (0, 1))
+    start = torch.arange(math.ceil(TOTAL_BITS / c), device=v.device) * c
+    word, shift = start // 32, start % 32
+    dig = ((v[..., word] >> shift) | (v[..., word + 1] << (32 - shift))) & ((1 << c) - 1)
     return dig.movedim(-1, 0)
 
 
@@ -104,21 +106,25 @@ def window_digits_signed(scalars: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def _auto_c(n: int, c: int | None) -> int:
-    """Window width for single MSMs: c = 8, the JAX package's choice on the
-    chip and the only width the kernels take (W = 32 windows of 128 signed
-    buckets, two carry words per scalar)."""
+    """Window width for single MSMs (``ops/msm.py::_auto_c``): c = 8 unless
+    given, the JAX package's choice on the chip; a given c must lie in
+    [1, 16]."""
     if c is None:
         return 8
-    if c != 8:
-        raise ValueError(f"the single-MSM kernels take c = 8 only, got {c}")
+    if not 1 <= c <= 16:
+        raise ValueError(f"MSM window width c must be in [1, 16], got {c}")
     return c
 
 
-def segments(n: int) -> tuple:
+def segments(n: int, table_rows: int = 0) -> tuple:
     """(S, L): the point stream is cut into S segments of L points (padded
-    with zero scalars at the (0, 0) sentinel), one K3 thread per (window,
-    segment)."""
+    with zero scalars at the (0, 0) sentinel), one accumulation thread per
+    (window, segment). ``table_rows`` (W x rows of one segment's tables)
+    caps S so that the partial tables stay under TABLE_BYTES: at c = 16 a
+    window has 2^15 or 2^16 - 1 rows, and 1,024 segments would need 51 GB."""
     nseg = max(1, min(SEG_MAX, math.ceil(n / SEG_MIN)))
+    if table_rows:
+        nseg = max(1, min(nseg, TABLE_BYTES // (table_rows * ROW_BYTES)))
     return nseg, math.ceil(n / nseg)
 
 
@@ -135,32 +141,46 @@ def fold_reduce_lanes(p: torch.Tensor, dim: int = -3) -> torch.Tensor:
     return p
 
 
-def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None):
+def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None,
+                  lanes: int = 128, signed: bool = True):
     """(N, 2, 8) affine Montgomery points x (N, 8) standard scalars ->
-    (3, 8) projective, reduced."""
+    (3, 8) projective, reduced (``ops/msm.py::msm_pippenger``).
+
+    ``c``: window bits in [1, 16], default 8. ``signed``: balanced signed
+    digits (2^(c-1) bucket rows a window) or unsigned ones (2^c - 1 rows).
+    ``lanes`` is accepted for parity with the JAX package and has no
+    effect: the point segments of :func:`segments` take the place of the
+    TPU's lanes, and only the group element is contract."""
     n = points_affine.shape[0]
-    _auto_c(n, c)
-    nseg, seg_len = segments(n)
+    c = _auto_c(n, c)
+    w = K.windows(c)
+    nseg, seg_len = segments(n, w * K.rows(c, signed))
     pad = nseg * seg_len - n
     if pad:
         points_affine = torch.nn.functional.pad(points_affine, (0, 0, 0, 0, 0, pad))
         scalars = torch.nn.functional.pad(scalars, (0, 0, 0, pad))
     points_affine = points_affine.contiguous()
     scalars = scalars.contiguous()
-    masks = signed_carries(scalars, 8).contiguous()
-    table = K.accumulate(points_affine, scalars, masks, nseg, seg_len)
+    if c in K.IN_KERNEL_C:
+        masks = signed_carries(scalars, c).contiguous() if signed else None
+        table = K.accumulate(points_affine, scalars, masks, nseg, seg_len, c, signed)
+    else:
+        digits = (window_digits_signed if signed else window_digits)(scalars, c)
+        digits = digits.to(torch.int32)[:, None].contiguous()  # (W, 1 lane, N)
+        table = KB.accumulate(points_affine, digits, nseg, seg_len, c, signed)[:, 0]
     buckets = fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
-    return K.tail(buckets)
+    return K.tail(buckets, c)
 
 
-def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None):
+def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None, lanes: int = 128):
     """Single MSM entry point (``ops/msm.py::msm_auto``): double-and-add
-    (K5) and a K2 fold below 64 points, Pippenger (K3, K2, K4) from 64 on."""
+    (K5) and a K2 fold below 64 points, whatever c is; Pippenger from 64 on
+    (:func:`msm_pippenger`, signed digits). ``lanes`` has no effect."""
     metrics.record("msm.single.calls")
     metrics.record("msm.single.points", points_affine.shape[0])
     if points_affine.shape[0] < 64:
         return fold_reduce_lanes(C.scalar_mul_affine(points_affine, scalars), dim=0)[0]
-    return msm_pippenger(points_affine, scalars, c=c)
+    return msm_pippenger(points_affine, scalars, c=c, lanes=lanes)
 
 
 # ---------------------------------------------------------------------------
