@@ -214,12 +214,29 @@ def tail_fmuls(w: int, rows: int, c: int) -> int:
     return adds * ADD_FMULS + dbls * DOUBLE_FMULS
 
 
-def _kernels_windows(dev, base, rng, n: int = 1 << 12) -> dict:
-    """The single MSM's other modes on 2^12 points (zero scalars, r - 1,
-    ties, (0, 0) points), exact against their plain versions: K3 at c = 1
-    and 4, K9 (c = 16), K8 (unsigned, c = 8 and 16), K6 unsigned at c = 5,
-    K10 at c = 12 signed and c = 9 unsigned, and K4 at c in {1, 4, 12, 16}
-    on the folded tables, each tail also against the native oracle."""
+def timed_once(fn) -> tuple:
+    """One call of ``fn`` and its milliseconds from CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) -> dict:
+    """The single MSM's other modes (zero scalars, r - 1, ties, (0, 0)
+    points), exact against their plain versions: K3 at c = 1 and 4, K8
+    (unsigned, c = 8), K6 unsigned at c = 5 and K10 unsigned at c = 9 on
+    ``n`` points, phase 7's smallest size and segmentation; K9 (c = 16), K8
+    at c = 16 and K10 at c = 12 signed on ``n_wide`` points, where the 1 GiB
+    table cap already gives phase 7's segment counts (21, 10 and 248) and
+    only the segment length is shorter. Then K4 on every mode's folded
+    tables, signed and unsigned, each tail also against the native oracle.
+    A plain version is timed on the one call that is compared."""
     import torch
 
     from verkle_kzg_tpu_torch import native
@@ -234,19 +251,20 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 12) -> dict:
     pts[1] = None
     ks = [rng.randrange(R) for _ in range(n)]
     ks[0], ks[2], ks[3] = 0, R - 1, (1 << 15) | (1 << 31) | (1 << 200)  # ties at c = 1, 4, 8 and 16
-    want = native.g1_msm(pts, ks)
-    pa0, sc0 = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
+    want = {m: native.g1_msm(pts[:m], ks[:m]) for m in (n, n_wide)}
+    pa_all, sc_all = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
     rec, buckets = {}, {}
-    modes = [  # name, c, signed, route (scalar words or digit tensor)
-        ("K3@c1", 1, True, "words"), ("K3@c4", 4, True, "words"), ("K9", 16, True, "words"),
-        ("K8", 8, False, "words"), ("K8@c16", 16, False, "words"), ("K6@c5-unsigned", 5, False, "digits"),
-        ("K10", 12, True, "digits"), ("K10@c9-unsigned", 9, False, "digits"),
+    modes = [  # name, c, signed, route (scalar words or digit tensor), points
+        ("K3@c1", 1, True, "words", n), ("K3@c4", 4, True, "words", n), ("K9", 16, True, "words", n_wide),
+        ("K8", 8, False, "words", n), ("K8@c16", 16, False, "words", n_wide),
+        ("K6@c5-unsigned", 5, False, "digits", n),
+        ("K10", 12, True, "digits", n_wide), ("K10@c9-unsigned", 9, False, "digits", n),
     ]
-    for name, c, signed, route in modes:
-        nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
-        pad = nseg * seg_len - n
-        pa = torch.nn.functional.pad(pa0, (0, 0, 0, 0, 0, pad)).contiguous()
-        sc = torch.nn.functional.pad(sc0, (0, 0, 0, pad)).contiguous()
+    for name, c, signed, route, m in modes:
+        nseg, seg_len = M.segments(m, K.windows(c) * K.rows(c, signed))
+        pad = nseg * seg_len - m
+        pa = torch.nn.functional.pad(pa_all[:m], (0, 0, 0, 0, 0, pad)).contiguous()
+        sc = torch.nn.functional.pad(sc_all[:m], (0, 0, 0, pad)).contiguous()
         dead = C.affine_is_infinity(pa)
         if route == "words":
             masks = M.signed_carries(sc, c).contiguous() if signed else None
@@ -262,30 +280,34 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 12) -> dict:
             live = int(((digits[:, 0] != 0) & ~dead[None, :]).sum())
             inputs = pa.numel() + digits.numel()
         table = run().reshape(K.windows(c), nseg, K.rows(c, signed), 3, 8)
-        err = max_abs_err(table, plain().reshape(table.shape))
+        plain_table, plain_ms = timed_once(plain)
+        err = max_abs_err(table, plain_table.reshape(table.shape))
         assert err == 0, name
+        del plain_table
+        sign = "signed" if signed else "unsigned"
         rec[name] = {
             "max_abs_err": err,
             "ms": cuda_ms(run, 5),
-            "plain_ms": cuda_ms(plain, 1),
+            "plain_ms": plain_ms,
             "library_ms": None,
-            "shape": f"{n} points, c = {c}, {'signed' if signed else 'unsigned'}, {nseg} segments",
+            "shape": f"{m} points, c = {c}, {sign}, {nseg} segments of {seg_len}",
             **bound(4 * (inputs + table.numel()), live * MIXED_FMULS),
         }
-        if signed:
-            buckets[c] = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
+        buckets[(c, signed)] = (M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), m)
+        del table
 
-    for c in (1, 4, 12, 16):
-        bk = buckets[c]
+    for (c, signed), (bk, m) in buckets.items():
         out = K.tail(bk, c)
-        err = max_abs_err(out, K.plain_tail(bk, c))
-        assert err == 0 and C.projective_to_host_points(out) == [want], c
-        rec[f"K4@c{c}"] = {
+        plain_out, plain_ms = timed_once(lambda: K.plain_tail(bk, c))
+        err = max_abs_err(out, plain_out)
+        assert err == 0 and C.projective_to_host_points(out) == [want[m]], (c, signed)
+        sign = "" if signed else "-unsigned"
+        rec[f"K4@c{c}{sign}"] = {
             "max_abs_err": err,
             "ms": cuda_ms(lambda: K.tail(bk, c), 5),
-            "plain_ms": cuda_ms(lambda: K.plain_tail(bk, c), 1),
+            "plain_ms": plain_ms,
             "library_ms": None,
-            "shape": f"{bk.shape[0]} x {bk.shape[1]} buckets, c = {c}",
+            "shape": f"{bk.shape[0]} x {bk.shape[1]} buckets, c = {c}{'' if signed else ', unsigned'}",
             **bound(4 * (bk.numel() + 24), tail_fmuls(bk.shape[0], bk.shape[1], c)),
         }
     return rec
@@ -879,9 +901,9 @@ def main() -> int:
     print(f"phase 7 msm sweep: {time.perf_counter() - t0:.1f} s, launches {json.dumps(sweep['path_launches'])}",
           f"[{card}]", flush=True)
 
-    sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm.cu", "K4": "msm.cu",
+    sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm.cu",
                "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu",
-               "K8": "msm.cu", "K9": "msm.cu", "K10": "msm_batched.cu"}
+               "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",

@@ -5,21 +5,25 @@
 // See ops/cuda_msm_batched.py for what they replace and why they are shaped so.
 #include <cuda_runtime.h>
 
-#include "bn254_curve.cuh"
+#include "msm_accumulate.cuh"
 
 using namespace vkzg;
 
 namespace {
 constexpr int MAX_WINDOWS = 128;  // c = 2: ceil(256 / 2)
+
+// The digits of one (window, lane, segment), read from the digit tensor.
+struct TensorDigit {
+  const int32_t* __restrict__ dg;
+  __device__ __forceinline__ int operator()(int64_t i) const { return dg[i]; }
+};
 }  // namespace
 
-// K6. Thread t owns window w = t % W of lane b and point segment s
+// K6 / K10. Thread t owns window w = t % W of lane b and point segment s
 // ((t / W) = s * B + b), and a private table of `rows` buckets in global
-// memory, laid out (W, B, S, rows, 3, 8). It walks its segment in order:
-// digit d = digits[w, b, point]; d = 0 and the (0, 0) sentinel add nothing;
-// d < 0 negates y; the point is added into row |d| - 1 with the lazy mixed
-// add. At the end the rows are reduced to [0, m). Lane b reads its points
-// at pts + b * lane_stride: 0 for a basis shared by every lane.
+// memory, laid out (W, B, S, rows, 3, 8), filled by the shared segment walk
+// (msm_accumulate.cuh) with digit d = digits[w, b, point]. Lane b reads its
+// points at pts + b * lane_stride: 0 for a basis shared by every lane.
 __global__ void __launch_bounds__(128) msm_batched_accumulate_kernel(
     const uint32_t* __restrict__ pts, int64_t lane_stride, const int32_t* __restrict__ digits,
     uint32_t* __restrict__ table, int nwin, int64_t nlanes, int64_t nseg, int64_t seg_len,
@@ -30,39 +34,10 @@ __global__ void __launch_bounds__(128) msm_batched_accumulate_kernel(
   const int64_t rest = t / nwin;
   const int64_t b = rest % nlanes;
   const int64_t s = rest / nlanes;
-  uint32_t* tbl = table + (((int64_t)w * nlanes + b) * nseg + s) * rows * 24;
-
-  Point inf;
-  set_infinity(inf);
-  for (int r = 0; r < rows; ++r) store_point(tbl + 24 * r, inf);
-
-  const int32_t* dg = digits + ((int64_t)w * nlanes + b) * nseg * seg_len + s * seg_len;
-  const uint32_t* pp = pts + b * lane_stride + s * seg_len * 16;
-  for (int64_t i = 0; i < seg_len; ++i) {
-    int d = dg[i];
-    if (d == 0) continue;
-    uint32_t ax[8], ay[8];
-    load8(ax, pp + 16 * i);
-    load8(ay, pp + 16 * i + 8);
-    if (is_zero(ax) && is_zero(ay)) continue;
-    if (d < 0) {
-      uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      fsub<Fq, false>(ay, zero, ay);
-      d = -d;
-    }
-    uint32_t* row = tbl + 24 * (d - 1);
-    Point acc;
-    load_point(acc, row);
-    mixed_add_lazy(acc, ax, ay);
-    store_point(row, acc);
-  }
-
-  for (int r = 0; r < rows; ++r) {
-    Point p;
-    load_point(p, tbl + 24 * r);
-    reduce_point(p);
-    store_point(tbl + 24 * r, p);
-  }
+  const TensorDigit digit{digits + ((int64_t)w * nlanes + b) * nseg * seg_len + s * seg_len};
+  accumulate_segment(pts + b * lane_stride + s * seg_len * 16,
+                     table + (((int64_t)w * nlanes + b) * nseg + s) * rows * 24, rows, seg_len,
+                     digit);
 }
 
 // K7. One block per lane, one thread per window: thread w runs the suffix

@@ -30,7 +30,8 @@ BUILD = _PKG / "_build"
 #: Launches per kernel since the last :func:`reset_launches`. Each wrapper
 #: adds one where it launches its kernel, and nowhere else. There is one
 #: key per TPU counterpart: K3, K8 and K9 are instances of one CUDA kernel,
-#: as are K6 and K10 (``cuda_msm.py``, ``cuda_msm_batched.py``).
+#: as are K6 and K10 (``cuda_msm.py``, ``cuda_msm_batched.py``). K4 counts
+#: one per tail, which is two to five CUDA launches (``cuda_msm.tail``).
 launches = {f"K{i}": 0 for i in range(1, 11)}
 
 _lib = None

@@ -5,9 +5,10 @@ The accumulation is ONE ``__global__`` in ``csrc/msm_accumulate.cuh``,
 templated on the window width c in {1, 2, 4, 8, 16} (c divides 16, so a
 digit lies inside one 32-bit scalar word) and on the digit sign, with its
 signed and unsigned instances built from ``csrc/msm_signed.cu`` and
-``csrc/msm_unsigned.cu`` in parallel, and counted under the name of the
-TPU kernel each instance replaces, all in
-``verkle_kzg_tpu/ops/pallas_msm.py``:
+``csrc/msm_unsigned.cu`` in parallel. Its segment walk is the one K6 and
+K10 run too (``accumulate_segment``); only the digit fetch differs. Its
+launches are counted under the name of the TPU kernel each instance
+replaces, all in ``verkle_kzg_tpu/ops/pallas_msm.py``:
 
   * K3, signed, c in {1, 2, 4, 8}: the launch at line 700,
     ``_accum_kernel_sc_signed_pair`` (helpers ``_gather_scatter_step_pair``,
@@ -283,5 +284,7 @@ def tail(buckets: torch.Tensor, c: int = 8) -> torch.Tensor:
         w, nrows, c, cuda_lib.stream(buckets),
     )
     cuda_lib.check(err, "vkzg_msm_tail")
+    # one count per tail, which is len(sizes) + 1 CUDA launches: the chunk
+    # sums, one per combine level, and Horner
     cuda_lib.launches["K4"] += 1
     return out

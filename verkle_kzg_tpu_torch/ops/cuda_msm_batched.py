@@ -23,7 +23,9 @@ latency. Hopper scatters freely, so here one thread owns one (window,
 lane, point segment) with its own 2^(c-1)-row table in global memory
 (16 rows x 96 bytes at c = 5): a step reads the row |d| - 1, does one lazy
 mixed add (11 Montgomery products) with y negated for d < 0 and writes the
-row back; the rows are reduced at the end. A verkle level of 40 dense
+row back; the rows are reduced at the end (the segment walk
+``accumulate_segment`` of ``csrc/msm_accumulate.cuh``, shared with K3, K8
+and K9, which take their digits from the scalar words). A verkle level of 40 dense
 nodes at width 256 is only W x B = 52 x 40 = 2,080 (window, lane) pairs,
 under one warp per SM, so the point stream is cut into segments as K3
 does (``ops/msm.py::segments``, 16 at N = 256) and K2 folds the partial

@@ -184,7 +184,9 @@ def _conv(a: torch.Tensor, b: torch.Tensor, low_only: bool = False) -> torch.Ten
 # lanes) is otherwise bound by the per-call cost of the ~70 tensor ops of
 # one limb product. Each int formula below is the integer its limb twin
 # computes (the twin's docstring), so the two paths agree bit for bit.
-SMALL = 128  # elements
+# SMALL is where add16's two paths cross; the int product stays the faster
+# well past it (``tools/plain_field_crossover.py`` measures both).
+SMALL = 256  # elements
 
 
 def _small(*xs: torch.Tensor) -> bool:
