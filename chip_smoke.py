@@ -9,27 +9,34 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K10) against its plain PyTorch version on the card, at
+  2. each kernel (K1-K12) against its plain PyTorch version on the card, at
      the shapes the main paths give it, exact, with its time and the least
      time the card could take for the same work;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
-     checks, launch counts and timings;
+     checks, launch counts and timings, and a proof at domain 32 on the
+     card against the CPU plain path;
   4. one MSM of 2^20 points through msm_auto, against an exact oracle, and
      its rate;
   5. the verkle tree at Ethereum geometry (BASELINE.json config 4: 32-unit
      keys, width-256 nodes, 10,000 leaves): insert, commit, prove 16
      present and 3 absent keys with one multiproof, verify statelessly;
-     sampled commitments against the native C++ oracle, a 300-leaf tree on
+     sampled commitments against the native C++ oracle, a 150-leaf tree on
      the card against the CPU plain path, and a profile of the commit;
   6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3);
   7. the single-MSM sweep of BASELINE.json config 5, 2^16-2^22 points, at
      c = 8, 4, 12 and 16 signed, and at 2^20 also unsigned c = 8 and 16 and
-     signed c = 5, 10 and 13, each run exact against an oracle.
+     signed c = 5, 10 and 13, each run exact against an oracle;
+  8. KZG at domain 256 (BASELINE.json config 1): setup, commit against the
+     native oracle, proofs in and out of the domain with their pairings;
+     Fr and G1 NTT round trips; FK all-points proofs against the 256 single
+     proofs; FK at domain 16 on the card against the CPU path; and the
+     1,024-query multiproof over KZG (config 3, the KZG half).
 
-Each of phases 3, 5 and 6, and each run of phase 7, sets the launch
-counts to 0 just before its path and reads them just after. The last two lines of standard output are the
-card's name and power limit and a JSON object {"ok": true, "device": {...}};
-the line before them holds the per-kernel JSON record.
+Each of phases 2, 3, 5, 6 and 8, and each run of phase 7, sets the launch
+counts to 0 just before its path and reads them just after. The last two
+lines of standard output are the card's name and power limit and a JSON
+object {"ok": true, "device": {...}}; the line before them holds the
+per-kernel JSON record.
 """
 
 from __future__ import annotations
@@ -98,7 +105,7 @@ def bound(nbytes: float, fmuls: float) -> dict:
 
 
 def phase_kernels(dev, crs) -> dict:
-    """K1-K10 against their plain versions on the card, exact."""
+    """K1-K12 against their plain versions on the card, exact."""
     import torch
 
     from verkle_kzg_tpu_torch.hostmath import curve as hc
@@ -146,6 +153,42 @@ def phase_kernels(dev, crs) -> dict:
     rec["K2"]["ms"] = cuda_ms(lambda: cuda_curve.add(p, q), 20)
     rec["K2"]["plain_ms"] = cuda_ms(lambda: cuda_curve.plain(p, q), 2)
     rec["K2"].update(bound(3 * p.numel() * 4, n2 * ADD_FMULS))
+
+    # K11 and K12 at K2's shape, on the K2 sums p + q (Z is not 1; the
+    # identity at slot 3): doubling them, and adding the affine qs to them
+    # (the (0, 0) sentinel at slot 1, identity + (-P) at slot 3).
+    pz = got
+    sums = C.projective_to_host_points(pz[:6])
+    got = cuda_curve.double(pz)
+    rec["K11"] = {"max_abs_err": max_abs_err(got, cuda_curve.plain_double(pz)), "shape": "32768 point doublings"}
+    assert rec["K11"]["max_abs_err"] == 0
+    assert C.projective_to_host_points(got[:6]) == [hc.g1_add(a_, a_) for a_ in sums]
+    rec["K11"]["ms"] = cuda_ms(lambda: cuda_curve.double(pz), 20)
+    rec["K11"]["plain_ms"] = cuda_ms(lambda: cuda_curve.plain_double(pz), 2)
+    rec["K11"].update(bound(2 * pz.numel() * 4, n2 * DOUBLE_FMULS))
+    qa = C.host_points_to_affine(qs, dev)
+    got = cuda_curve.mixed_add(pz, qa)
+    rec["K12"] = {"max_abs_err": max_abs_err(got, cuda_curve.plain_mixed_add(pz, qa)), "shape": "32768 mixed adds"}
+    assert rec["K12"]["max_abs_err"] == 0
+    assert C.projective_to_host_points(got[:6]) == [hc.g1_add(a_, b_) for a_, b_ in zip(sums, qs[:6])]
+    rec["K12"]["ms"] = cuda_ms(lambda: cuda_curve.mixed_add(pz, qa), 20)
+    rec["K12"]["plain_ms"] = cuda_ms(lambda: cuda_curve.plain_mixed_add(pz, qa), 2)
+    live = int((~C.affine_is_infinity(qa)).sum())  # sentinel lanes do no products
+    rec["K12"].update(bound((pz.numel() * 2 + qa.numel()) * 4, live * MIXED_FMULS))
+    # K11 and K2 at the width of a G1 NTT stage of FK at domain 256 (256
+    # butterflies: a double and an add per bit of the twiddle's product)
+    w = pz[:256].contiguous()
+    for name, run, plain_fn, nbytes, fmuls in (
+        ("K11@256", lambda: cuda_curve.double(w), lambda: cuda_curve.plain_double(w), 2 * w.numel() * 4,
+         256 * DOUBLE_FMULS),
+        ("K2@256", lambda: cuda_curve.add(w, w.flip(0)), lambda: cuda_curve.plain(w, w.flip(0)), 3 * w.numel() * 4,
+         256 * ADD_FMULS),
+    ):
+        out = run()
+        plain_out, plain_ms = timed_once(plain_fn)
+        rec[name] = {"max_abs_err": max_abs_err(out, plain_out), "ms": cuda_ms(run, 50), "plain_ms": plain_ms,
+                     "shape": "256 points, one G1 NTT stage at domain 256", **bound(nbytes, fmuls)}
+        assert rec[name]["max_abs_err"] == 0, name
 
     # K3 + K4: the 257-point IPA basis shape and 2^12 points, with zero
     # scalars, r - 1 and (0, 0) padding.
@@ -413,8 +456,9 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     return rec
 
 
-def phase_ipa(dev, crs):
-    """IPA at domain 256 on the card: checks, launch counts, timings. Also
+def phase_ipa(dev, crs, small: int = 32):
+    """IPA at domain 256 on the card: checks, launch counts, timings; and a
+    proof at domain ``small`` on the card against the CPU plain path. Also
     returns the data vector and its commitment for phase 6."""
     import torch
 
@@ -422,7 +466,7 @@ def phase_ipa(dev, crs):
     from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
     from verkle_kzg_tpu_torch.hostmath.curve import g1_add, g1_generator
     from verkle_kzg_tpu_torch.ops import cuda_lib
-    from verkle_kzg_tpu_torch.poly import FrVector
+    from verkle_kzg_tpu_torch.poly import Domain, FrVector
     from verkle_kzg_tpu_torch.schemes import IPA, IPAParams
 
     n = 256
@@ -472,19 +516,26 @@ def phase_ipa(dev, crs):
     assert counts["verify"]["K3"] == 1 and counts["verify"]["K4"] == 1
     assert min(main_path_launches[k] for k in ("K1", "K2", "K3", "K4")) > 0, main_path_launches
 
-    # the same proof from the plain path on this machine's CPU
-    cpu = IPAParams(n=n, g_host=crs.g_host, q_host=crs.q_host, domain=crs.domain, device="cpu")
-    t_cpu = Transcript("ipa")
-    t0 = time.perf_counter()
-    cpu_proof = IPA.prove_point(cpu, commit, index, FrVector.from_ints(vals, crs.domain, device="cpu"), t_cpu)
-    cpu_s = time.perf_counter() - t0
-    assert (cpu_proof.l, cpu_proof.r, cpu_proof.tip, cpu_proof.y) == (proof.l, proof.r, proof.tip, proof.y)
-    assert bytes(t_cpu._state) == bytes(t_gpu._state), "transcript states differ"
+    # the same proof from the plain path on this machine's CPU, at domain
+    # `small` (the setup ipa_setup(small) makes: the first small + 1 of the
+    # same hash-to-curve points), which keeps the CPU's plain prove short
+    proofs, states, secs = [], [], []
+    for d in (dev, "cpu"):
+        p = IPAParams(n=small, g_host=crs.g_host[:small], q_host=crs.g_host[small], domain=Domain(small), device=d)
+        v = FrVector.from_ints(vals[:small], p.domain, device=d)
+        t = Transcript("ipa")
+        t0 = time.perf_counter()
+        pr = IPA.prove_point(p, IPA.commit(p, v), index, v, t)
+        secs.append(time.perf_counter() - t0)
+        proofs.append((pr.l, pr.r, pr.tip, pr.y))
+        states.append(bytes(t._state))
+    assert proofs[0] == proofs[1], f"IPA proof at {small}: card != CPU"
+    assert states[0] == states[1], f"IPA transcript at {small}: card != CPU"
     return {
         "ms": ms,
         "launches_per_call": counts,
         "main_path_launches": main_path_launches,
-        "cpu_plain_prove_s": cpu_s,
+        "cpu_plain_prove_s": secs[1], "cpu_plain_prove_domain": small,
     }, (vals, data, commit)
 
 
@@ -727,7 +778,7 @@ def _device_busy_ms(prof) -> tuple:
     return busy / 1e3, top
 
 
-def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 300) -> dict:
+def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dict:
     """BASELINE.json config 4 at its published size: a verkle tree with
     32-unit keys and width-256 nodes, 10,000 leaves, committed, 16 present
     and 3 absent keys proved with one multiproof and verified statelessly."""
@@ -800,7 +851,8 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 300) -> dic
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = _device_busy_ms(prof)
 
-    # a 300-leaf tree of the same geometry, on the card and on the CPU path
+    # a small tree of the same geometry (a sparse root, a dense depth-1
+    # node), on the card and on the CPU path
     small_keys = keys[:small_leaves]
     cpu = IPAParams(n=crs.n, g_host=crs.g_host, q_host=crs.q_host, domain=crs.domain, device="cpu")
     small = [VerkleTree(IPA, p, key_len=32, ext_width=256) for p in (crs, cpu)]
@@ -811,7 +863,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 300) -> dic
     t0 = time.perf_counter()
     small[1].commitment()
     cpu_small_s = time.perf_counter() - t0
-    assert _all_commits(small[0]) == _all_commits(small[1]), "300-leaf tree: card != CPU"
+    assert _all_commits(small[0]) == _all_commits(small[1]), f"{small_leaves}-leaf tree: card != CPU"
 
     return {
         "leaves": leaves,
@@ -822,7 +874,8 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 300) -> dic
         "path_launches": path_launches,
         "queries": len(prove_keys),
         "profiled_commit": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms, "kernel_ms_by_name": top},
-        "cpu_plain_commit_300_s": cpu_small_s,
+        "small_leaves": small_leaves,
+        "cpu_plain_commit_small_s": cpu_small_s,
     }
 
 
@@ -855,6 +908,136 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches}
 
 
+def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, m: int = 1024) -> dict:
+    """BASELINE.json config 1, KZG at domain 256 (``benchmarks/bench_all.py``'s
+    KZG rows): setup, commit against the native oracle, proofs in and out of
+    the domain with their pairings, a tampered commitment, the point ==
+    size quirk; NTT round trips; FK all-points proofs over ``fk_len``
+    values against the ``n`` single proofs; FK at domain ``small`` on the
+    card against the CPU path; and the multiproof of ``m`` queries over KZG
+    (config 3, the KZG half). The launch counts start from 0 at the
+    phase's start and are read at its end."""
+    import torch
+
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.errors import KZGError
+    from verkle_kzg_tpu_torch.hostmath.curve import g1_add, g1_generator, g1_mul
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import ntt as N
+    from verkle_kzg_tpu_torch.params import R, fr_root_of_unity
+    from verkle_kzg_tpu_torch.poly import FrVector
+    from verkle_kzg_tpu_torch.schemes import (
+        DEFAULT_KZG_SECRET, KZG, KZGParams, ProverQuery, kzg_setup, prove_multiproof, verify_multiproof,
+    )
+
+    ms, counts = {}, {}
+    rng = random.Random(8)
+    vals = [rng.randrange(R) for _ in range(n)]
+    index, outside = 17, 3 * n
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+
+    params = _stage("setup", lambda: kzg_setup(n, device=dev), ms, counts)
+    data = FrVector.from_ints(vals, params.domain, device=dev)
+    warm = KZG.commit(params, data)
+    KZG.verify(params, warm, index, KZG.prove(params, warm, index, data))
+    commit = _stage("commit", lambda: KZG.commit(params, data), ms, counts)
+    proof = _stage("prove", lambda: KZG.prove(params, commit, index, data), ms, counts)
+    ok = _stage("verify", lambda: KZG.verify(params, commit, index, proof), ms, counts)
+    proof_out = _stage("prove_outside", lambda: KZG.prove(params, commit, outside, data), ms, counts)
+    ok_out = _stage("verify_outside", lambda: KZG.verify(params, commit, outside, proof_out), ms, counts)
+    assert commit == native.g1_msm(params.lagrange_host, vals), "commit != native oracle"
+    assert ok and ok_out, "an honest KZG proof was rejected"
+    assert proof.y == vals[index] and proof_out.y == data.evaluate(outside)
+    assert not KZG.verify(params, g1_add(commit, g1_generator()), index, proof), "a tampered commitment was accepted"
+    try:
+        KZG.prove(params, commit, n, data)
+        raise AssertionError("point == size did not raise KZGError")
+    except KZGError:
+        pass
+
+    # NTT round trips; the G1 NTT of the Lagrange SRS is the monomial SRS
+    for size in (n, 2 * n):
+        coeffs = [rng.randrange(R) for _ in range(size)]
+        a = F.ints_to_mont(coeffs, "fr", dev)
+        ev = _stage(f"ntt_fr_{size}", lambda: N.ntt_fr(a), ms, counts)
+        assert torch.equal(N.intt_fr(ev), a), f"Fr NTT round trip at {size}"
+        w = fr_root_of_unity(size)
+        assert F.mont_to_ints(ev[1:2], "fr") == [sum(c * pow(w, j, R) for j, c in enumerate(coeffs)) % R]
+    lag = C.from_affine(params.lagrange_affine)
+    mono = _stage(f"ntt_g1_{n}", lambda: N.ntt_g1(lag), ms, counts)
+    back = _stage(f"intt_g1_{n}", lambda: N.intt_g1(mono), ms, counts)
+    assert C.projective_to_host_points(back) == params.lagrange_host, "G1 NTT round trip"
+    assert C.projective_to_host_points(mono[:3]) == [
+        g1_mul(g1_generator(), pow(DEFAULT_KZG_SECRET, i, R)) for i in range(3)
+    ], "G1 NTT of the Lagrange SRS != [s^i G]"
+
+    # FK at n over fk_len values (the zero-padded tail) against n single proofs
+    fk_data = FrVector.from_ints(vals[:fk_len], params.domain, device=dev)
+    fk_commit = KZG.commit(params, fk_data)
+    before = dict(cuda_lib.launches)
+    proofs = _stage("fk", lambda: KZG.prove_all_points(params, fk_data), ms, counts)
+    fk_launches = {k: cuda_lib.launches[k] - before[k] for k in before}
+    singles = _stage("prove_all_singles", lambda: [KZG.prove(params, fk_commit, i, fk_data) for i in range(n)],
+                     ms, counts)
+    assert [(p.proof, p.y) for p in proofs] == [(p.proof, p.y) for p in singles], "FK != single proofs"
+    assert KZG.verify(params, fk_commit, 0, proofs[0]) and KZG.verify(params, fk_commit, fk_len + 1, proofs[fk_len + 1])
+
+    # where FK's time goes: the device's busy share of one G1 NTT at n (FK
+    # runs four, and its pointwise product is one more scalar_mul of the
+    # same kind), from a profile of the card's kernels only
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = N.ntt_g1(lag)
+        torch.cuda.synchronize()
+        ntt_profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(again, mono)
+    ntt_busy_ms, ntt_top = _device_busy_ms(prof)
+
+    # FK at domain `small` on the card and on the CPU path, bit for bit
+    p_small = kzg_setup(small, device=dev)
+    cpu = KZGParams(size=small, lagrange_host=p_small.lagrange_host, g2=p_small.g2, domain=p_small.domain,
+                    device="cpu")
+    v_small = vals[: small - 3]
+    lag_small = C.from_affine(p_small.lagrange_affine)
+    assert torch.equal(N.ntt_g1(lag_small).cpu(), N.ntt_g1(lag_small.cpu())), "G1 NTT: card != CPU"
+    fk_card = KZG.prove_all_points(p_small, FrVector.from_ints(v_small, p_small.domain, device=dev))
+    t0 = time.perf_counter()
+    fk_cpu = KZG.prove_all_points(cpu, FrVector.from_ints(v_small, p_small.domain, device="cpu"))
+    cpu_fk_s = time.perf_counter() - t0
+    assert [(p.proof, p.y) for p in fk_card] == [(p.proof, p.y) for p in fk_cpu], "FK: card != CPU"
+
+    # the multiproof of m queries over KZG at domain n
+    queries = []
+    for _ in range(m):
+        z = rng.randrange(n)
+        queries.append(ProverQuery(data=data, commit=commit, z=z, y=vals[z]))
+    vq = [q.to_verifier_query() for q in queries]
+    prove_multiproof(KZG, params, queries)  # warm-up
+    mproof = _stage("multiproof_prove", lambda: prove_multiproof(KZG, params, queries), ms, counts)
+    mok = _stage("multiproof_verify", lambda: verify_multiproof(KZG, params, vq, mproof), ms, counts)
+    assert mok, "the honest KZG multiproof was rejected"
+    bad = [q.to_verifier_query() for q in queries]
+    bad[m // 2].y = (bad[m // 2].y + 1) % R
+    assert not verify_multiproof(KZG, params, bad, mproof), "a wrong y was accepted"
+
+    torch.cuda.synchronize()
+    path_launches = dict(cuda_lib.launches)
+    assert min(path_launches[k] for k in ("K1", "K2", "K3", "K4", "K5", "K11")) > 0, path_launches
+    assert fk_launches["K11"] > 0 and fk_launches["K2"] > 0, fk_launches
+    return {
+        "n": n, "fk_len": fk_len, "multiproof_m": m, "ms": ms, "launches_per_stage": counts,
+        "fk_launches": {k: v for k, v in fk_launches.items() if v}, "path_launches": path_launches,
+        "ntt_g1_profiled": {"wall_ms": ntt_profiled_wall_ms, "device_busy_ms": ntt_busy_ms, "kernel_ms_by_name": ntt_top},
+        "cpu_plain_fk_small_s": cpu_fk_s, "small": small,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -881,7 +1064,9 @@ def main() -> int:
     crs = ipa_setup(256, device=dev)
     print(f"crs: 257 hash-to-curve points in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    cuda_lib.reset_launches()
     kern = phase_kernels(dev, crs)
+    phase2_launches = dict(cuda_lib.launches)
     print("phase 2 kernels vs plain (exact, tolerance 0):", json.dumps(kern), flush=True)
 
     ipa, ipa_data = phase_ipa(dev, crs)
@@ -901,9 +1086,15 @@ def main() -> int:
     print(f"phase 7 msm sweep: {time.perf_counter() - t0:.1f} s, launches {json.dumps(sweep['path_launches'])}",
           f"[{card}]", flush=True)
 
+    t0 = time.perf_counter()
+    kzg = phase_kzg(dev, card)
+    print(f"phase 8 kzg@256, fk, kzg multiproof ({time.perf_counter() - t0:.1f} s):", json.dumps(kzg),
+          f"[{card}]", flush=True)
+
     sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm.cu",
                "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu",
-               "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu"}
+               "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu",
+               "K11": "curve.cu", "K12": "curve.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
@@ -915,11 +1106,21 @@ def main() -> int:
         "K8": "verkle_kzg_tpu/ops/pallas_msm.py:330",
         "K9": "verkle_kzg_tpu/ops/pallas_msm.py:719",
         "K10": "verkle_kzg_tpu/ops/pallas_msm.py:883",
+        "K11": "verkle_kzg_tpu/ops/pallas_curve.py:350",
+        "K12": "verkle_kzg_tpu/ops/pallas_curve.py:358",
     }
     # launches: K1-K7 from the verkle path of phase 5 (commit, prove,
-    # verify), which runs all seven; K8-K10 from the sweep of phase 7.
+    # verify), which runs all seven; K8-K10 from the sweep of phase 7; K11
+    # from the KZG path of phase 8; K12 from phase 2, since no path of
+    # either package calls the standalone mixed add.
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
+    path_of = {
+        **dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), ("phase 5", verkle["path_launches"])),
+        **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
+        "K11": ("phase 8", kzg["path_launches"]),
+        "K12": ("phase 2 only: no path of either package calls it", phase2_launches),
+    }
     kernels = []
     for k in sources:
         first = kern[k] if k in kern else kern[min(r for r in kern if r.startswith(k + "@"))]
@@ -929,8 +1130,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"verkle_kzg_tpu_torch/csrc/{sources[k]}",
             "replaces": replaces[k],
-            "launches": (verkle["path_launches"] if k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
-                         else sweep["path_launches"])[k],
+            "launches": path_of[k][1][k],
+            "launches_from": path_of[k][0],
             "max_abs_err": max(kern[r]["max_abs_err"] for r in mine),
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],

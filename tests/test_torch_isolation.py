@@ -38,7 +38,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     """Without a card, every entry point that is not told a device raises;
     with ``device="cpu"`` each runs the plain versions."""
     from verkle_kzg_tpu_torch.poly import Domain, FrVector
-    from verkle_kzg_tpu_torch.schemes import IPA, IPAParams, ipa_setup
+    from verkle_kzg_tpu_torch.schemes import IPA, IPAParams, KZGParams, ipa_setup, kzg_generate_monomial_srs, kzg_setup
     from verkle_kzg_tpu_torch.verkle import VerkleTree
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -54,3 +54,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         IPAParams(n=4, g_host=crs.g_host, q_host=crs.q_host, domain=crs.domain)
     assert FrVector.from_ints([1, 2], crs.domain, device="cpu").device == crs.device
     assert VerkleTree(IPA, crs, key_len=3).device == crs.device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kzg_setup(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kzg_generate_monomial_srs(4)
+    kzg = kzg_setup(4, device="cpu")
+    assert kzg.device == torch.device("cpu") and kzg.lagrange_affine.device == kzg.device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KZGParams(size=4, lagrange_host=kzg.lagrange_host, g2=kzg.g2, domain=kzg.domain)

@@ -1,5 +1,6 @@
-"""K1-K10 on a CUDA card against their plain versions, bit for bit, and the
-port's IPA and a width-16 verkle tree on the card against their CPU path.
+"""K1-K12 on a CUDA card against their plain versions, bit for bit, and the
+port's IPA, a width-16 verkle tree, the G1 scalar multiplication, the NTTs
+and KZG with FK on the card against their CPU path.
 
 These tests need a card and skip without one. They import no JAX, since
 the card's machine has none; run them there without the JAX conftest:
@@ -22,8 +23,9 @@ from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
 from verkle_kzg_tpu_torch.ops import msm as M
+from verkle_kzg_tpu_torch.ops import ntt as N
 from verkle_kzg_tpu_torch.poly import FrVector
-from verkle_kzg_tpu_torch.schemes import IPA, IPAParams, ipa_setup
+from verkle_kzg_tpu_torch.schemes import IPA, KZG, IPAParams, KZGParams, ipa_setup, kzg_setup
 from verkle_kzg_tpu_torch.verkle import VerkleTree
 
 torch.set_num_threads(1)
@@ -167,3 +169,66 @@ def test_verkle_tree_on_card_matches_cpu(cuda):
     assert trees[1].verify_keys(sample, claims, proof)
     claims[keys[0]] += 1
     assert not trees[0].verify_keys(sample, claims, proof)
+
+
+@pytest.mark.gpu
+def test_group_law_kernels_match_plain_on_card(cuda):
+    """K11 (double) and K12 (mixed add, the (0, 0) sentinel and the
+    identity among the lanes) against their plain versions; scalar_mul,
+    one K11 and one K2 launch a bit, on the card against the CPU."""
+    pts, ks = _inputs(300, 110)
+    p = C.from_affine(C.host_points_to_affine(pts, cuda))
+    p = cuda_curve.add(p, p.roll(1, 0))  # Z != 1, and the identity where both are
+    q = C.host_points_to_affine(pts[::-1], cuda)
+    cuda_lib.reset_launches()
+    assert torch.equal(cuda_curve.double(p), cuda_curve.plain_double(p))
+    assert torch.equal(cuda_curve.mixed_add(p, q), cuda_curve.plain_mixed_add(p, q))
+    assert cuda_lib.launches["K11"] == 1 and cuda_lib.launches["K12"] == 1
+    host = C.projective_to_host_points(p)
+    assert C.projective_to_host_points(C.mixed_add(p, q)) == [hc.g1_add(a, b) for a, b in zip(host, pts[::-1])]
+    assert torch.equal(C.neg(p).cpu(), C.neg(p.cpu()))
+    sc = F.ints_to_words(ks[:64], cuda)
+    cuda_lib.reset_launches()
+    got = C.scalar_mul(p[:64], sc)
+    assert cuda_lib.launches["K11"] == 256 and cuda_lib.launches["K2"] == 256
+    assert torch.equal(got.cpu(), C.scalar_mul(p[:64].cpu(), sc.cpu()))
+    assert C.projective_to_host_points(got) == [
+        None if a is None else hc.g1_mul(a, k) for a, k in zip(host[:64], ks[:64])
+    ]
+
+
+@pytest.mark.gpu
+def test_ntt_and_kzg_on_card_match_cpu(cuda):
+    """ntt_g1 and intt_g1 at n = 16 and the Fr NTT, then KZG at domain 8
+    (setup, commit, in- and out-of-domain proofs, FK), on the card against
+    the CPU path, bit for bit."""
+    rng = random.Random(120)
+    pts = [hc.g1_mul(hc.g1_generator(), rng.randrange(R)) for _ in range(16)]
+    pts[3] = None
+    x = C.from_affine(C.host_points_to_affine(pts, cuda))
+    cuda_lib.reset_launches()
+    evals = N.ntt_g1(x)
+    assert cuda_lib.launches["K11"] > 0
+    assert torch.equal(evals.cpu(), N.ntt_g1(x.cpu()))
+    back = N.intt_g1(evals)
+    assert torch.equal(back.cpu(), N.intt_g1(evals.cpu()))
+    assert C.projective_to_host_points(back) == pts
+    a = F.ints_to_mont([rng.randrange(R) for _ in range(32)], "fr", cuda)
+    assert torch.equal(N.ntt_fr(a).cpu(), N.ntt_fr(a.cpu()))
+    assert torch.equal(N.intt_fr(N.ntt_fr(a)), a)
+
+    crs = kzg_setup(8)
+    cpu = KZGParams(size=8, lagrange_host=crs.lagrange_host, g2=crs.g2, domain=crs.domain, device="cpu")
+    assert crs.lagrange_host == kzg_setup(8, device="cpu").lagrange_host
+    vals = [rng.randrange(R) for _ in range(5)]
+    data = FrVector.from_ints(vals, crs.domain, device=cuda)
+    cdata = FrVector.from_ints(vals, crs.domain, device="cpu")
+    commit = KZG.commit(crs, data)
+    assert commit == KZG.commit(cpu, cdata) == native.g1_msm(crs.lagrange_host[:5], vals)
+    for point in (2, 6, 40):
+        proof = KZG.prove(crs, commit, point, data)
+        want = KZG.prove(cpu, commit, point, cdata)
+        assert (proof.proof, proof.y) == (want.proof, want.y)
+        assert KZG.verify(crs, commit, point, proof)
+    fk = KZG.prove_all_points(crs, data)
+    assert [(p.proof, p.y) for p in fk] == [(p.proof, p.y) for p in KZG.prove_all_points(cpu, cdata)]

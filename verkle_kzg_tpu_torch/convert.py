@@ -15,7 +15,8 @@ import torch
 
 from .ops import cuda_lib
 from .poly import Domain, FrVector
-from .schemes.ipa import IPAParams
+from .schemes.ipa import IPA, IPAParams
+from .schemes.kzg import KZG, KZGParams
 
 
 def limb_planes_to_tensor(planes, device) -> torch.Tensor:
@@ -46,6 +47,18 @@ def ipa_params_from_jax(params, device=None) -> IPAParams:
     )
 
 
+def kzg_params_from_jax(params, device=None) -> KZGParams:
+    """``verkle_kzg_tpu.schemes.kzg.KZGParams`` -> the port's, reusing its
+    host Lagrange SRS and G2 point (no second setup)."""
+    return KZGParams(
+        size=params.size,
+        lagrange_host=list(params.lagrange_host),
+        g2=params.g2,
+        domain=Domain(params.domain.size),
+        device=device,
+    )
+
+
 def frvector_from_jax(vec, device=None) -> FrVector:
     """``verkle_kzg_tpu.poly.FrVector`` -> the port's (same Montgomery values)."""
     vals = limb_planes_to_tensor(np.asarray(vec.vals), cuda_lib.resolve_device(device))
@@ -67,12 +80,11 @@ def prover_queries_from_jax(queries, device=None) -> list:
     return out
 
 
-def verkle_tree_from_jax(jax_tree, params: IPAParams):
-    """A ``verkle_kzg_tpu.verkle.VerkleTree`` -> the port's tree over the
-    IPA and ``params``: the same geometry and the same nodes, stems and
-    leaves, with no commitment cached, so that both packages commit the
-    same state."""
-    from .schemes.ipa import IPA
+def verkle_tree_from_jax(jax_tree, params):
+    """A ``verkle_kzg_tpu.verkle.VerkleTree`` -> the port's tree over
+    ``params`` and its scheme (KZG for ``KZGParams``, else the IPA): the
+    same geometry and the same nodes, stems and leaves, with no commitment
+    cached, so that both packages commit the same state."""
     from .verkle.tree import ExtensionNode, InternalNode, VerkleTree
 
     def copy(node):
@@ -80,8 +92,9 @@ def verkle_tree_from_jax(jax_tree, params: IPAParams):
             return ExtensionNode(stem=tuple(node.stem), leaves=dict(node.leaves))
         return InternalNode(children={u: copy(ch) for u, ch in node.children.items()})
 
+    scheme = KZG if isinstance(params, KZGParams) else IPA
     tree = VerkleTree(
-        IPA, params, jax_tree.key_len, ext_width=jax_tree.ext_width, internal_width=jax_tree.internal_width
+        scheme, params, jax_tree.key_len, ext_width=jax_tree.ext_width, internal_width=jax_tree.internal_width
     )
     tree.root = copy(jax_tree.root)
     return tree

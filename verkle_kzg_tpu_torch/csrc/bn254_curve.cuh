@@ -4,8 +4,8 @@
 // (0 : 1 : 0) included.
 //
 // Replaces the kernel bodies of verkle_kzg_tpu/ops/pallas_curve.py:
-// k_point_add (LAZY = false), k_point_add_lazy, k_point_mixed_add_lazy,
-// k_point_double_lazy and k_point_reduce. Each function runs the same
+// k_point_add, k_point_mixed_add and k_point_double (LAZY = false), their
+// _lazy forms (LAZY = true) and k_point_reduce. Each function runs the same
 // sequence of field operations as its Pallas twin, so in the same domain
 // it yields the same projective representative.
 //
@@ -94,38 +94,39 @@ __device__ __forceinline__ void point_add(Point& r, const Point& p, const Point&
   }
 }
 
-// p += (ax, ay) with the affine point fully reduced, RCB16 algorithm 8, in
-// the lazy domain. The caller skips the (0, 0) infinity sentinel (the
-// Pallas kernel selects p there, which leaves p as it was).
-__device__ __forceinline__ void mixed_add_lazy(Point& p, const uint32_t ax[8],
-                                               const uint32_t ay[8]) {
+// p += (ax, ay) with the affine point fully reduced, RCB16 algorithm 8.
+// The caller skips the (0, 0) infinity sentinel (the Pallas kernels select
+// p there, which leaves p as it was).
+template <bool LAZY>
+__device__ __forceinline__ void point_mixed_add(Point& p, const uint32_t ax[8],
+                                                const uint32_t ay[8]) {
   uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], X3[8], Y3[8], Z3[8];
-  fmul<Fq, true>(t0, p.x, ax);
-  fmul<Fq, true>(t1, p.y, ay);
-  fadd<Fq, true>(t3, ax, ay);
-  fadd<Fq, true>(t4, p.x, p.y);
-  fmul<Fq, true>(t3, t3, t4);
-  fadd<Fq, true>(t4, t0, t1);
-  fsub<Fq, true>(t3, t3, t4);
-  fmul<Fq, true>(t4, ay, p.z);
-  fadd<Fq, true>(t4, t4, p.y);
-  fmul<Fq, true>(Y3, ax, p.z);
-  fadd<Fq, true>(Y3, Y3, p.x);
-  fadd<Fq, true>(X3, t0, t0);
-  fadd<Fq, true>(t0, X3, t0);
-  fmul9<Fq, true>(t2, p.z);
-  fadd<Fq, true>(Z3, t1, t2);
-  fsub<Fq, true>(t1, t1, t2);
-  fmul9<Fq, true>(Y3, Y3);
-  fmul<Fq, true>(X3, t4, Y3);
-  fmul<Fq, true>(t2, t3, t1);
-  fsub<Fq, true>(X3, t2, X3);
-  fmul<Fq, true>(Y3, Y3, t0);
-  fmul<Fq, true>(t1, t1, Z3);
-  fadd<Fq, true>(Y3, t1, Y3);
-  fmul<Fq, true>(t0, t0, t3);
-  fmul<Fq, true>(Z3, Z3, t4);
-  fadd<Fq, true>(Z3, Z3, t0);
+  fmul<Fq, LAZY>(t0, p.x, ax);
+  fmul<Fq, LAZY>(t1, p.y, ay);
+  fadd<Fq, LAZY>(t3, ax, ay);
+  fadd<Fq, LAZY>(t4, p.x, p.y);
+  fmul<Fq, LAZY>(t3, t3, t4);
+  fadd<Fq, LAZY>(t4, t0, t1);
+  fsub<Fq, LAZY>(t3, t3, t4);
+  fmul<Fq, LAZY>(t4, ay, p.z);
+  fadd<Fq, LAZY>(t4, t4, p.y);
+  fmul<Fq, LAZY>(Y3, ax, p.z);
+  fadd<Fq, LAZY>(Y3, Y3, p.x);
+  fadd<Fq, LAZY>(X3, t0, t0);
+  fadd<Fq, LAZY>(t0, X3, t0);
+  fmul9<Fq, LAZY>(t2, p.z);
+  fadd<Fq, LAZY>(Z3, t1, t2);
+  fsub<Fq, LAZY>(t1, t1, t2);
+  fmul9<Fq, LAZY>(Y3, Y3);
+  fmul<Fq, LAZY>(X3, t4, Y3);
+  fmul<Fq, LAZY>(t2, t3, t1);
+  fsub<Fq, LAZY>(X3, t2, X3);
+  fmul<Fq, LAZY>(Y3, Y3, t0);
+  fmul<Fq, LAZY>(t1, t1, Z3);
+  fadd<Fq, LAZY>(Y3, t1, Y3);
+  fmul<Fq, LAZY>(t0, t0, t3);
+  fmul<Fq, LAZY>(Z3, Z3, t4);
+  fadd<Fq, LAZY>(Z3, Z3, t0);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     p.x[j] = X3[j];
@@ -134,27 +135,28 @@ __device__ __forceinline__ void mixed_add_lazy(Point& p, const uint32_t ax[8],
   }
 }
 
-// p = 2p, RCB16 algorithm 9, lazy domain.
-__device__ __forceinline__ void double_lazy(Point& p) {
+// p = 2p, RCB16 algorithm 9.
+template <bool LAZY>
+__device__ __forceinline__ void point_double(Point& p) {
   uint32_t t0[8], t1[8], t2[8], X3[8], Y3[8], Z3[8];
-  fmul<Fq, true>(t0, p.y, p.y);
-  fadd<Fq, true>(Z3, t0, t0);
-  fadd<Fq, true>(Z3, Z3, Z3);
-  fadd<Fq, true>(Z3, Z3, Z3);
-  fmul<Fq, true>(t1, p.y, p.z);
-  fmul<Fq, true>(t2, p.z, p.z);
-  fmul9<Fq, true>(t2, t2);
-  fmul<Fq, true>(X3, t2, Z3);
-  fadd<Fq, true>(Y3, t0, t2);
-  fmul<Fq, true>(Z3, t1, Z3);
-  fadd<Fq, true>(t1, t2, t2);
-  fadd<Fq, true>(t2, t1, t2);
-  fsub<Fq, true>(t0, t0, t2);
-  fmul<Fq, true>(Y3, t0, Y3);
-  fadd<Fq, true>(Y3, X3, Y3);
-  fmul<Fq, true>(t1, p.x, p.y);
-  fmul<Fq, true>(X3, t0, t1);
-  fadd<Fq, true>(X3, X3, X3);
+  fmul<Fq, LAZY>(t0, p.y, p.y);
+  fadd<Fq, LAZY>(Z3, t0, t0);
+  fadd<Fq, LAZY>(Z3, Z3, Z3);
+  fadd<Fq, LAZY>(Z3, Z3, Z3);
+  fmul<Fq, LAZY>(t1, p.y, p.z);
+  fmul<Fq, LAZY>(t2, p.z, p.z);
+  fmul9<Fq, LAZY>(t2, t2);
+  fmul<Fq, LAZY>(X3, t2, Z3);
+  fadd<Fq, LAZY>(Y3, t0, t2);
+  fmul<Fq, LAZY>(Z3, t1, Z3);
+  fadd<Fq, LAZY>(t1, t2, t2);
+  fadd<Fq, LAZY>(t2, t1, t2);
+  fsub<Fq, LAZY>(t0, t0, t2);
+  fmul<Fq, LAZY>(Y3, t0, Y3);
+  fadd<Fq, LAZY>(Y3, X3, Y3);
+  fmul<Fq, LAZY>(t1, p.x, p.y);
+  fmul<Fq, LAZY>(X3, t0, t1);
+  fadd<Fq, LAZY>(X3, X3, X3);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     p.x[j] = X3[j];

@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(128) msm_tail_combine_kernel(const uint32_t* _
     Point x;
     load_point(x, src);
     point_add<true>(U, U, x);
-    for (int i = 0; i < log2_len; ++i) double_lazy(V);
+    for (int i = 0; i < log2_len; ++i) point_double<true>(V);
     for (int k = 0; k < m; ++k) {
       load_point(x, src + 48 * k + 24);
       point_add<true>(V, V, x);
@@ -87,7 +87,7 @@ __global__ void msm_tail_horner_kernel(const uint32_t* __restrict__ pairs,
   Point acc;
   load_point(acc, pairs + (int64_t)(nwin - 1) * 48 + 24);
   for (int win = nwin - 2; win >= 0; --win) {
-    for (int i = 0; i < c; ++i) double_lazy(acc);
+    for (int i = 0; i < c; ++i) point_double<true>(acc);
     Point x;
     load_point(x, pairs + (int64_t)win * 48 + 24);
     point_add<true>(acc, acc, x);

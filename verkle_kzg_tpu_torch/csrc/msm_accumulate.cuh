@@ -41,7 +41,7 @@ __device__ __forceinline__ void accumulate_segment(const uint32_t* __restrict__ 
     uint32_t* row = tbl + 24 * (d - 1);
     Point acc;
     load_point(acc, row);
-    mixed_add_lazy(acc, ax, ay);
+    point_mixed_add<true>(acc, ax, ay);
     store_point(row, acc);
   }
 

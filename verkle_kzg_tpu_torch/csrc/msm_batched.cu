@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(MAX_WINDOWS) msm_batched_tail_kernel(
   if (w == 0) {
     Point acc = sums[nwin - 1];
     for (int k = nwin - 2; k >= 0; --k) {
-      for (int i = 0; i < c; ++i) double_lazy(acc);
+      for (int i = 0; i < c; ++i) point_double<true>(acc);
       point_add<true>(acc, acc, sums[k]);
     }
     reduce_point(acc);

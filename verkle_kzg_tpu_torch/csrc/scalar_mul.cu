@@ -28,8 +28,8 @@ __global__ void __launch_bounds__(128) scalar_mul_kernel(const uint32_t* __restr
   for (int w = 7; w >= 0; --w) {
     const uint32_t word = sc[8 * i + w] & live;
     for (int b = 31; b >= 0; --b) {
-      double_lazy(acc);
-      if ((word >> b) & 1u) mixed_add_lazy(acc, ax, ay);
+      point_double<true>(acc);
+      if ((word >> b) & 1u) point_mixed_add<true>(acc, ax, ay);
     }
   }
   reduce_point(acc);

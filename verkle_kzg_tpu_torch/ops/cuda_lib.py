@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1-K10) and count their launches.
+"""Build and load the port's CUDA kernels (K1-K12) and count their launches.
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and the objects are
@@ -32,7 +32,7 @@ BUILD = _PKG / "_build"
 #: key per TPU counterpart: K3, K8 and K9 are instances of one CUDA kernel,
 #: as are K6 and K10 (``cuda_msm.py``, ``cuda_msm_batched.py``). K4 counts
 #: one per tail, which is two to five CUDA launches (``cuda_msm.tail``).
-launches = {f"K{i}": 0 for i in range(1, 11)}
+launches = {f"K{i}": 0 for i in range(1, 13)}
 
 _lib = None
 _P = ctypes.c_void_p
@@ -42,6 +42,8 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "vkzg_field_binop": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _I, _P],
     "vkzg_point_add": [_P, _P, _P, _I, _P],
+    "vkzg_point_double": [_P, _P, _I, _P],
+    "vkzg_point_mixed_add": [_P, _P, _P, _I, _P],
     "vkzg_msm_accumulate": [_P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P],
     "vkzg_msm_tail": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "vkzg_scalar_mul": [_P, _P, _P, _I, _P],

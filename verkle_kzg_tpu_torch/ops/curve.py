@@ -12,11 +12,11 @@ The formulas below run on 16-bit limbs (``(..., 3, 16)`` int64) and are
 the plain versions of the group law in ``csrc/bn254_curve.cuh``: each
 follows the same sequence of field operations as its Pallas twin in
 ``verkle_kzg_tpu/ops/pallas_curve.py``, so in the same domain (reduced or
-lazy) all three give the same projective representative. ``add`` on word
-tensors is kernel K2 (``cuda_curve.py``) and ``scalar_mul_affine`` is kernel
-K5 (``cuda_scalar_mul.py``); ``double``, ``mixed_add`` and ``scalar_mul``
-on word tensors exist for the CPU only, because their standalone kernels
-are still to be ported.
+lazy) all three give the same projective representative. On word tensors
+``add``, ``double`` and ``mixed_add`` are kernels K2, K11 and K12
+(``cuda_curve.py``), ``neg`` is a K1 subtraction, ``scalar_mul`` is a loop of
+K11, K2 and a select per bit, and ``scalar_mul_affine`` is kernel K5
+(``cuda_scalar_mul.py``).
 """
 
 from __future__ import annotations
@@ -149,37 +149,35 @@ def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return _k2.add(p, q)
 
 
-def _cpu_only(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            f"curve.{name}: its standalone kernel is still to be ported (ROADMAP §2)"
-        )
-
-
 def double(p: torch.Tensor) -> torch.Tensor:
-    """2p on CPU word tensors (``ops/curve.py::double``)."""
-    _cpu_only("double", p)
-    return F.from_limbs(double16(F.to_limbs(p)))
+    """2p on (..., 3, 8) words (``ops/curve.py::double``). K11."""
+    return _k2.double(p)
 
 
 def mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
-    """p + q_aff on CPU word tensors (``ops/curve.py::mixed_add``)."""
-    _cpu_only("mixed_add", p)
-    return F.from_limbs(mixed_add16(F.to_limbs(p), F.to_limbs(q_aff)))
+    """p + q_aff, q_aff (..., 2, 8) affine with the (0, 0) sentinel
+    (``ops/curve.py::mixed_add``). K12."""
+    return _k2.mixed_add(p, q_aff)
+
+
+def neg(p: torch.Tensor) -> torch.Tensor:
+    """-p: Y negated (``ops/curve.py::neg``), through K1."""
+    x, y, z = p.unbind(-2)
+    return torch.stack([x, F.neg(y, _FQ), z], dim=-2)
 
 
 def scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """Branchless double-and-add on CPU word tensors (``ops/curve.py::scalar_mul``):
-    (..., 3, 8) projective points x (..., 8) standard scalars, reduced
-    domain, the complete add and a per-bit select, as the JAX package's XLA
-    path runs it."""
-    _cpu_only("scalar_mul", p)
-    q = F.to_limbs(p)
-    acc = infinity16(p.shape[:-2], p.device)
-    for bit in scalar_bits_msb(scalars):
-        acc = double16(acc)
-        acc = torch.where(bit[..., None, None] != 0, add16(acc, q), acc)
-    return F.from_limbs(acc)
+    """Branchless double-and-add (``ops/curve.py::scalar_mul``): (..., 3, 8)
+    projective points x (..., 8) standard scalars, reduced domain. Each of
+    the 256 MSB-first bits is one ``double`` (K11), one complete ``add``
+    (K2) and one select, the JAX package's XLA scan step for step, so the
+    projective coordinates are the same."""
+    bits = scalar_bits_msb(scalars) != 0
+    acc = infinity(p.shape[:-2], p.device)
+    for bit in bits:
+        acc = double(acc)
+        acc = torch.where(bit[..., None, None], add(acc, p), acc)
+    return acc
 
 
 def scalar_mul_affine(pts: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Radix-2 evaluation domain over Fr (``verkle_kzg_tpu/poly/domain.py``).
 
 The host keeps python-int mirrors (the IPA needs just the barycentric
-coefficients of one point at a time); the device mirrors are Montgomery
-``(N, 8)`` word tensors, made once per device on first use, and
-``invdiff_rows`` feeds the multiproof's in-domain quotients.
+coefficients of one point at a time, KZG's verify one domain element); the
+device mirrors are Montgomery ``(N, 8)`` word tensors, made once per device
+on first use, and ``invdiff_rows`` feeds the in-domain quotients.
 """
 
 from __future__ import annotations
@@ -63,6 +63,10 @@ class Domain:
         if key not in self._mirrors:
             self._mirrors[key] = F.ints_to_mont(getattr(self, name), "fr", device)
         return self._mirrors[key]
+
+    def element(self, index: int) -> int:
+        """w^index (``lagrange_basis.rs:86-88``)."""
+        return self.omegas[index % self.size]
 
     def barycentric_coefficients(self, point: int) -> list:
         """The b vector: one-hot inside the integer-index domain (the

@@ -1,11 +1,11 @@
-"""Evaluation-form data vector (``verkle_kzg_tpu/poly/lagrange.py``),
-limited to what the IPA and the multiproof use.
+"""Evaluation-form data vector (``verkle_kzg_tpu/poly/lagrange.py``).
 
 ``vals`` is an ``(N, 8)`` int32 tensor of Montgomery words on one device,
 zero-padded past the ``max`` watermark. ``evaluate`` keeps the reference's
 three paths and their boundaries (COMPAT quirks 2 and 3). The in-domain
 quotient is :func:`_quotient_in_domain`, batched over its leading axis for
-the multiproof.
+the multiproof; the out-of-domain one is :func:`_quotient_out_domain`, and
+``interpolate`` goes to coefficient form through the Fr INTT.
 """
 
 from __future__ import annotations
@@ -14,10 +14,12 @@ import dataclasses
 
 import torch
 
+from ..hostmath.serialize import fr_from_le_bytes_mod_order
 from ..params import R
 
 from ..ops import cuda_lib
 from ..ops import field as F
+from ..ops.ntt import intt_fr
 from .domain import Domain
 
 
@@ -34,6 +36,13 @@ def _quotient_in_domain(vals, invdiff_rows, ratio_rows, index):
     corr = F.sum_lanes(F.neg(F.mont_mul(q, ratio_rows, "fr"), "fr"), "fr")  # (Zq, 1, 8)
     at_z = torch.arange(vals.shape[1], device=vals.device)[None, :] == index[:, None]
     return torch.where(at_z[..., None], corr, q)
+
+
+def _quotient_out_domain(vals, eval_mont, inv_terms):
+    """q_i = (f_i - f(z)) / (w^i - z) (``lagrange_basis.rs:121-142``):
+    (N, 8) values, the (1, 8) Montgomery evaluation f(z) and the (N, 8)
+    Montgomery inverses 1 / (w^i - z)."""
+    return F.mont_mul(F.sub(vals, eval_mont, "fr"), inv_terms, "fr")
 
 
 @dataclasses.dataclass
@@ -84,6 +93,24 @@ class FrVector:
         b = self.domain.barycentric_coefficients(point)
         return sum(v * c % R for v, c in zip(self.to_ints(), b)) % R
 
+    def divide_by_vanishing(self, index: int) -> "FrVector":
+        """In-domain quotient at domain index ``index`` (``lagrange_basis.rs:91-119``)."""
+        dev = self.device
+        z = torch.tensor([index], device=dev)
+        dom = self.domain
+        ratio = F.mont_mul(dom.d_vanishing(dev)[z], dom.d_vanishing_inv(dev), "fr")[None]
+        q = _quotient_in_domain(self.vals[None], dom.invdiff_rows(z), ratio, z)[0]
+        return FrVector(q, dom.size, dom)
+
+    def divide_by_vanishing_outside(self, point: int) -> "FrVector":
+        """Out-of-domain quotient at ``point`` (``lagrange_basis.rs:121-142``):
+        one batched inversion of (w^i - z) through K1."""
+        dev = self.device
+        ev = F.ints_to_mont([self.evaluate(point)], "fr", dev)
+        diff = F.sub(self.domain.d_omegas(dev), F.ints_to_mont([point], "fr", dev), "fr")
+        q = _quotient_out_domain(self.vals, ev, F.batch_inv_mont(diff, "fr"))
+        return FrVector(q, self.domain.size, self.domain)
+
     def __add__(self, other: "FrVector") -> "FrVector":
         assert self.domain is other.domain
         return FrVector(F.add(self.vals, other.vals, "fr"), max(self.max, other.max), self.domain)
@@ -101,3 +128,20 @@ class FrVector:
         vals = self.vals.clone()
         vals[index] = F.ints_to_mont([value], "fr", self.device)[0]
         return FrVector(vals, self.max, self.domain)
+
+    def inner_product_ints(self, other_ints: list) -> int:
+        return sum(v * o % R for v, o in zip(self.to_ints(), other_ints)) % R
+
+    def get_all(self) -> list:
+        """All (index, value) pairs (``lib.rs:46``)."""
+        return list(enumerate(self.to_ints()))
+
+    @staticmethod
+    def bytes_to_item(raw: bytes) -> int:
+        """Fr::from_le_bytes_mod_order (``lagrange_basis.rs:175-178``)."""
+        return fr_from_le_bytes_mod_order(raw)
+
+    def interpolate(self) -> list:
+        """Coefficient form through the Fr INTT (``lagrange_basis.rs:146-148``;
+        FK needs it)."""
+        return F.mont_to_ints(intt_fr(self.vals), "fr")

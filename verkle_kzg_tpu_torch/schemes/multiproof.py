@@ -1,5 +1,5 @@
 """PCS multiproof (Dankrad Feist's random-linear-combination batch opening)
-over the IPA, on PyTorch tensors (``verkle_kzg_tpu/schemes/multiproof.py``,
+over the IPA or KZG, on PyTorch tensors (``verkle_kzg_tpu/schemes/multiproof.py``,
 the reference's ``vector-commit/src/multiproof.rs``).
 
 Every per-query computation runs on the device of ``params`` as a few
@@ -103,8 +103,8 @@ def _quotients_sum(grouped: torch.Tensor, domain, z_idx: torch.Tensor) -> torch.
 
 
 def prove_multiproof(scheme, params, queries: list) -> Multiproof:
-    """``multiproof.rs:99-176``. ``scheme`` is the IPA namespace; every
-    tensor lives on ``params.device``."""
+    """``multiproof.rs:99-176``. ``scheme`` is the IPA or the KZG namespace;
+    every tensor lives on ``params.device``."""
     dev = params.device
     domain = params.domain
     n = domain.size

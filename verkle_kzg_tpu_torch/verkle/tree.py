@@ -1,4 +1,4 @@
-"""Ethereum-style verkle trie over the IPA, on PyTorch tensors
+"""Ethereum-style verkle trie over the IPA or KZG, on PyTorch tensors
 (``verkle_kzg_tpu/verkle/tree.py``, the reference's
 ``verkle-tree/src/{lib,node}.rs``).
 
@@ -87,9 +87,9 @@ def _stem_item(stem: tuple) -> int:
 
 class VerkleTree:
     """``VerkleTree`` (``verkle-tree/src/lib.rs:87-138``) over a scheme
-    namespace (``schemes.IPA``) and its params. Its commitments are computed
-    on ``params.device``, which is the CUDA card unless the params were made
-    for another device. There is no ``mesh``: sharding across cards is still
+    namespace (``schemes.IPA`` or ``schemes.KZG``) and its params. Its
+    commitments are computed on ``params.device``, which is the CUDA card
+    unless the params were made for another device. There is no ``mesh``: sharding across cards is still
     to be ported."""
 
     def __init__(
