@@ -9,7 +9,7 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K12) against its plain PyTorch version on the card, at
+  2. each kernel (K1-K13) against its plain PyTorch version on the card, at
      the shapes the main paths give it, exact, with its time and the least
      time the card could take for the same work;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
@@ -30,10 +30,15 @@ and no JAX. Phases, each of which raises on failure:
      native oracle, proofs in and out of the domain with their pairings;
      Fr and G1 NTT round trips; FK all-points proofs against the 256 single
      proofs; FK at domain 16 on the card against the CPU path; and the
-     1,024-query multiproof over KZG (config 3, the KZG half).
+     1,024-query multiproof over KZG (config 3, the KZG half);
+  9. benchmarks/tune_group.py's default grid on the port: the signed
+     single MSM of 2^20 points in 128 lanes through the lane-stream entry
+     point msm_stream.msm_single_fused with wgroup/fused (K13), against the
+     c = 8 msm_pippenger (K3), each run exact; then every other entry point
+     of msm_stream once at 2^12 points against the native oracle.
 
-Each of phases 2, 3, 5, 6 and 8, and each run of phase 7, sets the launch
-counts to 0 just before its path and reads them just after. The last two
+Each of phases 2, 3, 5, 6 and 8, and each run of phases 7 and 9, sets the
+launch counts to 0 just before its path and reads them just after. The last two
 lines of standard output are the card's name and power limit and a JSON
 object {"ok": true, "device": {...}}; the line before them holds the
 per-kernel JSON record.
@@ -105,7 +110,7 @@ def bound(nbytes: float, fmuls: float) -> dict:
 
 
 def phase_kernels(dev, crs) -> dict:
-    """K1-K12 against their plain versions on the card, exact."""
+    """K1-K13 against their plain versions on the card, exact."""
     import torch
 
     from verkle_kzg_tpu_torch.hostmath import curve as hc
@@ -236,6 +241,7 @@ def phase_kernels(dev, crs) -> dict:
     rec["K4"]["max_abs_err"] = k4_err
     rec.update(_kernels_k5_k7(dev, crs, rng))
     rec.update(_kernels_windows(dev, base, rng))
+    rec.update(_kernels_k13(dev, base, rng))
     return rec
 
 
@@ -456,6 +462,65 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     return rec
 
 
+K13_CASES = [  # record name, c, G, fused, signed: an odd G pads a window, the last is unsigned
+    ("K13", 6, 2, False, True), ("K13@c6-G2-fused", 6, 2, True, True),
+    ("K13@c8-G4-fused", 8, 4, True, True), ("K13@c4-G3-fused-unsigned", 4, 3, True, False),
+]
+
+
+def _k13_stream(pts, sc, lanes: int, c: int, signed: bool) -> tuple:
+    """(n, 2, 8) points and (n, 8) scalars -> the lane stream (S, B, 2, 8)
+    and its digits (W, S, B), point i B + b at step i of lane b."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import msm as M
+
+    n = pts.shape[0]
+    digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)
+    return pts.reshape(n // lanes, lanes, 2, 8), digits.reshape(-1, n // lanes, lanes).contiguous()
+
+
+def _kernels_k13(dev, base, rng, n: int = 1 << 12, lanes: int = 128) -> dict:
+    """K13 against its plain version on ``n`` points in ``lanes`` lanes
+    (zero scalars, r - 1, a (0, 0) point) at each (c, G, fused, sign) of
+    K13_CASES; the first case's single MSM also against the native oracle."""
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.ops import cuda_msm_group as KG
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import msm_stream as MS
+
+    pts = [base[i % 64] for i in range(n)]
+    pts[1] = None
+    ks = [rng.randrange(R) for _ in range(n)]
+    ks[0], ks[2], ks[3] = 0, R - 1, 0
+    pa, sc = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
+    dead = C.affine_is_infinity(pa)
+    rec = {}
+    for name, c, g, fused, signed in K13_CASES:
+        stream, digits = _k13_stream(pa, sc, lanes, c, signed)
+        run = lambda: KG.accumulate(stream, digits, c, signed, g, fused)  # noqa: E731
+        table = run()
+        plain_table, plain_ms = timed_once(lambda: KG.plain_accumulate(stream, digits, c, signed))
+        err = max_abs_err(table, plain_table)
+        assert err == 0, name
+        if name == "K13":
+            got = MS.msm_single_fused(stream, digits, c, signed=signed, wgroup=g, fused=fused)
+            assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)], "K13 MSM != native oracle"
+        live = int(((digits != 0) & ~dead.reshape(digits.shape[1:])[None]).sum())
+        rec[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(run, 5),
+            "plain_ms": plain_ms,
+            "library_ms": None,
+            "shape": f"{n} points, {lanes} lanes, c = {c}, G = {g}, {'fused' if fused else 'unfused'}, "
+                     f"{'signed' if signed else 'unsigned'}",
+            **bound(4 * (stream.numel() + digits.numel() + table.numel()), live * MIXED_FMULS),
+        }
+    return rec
+
+
 def phase_ipa(dev, crs, small: int = 32):
     """IPA at domain 256 on the card: checks, launch counts, timings; and a
     proof at domain ``small`` on the card against the CPU plain path. Also
@@ -634,6 +699,21 @@ def phase_msm(dev) -> dict:
     }
 
 
+def _median_ms(fn, reps: int = 3) -> tuple:
+    """The median and the list of ``reps`` CUDA-event timings of ``fn``."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
 SWEEP_SIGNED_C = (8, 4, 12, 16)  # at every n: the default and three other widths
 
 
@@ -694,15 +774,7 @@ def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extr
             assert got == [native_want], f"n = {n}, c = {c}: != native oracle"
         for k, v in counts.items():
             path_launches[k] += v
-        reps = []
-        for _ in range(3):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            run()
-            end.record()
-            torch.cuda.synchronize()
-            reps.append(start.elapsed_time(end))
-        med = statistics.median(reps)
+        med, reps = _median_ms(run)
         line = {"n": n, "c": c, "signed": signed, "median_ms": med, "reps_ms": reps,
                 "points_per_s": n / (med / 1e3), "launches": counts}
         runs.append(line)
@@ -710,6 +782,98 @@ def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extr
     for k in ("K2", "K3", "K4", "K6", "K8", "K9", "K10"):
         assert path_launches[k] > 0, (k, path_launches)
     return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches}
+
+
+GROUP_GRID = ((6, 2, False), (6, 2, True), (6, 4, True), (8, 2, False), (8, 2, True), (8, 4, True))
+
+
+def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_GRID, small: int = 1 << 12) -> dict:
+    """``benchmarks/tune_group.py``'s default grid on the port: the signed
+    single MSM of ``n`` points in ``lanes`` lanes through
+    ``msm_stream.msm_single_fused`` with ``wgroup``/``fused`` (K13, K2
+    fold, K4; chunk 32 is accepted and has no effect), digits included, as
+    tune_group times it; its baseline is ``msm_pippenger`` at c = 8 (K3,
+    tune_group's ``prod_sc_pair_c8``). Phase 4's points k G, uniform
+    scalars; every run exact against (sum k_i s_i) G. Each run prints the
+    median of 3 CUDA-event reps after the checked call, points/s, the
+    launches of the checked call, whose counts start from 0, and one call
+    of K13 alone. Then each other entry point of ``msm_stream`` once, on
+    ``small`` points, against the native oracle."""
+    import torch
+
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.hostmath.curve import g1_generator, g1_mul
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_msm_group as KG
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import msm as M
+    from verkle_kzg_tpu_torch.ops import msm_stream as MS
+
+    t0 = time.perf_counter()
+    pts = msm_points(n).to(dev)
+    rng = random.Random(9)
+    ks = [rng.randrange(R) for _ in range(n)]
+    sc = F.ints_to_words(ks, dev)
+    want = g1_mul(g1_generator(), sum((i + 1) * k for i, k in enumerate(ks)) % R)
+    setup_s = time.perf_counter() - t0
+
+    def checked(kind, fn, **line):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        line = {"kind": kind, "n": n, **line, "launches": {k: v for k, v in cuda_lib.launches.items() if v}}
+        assert C.projective_to_host_points(out) == [want], f"{kind}: != (sum k_i s_i) G"
+        line["median_ms"], line["reps_ms"] = _median_ms(fn)
+        line["points_per_s"] = n / (line["median_ms"] / 1e3)
+        return line
+
+    runs = [checked("prod_sc_pair_c8", lambda: M.msm_pippenger(pts, sc, c=8))]
+    print("phase 9 group grid:", json.dumps(runs[0]), f"[{card}]", flush=True)
+    path_launches = dict.fromkeys(cuda_lib.launches, 0)
+    for c, g, fused in grid:
+        def run(c=c, g=g, fused=fused):
+            stream, digits = _k13_stream(pts, sc, lanes, c, True)
+            return MS.msm_single_fused(stream, digits, c, chunk=32, signed=True, wgroup=g, fused=fused)
+
+        line = checked(f"group_c{c}_g{g}_f{int(fused)}", run, lanes=lanes)
+        for k, v in line["launches"].items():
+            path_launches[k] += v
+        stream, digits = _k13_stream(pts, sc, lanes, c, True)
+        line["k13_ms"] = _median_ms(lambda: KG.accumulate(stream, digits, c, True, g, fused), 1)[0]
+        runs.append(line)
+        print("phase 9 group grid:", json.dumps(line), f"[{card}]", flush=True)
+    assert path_launches["K13"] > 0, path_launches
+
+    # every other entry point once, on the first `small` points, 128 lanes
+    pa, sm = pts[:small].contiguous(), sc[:small].contiguous()
+    host_pts = C.projective_to_host_points(C.from_affine(pa))
+    one = native.g1_msm(host_pts, ks[:small])
+    lane_want = [native.g1_msm(host_pts[b::lanes], ks[b:small:lanes]) for b in range(lanes)]
+    steps = small // lanes
+    stream, sc_stream = pa.reshape(steps, lanes, 2, 8), sm.reshape(steps, lanes, 8)
+    masks = M.signed_carries(sm, 8).reshape(steps, lanes, -1).contiguous()
+    _, digits = _k13_stream(pa, sm, lanes, 6, True)
+    _, udigits = _k13_stream(pa, sm, lanes, 8, False)
+    checks = {
+        "msm_single_fused (K6)": (MS.msm_single_fused(stream, digits, 6, signed=True), [one]),
+        "msm_single_fused unsigned (K10)": (MS.msm_single_fused(stream, udigits, 8), [one]),
+        "msm_single_fused_sc (K8)": (MS.msm_single_fused_sc(stream, sc_stream, 8), [one]),
+        "msm_single_fused_sc_signed (K3)": (MS.msm_single_fused_sc_signed(stream, sc_stream, masks, 8), [one]),
+        "bucket_accumulate + batched_bucket_tail (K6, K7)": (
+            MS.batched_bucket_tail(MS.bucket_accumulate(stream, digits, 6, signed=True), 6,
+                                   nbuckets=MS.signed_table_size(6), shifted=True), lane_want),
+        "bucket_accumulate_from_scalars + batched_bucket_tail (K8, K7)": (
+            MS.batched_bucket_tail(MS.bucket_accumulate_from_scalars(stream, sc_stream, 8), 8), lane_want),
+        "bucket_accumulate_from_scalars_signed + batched_bucket_tail (K3, K7)": (
+            MS.batched_bucket_tail(MS.bucket_accumulate_from_scalars_signed(stream, sc_stream, masks, 8), 8,
+                                   nbuckets=MS.signed_table_size(8), shifted=True), lane_want),
+    }
+    for name, (got, expect) in checks.items():
+        assert C.projective_to_host_points(got) == expect, f"{name} != native oracle"
+    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches, "entry_points_checked": list(checks)}
 
 
 def _stage(name, fn, ms, counts):
@@ -1091,10 +1255,15 @@ def main() -> int:
     print(f"phase 8 kzg@256, fk, kzg multiproof ({time.perf_counter() - t0:.1f} s):", json.dumps(kzg),
           f"[{card}]", flush=True)
 
+    t0 = time.perf_counter()
+    group = phase_group(dev, card)
+    print(f"phase 9 tune_group grid ({time.perf_counter() - t0:.1f} s): launches",
+          json.dumps(group["path_launches"]), f"[{card}]", flush=True)
+
     sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm.cu",
                "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu",
                "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu",
-               "K11": "curve.cu", "K12": "curve.cu"}
+               "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
@@ -1108,11 +1277,13 @@ def main() -> int:
         "K10": "verkle_kzg_tpu/ops/pallas_msm.py:883",
         "K11": "verkle_kzg_tpu/ops/pallas_curve.py:350",
         "K12": "verkle_kzg_tpu/ops/pallas_curve.py:358",
+        "K13": "verkle_kzg_tpu/ops/pallas_msm.py:807",
     }
     # launches: K1-K7 from the verkle path of phase 5 (commit, prove,
     # verify), which runs all seven; K8-K10 from the sweep of phase 7; K11
     # from the KZG path of phase 8; K12 from phase 2, since no path of
-    # either package calls the standalone mixed add.
+    # either package calls the standalone mixed add; K13 from the
+    # tune_group grid of phase 9.
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
@@ -1120,6 +1291,7 @@ def main() -> int:
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
         "K11": ("phase 8", kzg["path_launches"]),
         "K12": ("phase 2 only: no path of either package calls it", phase2_launches),
+        "K13": ("phase 9", group["path_launches"]),
     }
     kernels = []
     for k in sources:

@@ -1,4 +1,4 @@
-"""K1-K12 on a CUDA card against their plain versions, bit for bit, and the
+"""K1-K13 on a CUDA card against their plain versions, bit for bit, and the
 port's IPA, a width-16 verkle tree, the G1 scalar multiplication, the NTTs
 and KZG with FK on the card against their CPU path.
 
@@ -232,3 +232,29 @@ def test_ntt_and_kzg_on_card_match_cpu(cuda):
         assert KZG.verify(crs, commit, point, proof)
     fk = KZG.prove_all_points(crs, data)
     assert [(p.proof, p.y) for p in fk] == [(p.proof, p.y) for p in KZG.prove_all_points(cpu, cdata)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,group,fused,signed", [(6, 2, False, True), (6, 2, True, True), (8, 4, True, True),
+                                                  (4, 3, True, False), (5, 6, True, True)])
+def test_group_kernel_matches_plain_on_card(cuda, c, group, fused, signed):
+    """K13 against its plain version over 1,024 points in 32 lanes (a G that
+    pads a window, a G above 4, unsigned), one launch each; its single MSM
+    through msm_stream against the native oracle, and its rows equal to
+    the K6/K10 branch's."""
+    from verkle_kzg_tpu_torch.ops import cuda_msm_group as KG
+    from verkle_kzg_tpu_torch.ops import msm_stream as MS
+
+    n, lanes = 1024, 32
+    pts, ks = _inputs(n, 130 + c)
+    pa, sc = C.host_points_to_affine(pts, cuda), F.ints_to_words(ks, cuda)
+    digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)
+    stream, digits = pa.reshape(n // lanes, lanes, 2, 8), digits.reshape(-1, n // lanes, lanes).contiguous()
+    cuda_lib.reset_launches()
+    table = KG.accumulate(stream, digits, c, signed, group, fused)
+    assert cuda_lib.launches["K13"] == 1
+    assert torch.equal(table, KG.plain_accumulate(stream, digits, c, signed))
+    got = MS.msm_single_fused(stream, digits, c, signed=signed, wgroup=group, fused=fused)
+    assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
+    assert torch.equal(MS.bucket_accumulate(stream, digits, c, signed=signed, wgroup=group, fused=fused),
+                       MS.bucket_accumulate(stream, digits, c, signed=signed))

@@ -35,6 +35,31 @@ def tensor_to_limb_planes(t: torch.Tensor) -> np.ndarray:
     return out
 
 
+def _stream_to_words(arr, device) -> torch.Tensor:
+    """A lane stream (S, ..., 16, B) of uint32 limb planes -> (S, B, ..., 8)
+    int32 words."""
+    arr = np.asarray(arr, dtype=np.uint32)
+    words = arr[..., 0::2, :] | (arr[..., 1::2, :] << np.uint32(16))  # (S, ..., 8, B)
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(words, -1, 1)).view(np.int32)).to(device)
+
+
+def pts_stream_from_jax(pts_stream, device) -> torch.Tensor:
+    """A ``pallas_msm`` point stream (S, 2, 16, B) -> (S, B, 2, 8)."""
+    return _stream_to_words(pts_stream, device)
+
+
+def sc_stream_from_jax(sc_stream, device) -> torch.Tensor:
+    """A ``pallas_msm`` scalar stream (S, 16, B) -> (S, B, 8)."""
+    return _stream_to_words(sc_stream, device)
+
+
+def masks_from_jax(masks, device) -> torch.Tensor:
+    """The signed carry masks of a stream, (S, nwords, B) uint32 ->
+    (S, B, nwords) int32."""
+    arr = np.ascontiguousarray(np.swapaxes(np.asarray(masks, dtype=np.uint32), 1, 2))
+    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
 def ipa_params_from_jax(params, device=None) -> IPAParams:
     """``verkle_kzg_tpu.schemes.ipa.IPAParams`` -> the port's, reusing its
     host points (no second hash-to-curve run)."""

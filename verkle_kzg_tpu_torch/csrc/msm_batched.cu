@@ -1,7 +1,8 @@
 // K6 / K10 and K7: the digit-tensor Pippenger accumulation, each lane its own
 // MSM, over digits of any width (bucket |d| in row |d| - 1 of a `rows`-row
 // table: 2^(c-1) rows for balanced signed digits, 2^c - 1 unsigned; counted
-// as K10 above 128 rows), and the lane-batched tail for signed c in [2, 7].
+// as K10 above 128 rows), and the lane-batched tail for c in [2, 16] over
+// any number of rows (row i the bucket of digit i + 1).
 // See ops/cuda_msm_batched.py for what they replace and why they are shaped so.
 #include <cuda_runtime.h>
 

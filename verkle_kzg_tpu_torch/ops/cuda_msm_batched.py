@@ -47,7 +47,9 @@ top window (c doublings, then an add), output reduced. One block per lane,
 one thread per window for the weighted sums (2 x 2^(c-1) lazy adds each,
 in parallel), then thread 0 runs Horner's W (c + 1) dependent point
 operations (about 312 at width 256), which bound the kernel by latency,
-whatever B is.
+whatever B is. It takes any row count and c in [2, 16] (at most 128
+windows, one block): the batched MSMs give it 2^(c-1) signed rows, c in
+[2, 7]; ``msm_stream.batched_bucket_tail`` also 2^c - 1 unsigned ones.
 
 Both plain versions follow their kernel's order of additions and domain
 (lazy, reduced at the end), so kernel and plain version agree bit for bit.
@@ -85,8 +87,8 @@ def launch_key(c: int, signed: bool) -> str:
 
 
 def _check_c(c: int) -> None:
-    if not 2 <= c <= 7:
-        raise ValueError(f"the batched MSM tail takes c in [2, 7], got {c}")
+    if not 2 <= c <= 16:
+        raise ValueError(f"the batched MSM tail takes c in [2, 16], got {c}")
 
 
 def plain_accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True) -> torch.Tensor:
@@ -125,14 +127,15 @@ def accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True
 
 def plain_tail(buckets: torch.Tensor, c: int) -> torch.Tensor:
     """K7's plain version: (W, B, rows, 3, 8) reduced buckets (row i = the
-    bucket of digit i + 1) -> (B, 3, 8) reduced projective, per lane
+    bucket of digit i + 1; 2^(c-1) rows for signed digits, 2^c - 1 for
+    unsigned ones) -> (B, 3, 8) reduced projective, per lane
     sum_w 2^(cw) sum_i (i + 1) B_wi."""
     _check_c(c)
-    w, b = buckets.shape[:2]
+    w, b, nrows = buckets.shape[:3]
     bk = F.to_limbs(buckets)
     s = C.infinity16((w, b), buckets.device)
     t = s
-    for j in range(rows(c) - 1, -1, -1):
+    for j in range(nrows - 1, -1, -1):
         s = C.add16(s, bk[:, :, j], lazy=True)
         t = C.add16(t, s, lazy=True)
     acc = t[w - 1]
@@ -147,14 +150,14 @@ def tail(buckets: torch.Tensor, c: int) -> torch.Tensor:
     if buckets.device.type == "cpu":
         return plain_tail(buckets, c)
     _check_c(c)
-    w, b = buckets.shape[:2]
-    if buckets.shape != (windows(c), b, rows(c), 3, 8):
-        raise ValueError("msm_batched tail: buckets must be (W, B, 2^(c-1), 3, 8)")
+    w, b, nrows = buckets.shape[:3]
+    if buckets.shape != (windows(c), b, nrows, 3, 8) or nrows < 1:
+        raise ValueError("msm_batched tail: buckets must be (ceil(256 / c), B, rows, 3, 8)")
     cuda_lib.require_cuda("msm_batched.tail", buckets)
     out = torch.empty((b, 3, 8), dtype=torch.int32, device=buckets.device)
     if b:
         err = cuda_lib.lib().vkzg_msm_batched_tail(
-            buckets.data_ptr(), out.data_ptr(), w, b, rows(c), c, cuda_lib.stream(buckets)
+            buckets.data_ptr(), out.data_ptr(), w, b, nrows, c, cuda_lib.stream(buckets)
         )
         cuda_lib.check(err, "vkzg_msm_batched_tail")
         cuda_lib.launches["K7"] += 1
