@@ -9,9 +9,11 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K13) against its plain PyTorch version on the card, at
-     the shapes the main paths give it, exact, with its time and the least
-     time the card could take for the same work;
+  2. each kernel (K1-K13, G1SMUL, G1BFLY) against its plain PyTorch
+     version on the card, at the shapes the main paths give it, exact, with
+     its time and the least time the card could take for the same work;
+     G1SMUL and G1BFLY also against the K11 + K2 + select chain they
+     replace, timed in the same run, at block sizes of 32, 64 and 128;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
      checks, launch counts and timings, and a proof at domain 32 on the
      card against the CPU plain path;
@@ -28,9 +30,11 @@ and no JAX. Phases, each of which raises on failure:
      signed c = 5, 10 and 13, each run exact against an oracle;
   8. KZG at domain 256 (BASELINE.json config 1): setup, commit against the
      native oracle, proofs in and out of the domain with their pairings;
-     Fr and G1 NTT round trips; FK all-points proofs against the 256 single
-     proofs; FK at domain 16 on the card against the CPU path; and the
-     1,024-query multiproof over KZG (config 3, the KZG half);
+     FK all-points proofs against the 256 single proofs; FK at domain 16
+     on the card against the CPU path; and the 1,024-query multiproof over
+     KZG (config 3, the KZG half); then, off that path, one G1 scalar
+     multiplication and the Fr and G1 NTT round trips with their launches,
+     and one G1 NTT with each stage timed by CUDA events;
   9. benchmarks/tune_group.py's default grid on the port: the signed
      single MSM of 2^20 points in 128 lanes through the lane-stream entry
      point msm_stream.msm_single_fused with wgroup/fused (K13), against the
@@ -181,7 +185,7 @@ def phase_kernels(dev, crs) -> dict:
     live = int((~C.affine_is_infinity(qa)).sum())  # sentinel lanes do no products
     rec["K12"].update(bound((pz.numel() * 2 + qa.numel()) * 4, live * MIXED_FMULS))
     # K11 and K2 at the width of a G1 NTT stage of FK at domain 256 (256
-    # butterflies: a double and an add per bit of the twiddle's product)
+    # lanes: the launches of one bit of the chain that G1SMUL replaced)
     w = pz[:256].contiguous()
     for name, run, plain_fn, nbytes, fmuls in (
         ("K11@256", lambda: cuda_curve.double(w), lambda: cuda_curve.plain_double(w), 2 * w.numel() * 4,
@@ -242,6 +246,7 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_k5_k7(dev, crs, rng))
     rec.update(_kernels_windows(dev, base, rng))
     rec.update(_kernels_k13(dev, base, rng))
+    rec.update(_kernels_g1_chain(dev, pz, rng))
     return rec
 
 
@@ -518,6 +523,134 @@ def _kernels_k13(dev, base, rng, n: int = 1 << 12, lanes: int = 128) -> dict:
                      f"{'signed' if signed else 'unsigned'}",
             **bound(4 * (stream.numel() + digits.numel() + table.numel()), live * MIXED_FMULS),
         }
+    return rec
+
+
+def _chain_scalar_mul(p, k):
+    """The chain ``curve.scalar_mul`` ran before G1SMUL, the same-run
+    yardstick of G1SMUL and G1BFLY: each of the 256 MSB-first bits is a K11
+    launch, a K2 launch and a ``torch.where``."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_curve
+    from verkle_kzg_tpu_torch.ops import curve as C
+
+    acc = C.infinity(p.shape[:-2], p.device)
+    for bit in C.scalar_bits_msb(k) != 0:
+        acc = cuda_curve.double(acc)
+        acc = torch.where(bit[..., None, None], cuda_curve.add(acc, p), acc)
+    return acc
+
+
+def _chain_butterfly(x, tw, stage: int):
+    """A G1 NTT stage as ``ops/ntt.py`` ran it before G1BFLY: gather, the
+    chain, K2, a K1 negation, K2, scatter."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_curve
+    from verkle_kzg_tpu_torch.ops import cuda_g1_chain as G
+    from verkle_kzg_tpu_torch.ops import curve as C
+
+    half = 1 << stage
+    j, u_idx = G._pairs(x.shape[0], stage, x.device)
+    u, v = x[u_idx], _chain_scalar_mul(x[u_idx + half], tw[j])
+    out = torch.empty_like(x)
+    out[u_idx] = cuda_curve.add(u, v)
+    out[u_idx + half] = cuda_curve.add(u, C.neg(v))
+    return out
+
+
+def _smul_fmuls(ks) -> int:
+    """Montgomery products the double-and-add needs for these scalars: from
+    the top set bit, a doubling per further bit and a complete add per set
+    bit (the first add, onto the identity, gives the scan's words); a zero
+    scalar needs none."""
+    return sum((k.bit_length() - 1) * DOUBLE_FMULS + bin(k).count("1") * ADD_FMULS for k in ks if k)
+
+
+def ptxas_of(kernel: str) -> dict:
+    """Registers and spill bytes that the build's ptxas printed for the
+    entry function whose mangled name contains ``kernel``."""
+    import re
+
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+
+    lines = (cuda_lib.BUILD / "ptxas.log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", lines[i + 1])]
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            return {"registers": int(regs.group(1)) if regs else None, "stack_bytes": nums[0],
+                    "spill_store_bytes": nums[1], "spill_load_bytes": nums[2]}
+    return {}
+
+
+G1_BLOCKS = (32, 64, 128)
+
+
+def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0), (512, 8))) -> dict:
+    """G1SMUL at 256 and 512 lanes (intt_g1's 1/N at 256; FK's pointwise
+    product and 1/N at 512) and G1BFLY at stage 7 of the size-256 forward
+    transform and at stages 0 and 8 of the size-512 one (FK's NTTs), on the
+    K2 sums ``pz`` (Z != 1, the identity at slot 3), exact against their
+    plain versions and against the K11 + K2 + select chain they replace.
+    Scalars: 0, 1, r - 1 and one with 200 leading zero bits among random
+    ones; the butterflies take the plan's twiddles. Times at each block
+    size; the chain's time in the same run."""
+    from verkle_kzg_tpu_torch.hostmath import curve as hc
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.ops import cuda_g1_chain as G
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import ntt as N
+
+    regs = {"G1SMUL": ptxas_of("g1_scalar_mul_kernel"), "G1BFLY": ptxas_of("g1_butterfly_kernel")}
+    cases = []
+    for n in sizes:
+        ks = [rng.randrange(R) for _ in range(n)]
+        ks[:4] = [0, 1, R - 1, rng.getrandbits(56) | 1 << 55]
+        p, k = pz[:n].contiguous(), F.ints_to_words(ks, dev)
+        cases.append((f"G1SMUL@{n}", f"{n} lanes, scalars 0, 1, r - 1, 2^55 + ... among random ones",
+                      lambda b=None, p=p, k=k: G.scalar_mul(p, k, b), lambda p=p, k=k: G.plain_scalar_mul(p, k),
+                      lambda p=p, k=k: _chain_scalar_mul(p, k),
+                      4 * (p.numel() + k.numel() + p.numel()), _smul_fmuls(ks)))
+        if n == sizes[0]:
+            host = C.projective_to_host_points(p[:8])
+            want8 = [None if a is None else hc.g1_mul(a, s) for a, s in zip(host, ks[:8])]
+            assert C.projective_to_host_points(G.scalar_mul(p[:8], k[:8])) == want8, "G1SMUL != host"
+    for n, stage in stages:
+        x = pz[:n].contiguous()
+        tw_ints = N._Plan(n, False).stages[stage][2][: 1 << stage]
+        tw = F.ints_to_words(tw_ints, dev)
+        pairs = [tw_ints[j] for j in range(1 << stage) for _ in range(n >> (stage + 1))]
+        cases.append((f"G1BFLY@{n}-s{stage}", f"stage {stage} of the size-{n} forward G1 NTT",
+                      lambda b=None, x=x, tw=tw, s=stage: G.butterfly(x, tw, s, b),
+                      lambda x=x, tw=tw, s=stage: G.plain_butterfly(x, tw, s),
+                      lambda x=x, tw=tw, s=stage: _chain_butterfly(x, tw, s),
+                      4 * (2 * x.numel() + tw.numel()), _smul_fmuls(pairs) + n * ADD_FMULS))
+    rec = {}
+    for name, shape, run, plain, chain, nbytes, fmuls in cases:
+        out = run()
+        plain_out, plain_ms = timed_once(plain)
+        chain_out, _ = timed_once(chain)
+        errs = {"plain": max_abs_err(out, plain_out), "chain": max_abs_err(out, chain_out)}
+        for b in G1_BLOCKS:
+            errs[f"block {b}"] = max_abs_err(run(b), out)
+        assert max(errs.values()) == 0, (name, errs)
+        by_block = {b: cuda_ms(lambda b=b: run(b), 10) for b in G1_BLOCKS}
+        rec[name] = {
+            "max_abs_err": max(errs.values()),
+            "ms": by_block[G.BLOCK],
+            "ms_by_block": by_block,
+            "block": G.BLOCK,
+            "chain_ms": cuda_ms(chain, 3),
+            "plain_ms": plain_ms,
+            "library_ms": None,
+            "ptxas": regs[name.split("@")[0]],
+            "shape": shape,
+            **bound(nbytes, fmuls),
+        }
+        print("phase 2 g1 chain:", name, json.dumps(rec[name]), flush=True)
     return rec
 
 
@@ -1079,13 +1212,16 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
     size quirk; NTT round trips; FK all-points proofs over ``fk_len``
     values against the ``n`` single proofs; FK at domain ``small`` on the
     card against the CPU path; and the multiproof of ``m`` queries over KZG
-    (config 3, the KZG half). The launch counts start from 0 at the
-    phase's start and are read at its end."""
+    (config 3, the KZG half). The launch counts start from 0 where that
+    path starts and are read where it ends; one ``scalar_mul``, the NTT
+    round trips and one G1 NTT timed stage by stage run after it, each
+    with its launches counted on its own."""
     import torch
 
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.errors import KZGError
     from verkle_kzg_tpu_torch.hostmath.curve import g1_add, g1_generator, g1_mul
+    from verkle_kzg_tpu_torch.ops import cuda_g1_chain as G
     from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
@@ -1100,9 +1236,12 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
     rng = random.Random(8)
     vals = [rng.randrange(R) for _ in range(n)]
     index, outside = 17, 3 * n
+
+    # the KZG path, through its entry points only: the launch counts start
+    # from 0 here and are read where it ends, before the parts below it
+    # that call the ops (scalar_mul, the NTTs) or the wrappers themselves
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
-
     params = _stage("setup", lambda: kzg_setup(n, device=dev), ms, counts)
     data = FrVector.from_ints(vals, params.domain, device=dev)
     warm = KZG.commit(params, data)
@@ -1122,59 +1261,20 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
     except KZGError:
         pass
 
-    # NTT round trips; the G1 NTT of the Lagrange SRS is the monomial SRS
-    for size in (n, 2 * n):
-        coeffs = [rng.randrange(R) for _ in range(size)]
-        a = F.ints_to_mont(coeffs, "fr", dev)
-        ev = _stage(f"ntt_fr_{size}", lambda: N.ntt_fr(a), ms, counts)
-        assert torch.equal(N.intt_fr(ev), a), f"Fr NTT round trip at {size}"
-        w = fr_root_of_unity(size)
-        assert F.mont_to_ints(ev[1:2], "fr") == [sum(c * pow(w, j, R) for j, c in enumerate(coeffs)) % R]
-    lag = C.from_affine(params.lagrange_affine)
-    mono = _stage(f"ntt_g1_{n}", lambda: N.ntt_g1(lag), ms, counts)
-    back = _stage(f"intt_g1_{n}", lambda: N.intt_g1(mono), ms, counts)
-    assert C.projective_to_host_points(back) == params.lagrange_host, "G1 NTT round trip"
-    assert C.projective_to_host_points(mono[:3]) == [
-        g1_mul(g1_generator(), pow(DEFAULT_KZG_SECRET, i, R)) for i in range(3)
-    ], "G1 NTT of the Lagrange SRS != [s^i G]"
-
     # FK at n over fk_len values (the zero-padded tail) against n single proofs
     fk_data = FrVector.from_ints(vals[:fk_len], params.domain, device=dev)
     fk_commit = KZG.commit(params, fk_data)
-    before = dict(cuda_lib.launches)
     proofs = _stage("fk", lambda: KZG.prove_all_points(params, fk_data), ms, counts)
-    fk_launches = {k: cuda_lib.launches[k] - before[k] for k in before}
     singles = _stage("prove_all_singles", lambda: [KZG.prove(params, fk_commit, i, fk_data) for i in range(n)],
                      ms, counts)
     assert [(p.proof, p.y) for p in proofs] == [(p.proof, p.y) for p in singles], "FK != single proofs"
     assert KZG.verify(params, fk_commit, 0, proofs[0]) and KZG.verify(params, fk_commit, fk_len + 1, proofs[fk_len + 1])
 
-    # where FK's time goes: the device's busy share of one G1 NTT at n (FK
-    # runs four, and its pointwise product is one more scalar_mul of the
-    # same kind), from a profile of the card's kernels only
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        again = N.ntt_g1(lag)
-        torch.cuda.synchronize()
-        ntt_profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    assert torch.equal(again, mono)
-    ntt_busy_ms, ntt_top = _device_busy_ms(prof)
-
-    # FK at domain `small` on the card and on the CPU path, bit for bit
+    # FK at domain `small` on the card (held against the CPU path below)
     p_small = kzg_setup(small, device=dev)
-    cpu = KZGParams(size=small, lagrange_host=p_small.lagrange_host, g2=p_small.g2, domain=p_small.domain,
-                    device="cpu")
     v_small = vals[: small - 3]
-    lag_small = C.from_affine(p_small.lagrange_affine)
-    assert torch.equal(N.ntt_g1(lag_small).cpu(), N.ntt_g1(lag_small.cpu())), "G1 NTT: card != CPU"
-    fk_card = KZG.prove_all_points(p_small, FrVector.from_ints(v_small, p_small.domain, device=dev))
-    t0 = time.perf_counter()
-    fk_cpu = KZG.prove_all_points(cpu, FrVector.from_ints(v_small, p_small.domain, device="cpu"))
-    cpu_fk_s = time.perf_counter() - t0
-    assert [(p.proof, p.y) for p in fk_card] == [(p.proof, p.y) for p in fk_cpu], "FK: card != CPU"
+    fk_card = _stage(f"fk_{small}", lambda: KZG.prove_all_points(
+        p_small, FrVector.from_ints(v_small, p_small.domain, device=dev)), ms, counts)
 
     # the multiproof of m queries over KZG at domain n
     queries = []
@@ -1192,12 +1292,73 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
 
     torch.cuda.synchronize()
     path_launches = dict(cuda_lib.launches)
-    assert min(path_launches[k] for k in ("K1", "K2", "K3", "K4", "K5", "K11")) > 0, path_launches
-    assert fk_launches["K11"] > 0 and fk_launches["K2"] > 0, fk_launches
+    assert min(path_launches[k] for k in ("K1", "K2", "K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, path_launches
+
+    # off the path: FK at `small` on the CPU, the card's G1 NTT at `small`
+    # against the CPU's
+    cpu = KZGParams(size=small, lagrange_host=p_small.lagrange_host, g2=p_small.g2, domain=p_small.domain,
+                    device="cpu")
+    t0 = time.perf_counter()
+    fk_cpu = KZG.prove_all_points(cpu, FrVector.from_ints(v_small, p_small.domain, device="cpu"))
+    cpu_fk_s = time.perf_counter() - t0
+    assert [(p.proof, p.y) for p in fk_card] == [(p.proof, p.y) for p in fk_cpu], "FK: card != CPU"
+    lag_small = C.from_affine(p_small.lagrange_affine)
+    assert torch.equal(N.ntt_g1(lag_small).cpu(), N.ntt_g1(lag_small.cpu())), "G1 NTT: card != CPU"
+
+    # one G1 scalar multiplication at n lanes (G1SMUL), against the host
+    lag = C.from_affine(params.lagrange_affine)
+    ks = [rng.randrange(R) for _ in range(n)]
+    sc = F.ints_to_words(ks, dev)
+    prod = _stage(f"scalar_mul_{n}", lambda: C.scalar_mul(lag, sc), ms, counts)
+    assert C.projective_to_host_points(prod[:4]) == [g1_mul(a, k) for a, k in zip(params.lagrange_host[:4], ks)]
+
+    # NTT round trips; the G1 NTT of the Lagrange SRS is the monomial SRS
+    for size in (n, 2 * n):
+        coeffs = [rng.randrange(R) for _ in range(size)]
+        a = F.ints_to_mont(coeffs, "fr", dev)
+        ev = _stage(f"ntt_fr_{size}", lambda: N.ntt_fr(a), ms, counts)
+        assert torch.equal(N.intt_fr(ev), a), f"Fr NTT round trip at {size}"
+        w = fr_root_of_unity(size)
+        assert F.mont_to_ints(ev[1:2], "fr") == [sum(c * pow(w, j, R) for j, c in enumerate(coeffs)) % R]
+    mono = _stage(f"ntt_g1_{n}", lambda: N.ntt_g1(lag), ms, counts)
+    back = _stage(f"intt_g1_{n}", lambda: N.intt_g1(mono), ms, counts)
+    assert C.projective_to_host_points(back) == params.lagrange_host, "G1 NTT round trip"
+    assert C.projective_to_host_points(mono[:3]) == [
+        g1_mul(g1_generator(), pow(DEFAULT_KZG_SECRET, i, R)) for i in range(3)
+    ], "G1 NTT of the Lagrange SRS != [s^i G]"
+
+    # where FK's time goes (it runs four G1 NTTs, and its pointwise product
+    # is one more scalar_mul of the same kind): one G1 NTT at n, ntt_g1's
+    # own loop with a CUDA-event pair around each stage's launch and no
+    # synchronize between stages; the device's busy share is the sum of
+    # the stages' event times over the host's wall time of that same run
+    bitrev, twiddles = N._Plan(n, False).on(dev, False)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in twiddles]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs = lag[bitrev]
+    for s, (tw, (start, end)) in enumerate(zip(twiddles, events)):
+        start.record()
+        xs = G.butterfly(xs, tw, s)
+        end.record()
+    torch.cuda.synchronize()
+    ntt_wall_ms = (time.perf_counter() - t0) * 1e3
+    stage_ms = [start.elapsed_time(end) for start, end in events]
+    assert torch.equal(xs, mono)
+
+    logn = n.bit_length() - 1
+    chain = ("K11", "K2", "G1SMUL", "G1BFLY")
+    per = {"scalar_mul": counts[f"scalar_mul_{n}"], "ntt_g1": counts[f"ntt_g1_{n}"],
+           "intt_g1": counts[f"intt_g1_{n}"], "fk": counts["fk"]}
+    want = {"scalar_mul": (0, 0, 1, 0), "ntt_g1": (0, 0, 0, logn), "intt_g1": (0, 0, 1, logn),
+            "fk": (0, 0, 2, 4 * logn + 2)}
+    for name, expect in want.items():
+        assert tuple(per[name][k] for k in chain) == expect, (name, per[name])
     return {
         "n": n, "fk_len": fk_len, "multiproof_m": m, "ms": ms, "launches_per_stage": counts,
-        "fk_launches": {k: v for k, v in fk_launches.items() if v}, "path_launches": path_launches,
-        "ntt_g1_profiled": {"wall_ms": ntt_profiled_wall_ms, "device_busy_ms": ntt_busy_ms, "kernel_ms_by_name": ntt_top},
+        "path_launches": path_launches,
+        "launches_per": {name: {k: v for k, v in c.items() if v} for name, c in per.items()},
+        "ntt_g1_events": {"stage_ms": stage_ms, "wall_ms": ntt_wall_ms, "busy_share": sum(stage_ms) / ntt_wall_ms},
         "cpu_plain_fk_small_s": cpu_fk_s, "small": small,
     }
 
@@ -1219,7 +1380,7 @@ def main() -> int:
     cuda_lib.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in (cuda_lib.BUILD / "ptxas.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Function properties" in line:
             print("  ptxas:", line.strip(), flush=True)
 
     from verkle_kzg_tpu_torch.schemes import ipa_setup
@@ -1228,22 +1389,30 @@ def main() -> int:
     crs = ipa_setup(256, device=dev)
     print(f"crs: 257 hash-to-curve points in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
     cuda_lib.reset_launches()
     kern = phase_kernels(dev, crs)
     phase2_launches = dict(cuda_lib.launches)
-    print("phase 2 kernels vs plain (exact, tolerance 0):", json.dumps(kern), flush=True)
+    print(f"phase 2 kernels vs plain (exact, tolerance 0; {time.perf_counter() - t0:.1f} s):", json.dumps(kern),
+          flush=True)
 
+    t0 = time.perf_counter()
     ipa, ipa_data = phase_ipa(dev, crs)
-    print("phase 3 ipa@256:", json.dumps(ipa), f"[{card}]", flush=True)
+    print(f"phase 3 ipa@256 ({time.perf_counter() - t0:.1f} s):", json.dumps(ipa), f"[{card}]", flush=True)
 
+    t0 = time.perf_counter()
     msm = phase_msm(dev)
-    print("phase 4 msm 2^20:", json.dumps(msm), f"[{card}]", flush=True)
+    print(f"phase 4 msm 2^20 ({time.perf_counter() - t0:.1f} s):", json.dumps(msm), f"[{card}]", flush=True)
 
+    t0 = time.perf_counter()
     verkle = phase_verkle(dev, crs)
-    print("phase 5 verkle, 10k leaves, Ethereum geometry:", json.dumps(verkle), f"[{card}]", flush=True)
+    print(f"phase 5 verkle, 10k leaves, Ethereum geometry ({time.perf_counter() - t0:.1f} s):", json.dumps(verkle),
+          f"[{card}]", flush=True)
 
+    t0 = time.perf_counter()
     mp = phase_multiproof(dev, crs, ipa_data)
-    print("phase 6 multiproof, 1024 queries at 256:", json.dumps(mp), f"[{card}]", flush=True)
+    print(f"phase 6 multiproof, 1024 queries at 256 ({time.perf_counter() - t0:.1f} s):", json.dumps(mp),
+          f"[{card}]", flush=True)
 
     t0 = time.perf_counter()
     sweep = phase_sweep(dev, card)
@@ -1263,7 +1432,8 @@ def main() -> int:
     sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm.cu",
                "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu",
                "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu",
-               "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu"}
+               "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu",
+               "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
@@ -1278,19 +1448,24 @@ def main() -> int:
         "K11": "verkle_kzg_tpu/ops/pallas_curve.py:350",
         "K12": "verkle_kzg_tpu/ops/pallas_curve.py:358",
         "K13": "verkle_kzg_tpu/ops/pallas_msm.py:807",
+        # the chain of verkle_kzg_tpu/ops/curve.py:239's scan: double (:350) and add (:328) a bit
+        "G1SMUL": "verkle_kzg_tpu/ops/pallas_curve.py:328",
+        "G1BFLY": "verkle_kzg_tpu/ops/pallas_curve.py:328",
     }
     # launches: K1-K7 from the verkle path of phase 5 (commit, prove,
-    # verify), which runs all seven; K8-K10 from the sweep of phase 7; K11
-    # from the KZG path of phase 8; K12 from phase 2, since no path of
-    # either package calls the standalone mixed add; K13 from the
+    # verify), which runs all seven; K8-K10 from the sweep of phase 7;
+    # G1SMUL and G1BFLY from the KZG path of phase 8; K11 and K12 from
+    # phase 2, since no path calls the standalone double (the scalar
+    # multiplication it served is G1SMUL's) or mixed add; K13 from the
     # tune_group grid of phase 9.
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
         **dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), ("phase 5", verkle["path_launches"])),
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
-        "K11": ("phase 8", kzg["path_launches"]),
+        "K11": ("phase 2 only: no path calls curve.double since G1SMUL", phase2_launches),
         "K12": ("phase 2 only: no path of either package calls it", phase2_launches),
+        **dict.fromkeys(("G1SMUL", "G1BFLY"), ("phase 8", kzg["path_launches"])),
         "K13": ("phase 9", group["path_launches"]),
     }
     kernels = []
@@ -1310,6 +1485,8 @@ def main() -> int:
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": None,
+            **({"chain_ms": first["chain_ms"], "replaces_chain": "verkle_kzg_tpu/ops/curve.py:239"}
+               if "chain_ms" in first else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

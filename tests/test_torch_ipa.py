@@ -87,6 +87,21 @@ def test_commitment_proof_matches_jax(setup):
     assert not IPA.verify_commitment_proof(crs, g1_add(commit, g1_generator()), proof)
 
 
+def test_batch_stubs_and_max_size_match_jax(setup):
+    """The reference leaves prove_batch/verify_batch as todo!(): both
+    packages raise NotImplementedError with the same message; max_size()
+    is the CRS width in both."""
+    jcrs, crs, jdata, data, vals, commit, proofs = setup
+    assert crs.max_size() == jcrs.max_size() == SIZE
+    calls = (("prove_batch", (commit, [0, 1], None)), ("verify_batch", (commit, proofs[5][0])))
+    for name, args in calls:
+        with pytest.raises(NotImplementedError) as want:
+            getattr(JIPA, name)(jcrs, *args)
+        with pytest.raises(NotImplementedError) as got:
+            getattr(IPA, name)(crs, *args)
+        assert str(got.value) == str(want.value), name
+
+
 @pytest.mark.slow
 def test_domain_256_round_trip():
     """The slice's main path at the width of an Ethereum verkle node, port

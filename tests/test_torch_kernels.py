@@ -1,6 +1,6 @@
-"""K1-K13 on a CUDA card against their plain versions, bit for bit, and the
-port's IPA, a width-16 verkle tree, the G1 scalar multiplication, the NTTs
-and KZG with FK on the card against their CPU path.
+"""K1-K13, G1SMUL and G1BFLY on a CUDA card against their plain versions,
+bit for bit, and the port's IPA, a width-16 verkle tree, the G1 scalar
+multiplication, the NTTs and KZG with FK on the card against their CPU path.
 
 These tests need a card and skip without one. They import no JAX, since
 the card's machine has none; run them there without the JAX conftest:
@@ -18,6 +18,7 @@ from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
 from verkle_kzg_tpu_torch.hostmath import curve as hc
 from verkle_kzg_tpu_torch.params import R
 from verkle_kzg_tpu_torch.ops import cuda_curve, cuda_field, cuda_lib, cuda_scalar_mul
+from verkle_kzg_tpu_torch.ops import cuda_g1_chain as G
 from verkle_kzg_tpu_torch.ops import cuda_msm as K
 from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
 from verkle_kzg_tpu_torch.ops import curve as C
@@ -175,7 +176,7 @@ def test_verkle_tree_on_card_matches_cpu(cuda):
 def test_group_law_kernels_match_plain_on_card(cuda):
     """K11 (double) and K12 (mixed add, the (0, 0) sentinel and the
     identity among the lanes) against their plain versions; scalar_mul,
-    one K11 and one K2 launch a bit, on the card against the CPU."""
+    one G1SMUL launch and no K11 or K2, on the card against the CPU."""
     pts, ks = _inputs(300, 110)
     p = C.from_affine(C.host_points_to_affine(pts, cuda))
     p = cuda_curve.add(p, p.roll(1, 0))  # Z != 1, and the identity where both are
@@ -190,7 +191,7 @@ def test_group_law_kernels_match_plain_on_card(cuda):
     sc = F.ints_to_words(ks[:64], cuda)
     cuda_lib.reset_launches()
     got = C.scalar_mul(p[:64], sc)
-    assert cuda_lib.launches["K11"] == 256 and cuda_lib.launches["K2"] == 256
+    assert cuda_lib.launches["G1SMUL"] == 1 and cuda_lib.launches["K11"] == cuda_lib.launches["K2"] == 0
     assert torch.equal(got.cpu(), C.scalar_mul(p[:64].cpu(), sc.cpu()))
     assert C.projective_to_host_points(got) == [
         None if a is None else hc.g1_mul(a, k) for a, k in zip(host[:64], ks[:64])
@@ -208,7 +209,7 @@ def test_ntt_and_kzg_on_card_match_cpu(cuda):
     x = C.from_affine(C.host_points_to_affine(pts, cuda))
     cuda_lib.reset_launches()
     evals = N.ntt_g1(x)
-    assert cuda_lib.launches["K11"] > 0
+    assert cuda_lib.launches["G1BFLY"] == 4 and cuda_lib.launches["K11"] == 0
     assert torch.equal(evals.cpu(), N.ntt_g1(x.cpu()))
     back = N.intt_g1(evals)
     assert torch.equal(back.cpu(), N.intt_g1(evals.cpu()))
@@ -258,3 +259,63 @@ def test_group_kernel_matches_plain_on_card(cuda, c, group, fused, signed):
     assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
     assert torch.equal(MS.bucket_accumulate(stream, digits, c, signed=signed, wgroup=group, fused=fused),
                        MS.bucket_accumulate(stream, digits, c, signed=signed))
+
+
+def _chain_scalar_mul(p, k):
+    """The K11 + K2 + select chain G1SMUL replaced, one bit at a time."""
+    acc = C.infinity(p.shape[:-2], p.device)
+    for bit in C.scalar_bits_msb(k) != 0:
+        acc = cuda_curve.double(acc)
+        acc = torch.where(bit[..., None, None], cuda_curve.add(acc, p), acc)
+    return acc
+
+
+def _chain_points(n, seed):
+    """n card points with Z != 1 and the identity at slot 2, and scalars 0,
+    1, r - 1 and one with 200 leading zero bits among random ones (r - 1
+    alone for one lane)."""
+    pts, ks = _inputs(n + 3, seed)
+    p = C.from_affine(C.host_points_to_affine(pts, "cuda"))
+    p = cuda_curve.add(p, p.roll(1, 0))[:n].contiguous()
+    if n > 2:
+        p[2] = C.infinity((), "cuda")
+    ks[:4] = [0, 1, R - 1, random.Random(seed).getrandbits(56) | 1 << 55] if n > 1 else [R - 1] * 4
+    return p, F.ints_to_words(ks[:n], "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 33, 256, 512])
+def test_g1_scalar_mul_kernel_matches_plain_and_chain(cuda, lanes):
+    """G1SMUL at every block size against its plain version and against the
+    K11 + K2 + select chain, one launch."""
+    p, k = _chain_points(lanes, 140 + lanes)
+    cuda_lib.reset_launches()
+    got = G.scalar_mul(p, k)
+    assert cuda_lib.launches["G1SMUL"] == 1
+    assert torch.equal(got, G.plain_scalar_mul(p, k))
+    assert torch.equal(got, _chain_scalar_mul(p, k))
+    for block in (32, 64, 128):
+        assert torch.equal(G.scalar_mul(p, k, block), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,stage", [(2, 0), (64, 0), (64, 2), (64, 5), (512, 3), (512, 8)])
+def test_g1_butterfly_kernel_matches_plain_and_chain(cuda, n, stage):
+    """G1BFLY against its plain version and against the butterfly the chain
+    ran (K11 + K2 + select, then K2, a K1 negation and K2): stage 0 (every
+    twiddle 1), stages whose warps share a twiddle and mixed ones, with the
+    plan's twiddles and with edge twiddles."""
+    x, k = _chain_points(n, 150 + n + stage)
+    half = 1 << stage
+    plan_tw = F.ints_to_words(N._Plan(n, False).stages[stage][2][:half], "cuda")
+    for tw in (plan_tw, k[:half].contiguous()):
+        cuda_lib.reset_launches()
+        got = G.butterfly(x, tw, stage)
+        assert cuda_lib.launches["G1BFLY"] == 1
+        assert torch.equal(got, G.plain_butterfly(x, tw, stage))
+        j, u_idx = G._pairs(n, stage, x.device)
+        v = _chain_scalar_mul(x[u_idx + half], tw[j])
+        assert torch.equal(got[u_idx], cuda_curve.add(x[u_idx], v))
+        assert torch.equal(got[u_idx + half], cuda_curve.add(x[u_idx], C.neg(v)))
+        for block in (32, 128):
+            assert torch.equal(G.butterfly(x, tw, stage, block), got)

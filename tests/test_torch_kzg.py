@@ -90,6 +90,21 @@ def test_commit_prove_verify_match_jax(crs, data):
         KZG.prove_batch(pcrs, commit, [0], pdata)
 
 
+def test_batch_stubs_and_max_size_match_jax(crs, data):
+    """prove_batch/verify_batch raise JAX's NotImplementedError messages,
+    and max_size() is the domain size in both packages."""
+    jcrs, pcrs = crs
+    _, jdata, pdata = data
+    assert pcrs.max_size() == jcrs.max_size() == SIZE
+    calls = (("prove_batch", (None, [0, 1]), (jdata,), (pdata,)), ("verify_batch", (None, None), (), ()))
+    for name, args, jextra, pextra in calls:
+        with pytest.raises(NotImplementedError) as want:
+            getattr(JKZG, name)(jcrs, *args, *jextra)
+        with pytest.raises(NotImplementedError) as got:
+            getattr(KZG, name)(pcrs, *args, *pextra)
+        assert str(got.value) == str(want.value), name
+
+
 def test_fk_matches_jax(crs, data):
     """FK all-points proofs against JAX prove_all_points and against the
     port's own single proofs (SIZE 8, DATA 5)."""

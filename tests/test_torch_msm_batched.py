@@ -117,3 +117,47 @@ def test_plain_tables_hold_signed_buckets():
         assert C.projective_to_host_points(folded[w, b, row]) == [want]
     out = KB.tail(folded.contiguous(), c)
     assert C.projective_to_host_points(out) == [native.g1_msm(basis, k) for k in ks]
+
+
+class _StopAfterSegments(Exception):
+    pass
+
+
+def test_tree_chunk_tables_stay_under_cap(monkeypatch):
+    """The dense verkle commit's chunk (COMMIT_CHUNK lanes over the
+    width-256 basis, c = 5): the segment count the batched MSM hands K6
+    keeps its W x B x S x rows tables at TABLE_BYTES or less (16 segments
+    would take 2.6 GB). K6 is stopped before it runs."""
+    from verkle_kzg_tpu_torch.verkle.tree import VerkleTree
+
+    b, n = VerkleTree.COMMIT_CHUNK, 256
+    seen = {}
+
+    def spy(points, digits, nseg, seg_len, c, *rest):
+        seen.update(nseg=nseg, seg_len=seg_len, c=c, digits=tuple(digits.shape))
+        raise _StopAfterSegments
+
+    monkeypatch.setattr(KB, "accumulate", spy)
+    basis = torch.zeros((n, 2, F.WORDS), dtype=torch.int32)
+    with pytest.raises(_StopAfterSegments):
+        M.msm_fixed_base(basis, torch.zeros((b, n, F.WORDS), dtype=torch.int32))
+    assert seen["c"] == 5 and seen["digits"][:2] == (KB.windows(5), b)
+    assert seen["nseg"] * seen["seg_len"] >= n
+    assert KB.windows(5) * b * seen["nseg"] * KB.rows(5) * M.ROW_BYTES <= M.TABLE_BYTES == 1 << 30
+
+
+def test_table_cap_cuts_batched_segments(monkeypatch):
+    """A TABLE_BYTES that bites at a small shape: the batched MSMs take
+    fewer segments and still equal the native oracle and the JAX values."""
+    n, c = 64, 4
+    basis, ks = _case(n, 97)
+    per_segment = KB.windows(c) * B * KB.rows(c) * M.ROW_BYTES
+    assert M.segments(n)[0] == 4
+    monkeypatch.setattr(M, "TABLE_BYTES", 2 * per_segment)
+    seen = []
+    run = KB.accumulate
+    monkeypatch.setattr(KB, "accumulate", lambda *a: seen.append(a[2]) or run(*a))
+    got = C.projective_to_host_points(M.msm_fixed_base(C.host_points_to_affine(basis, "cpu"), _port_scalars(ks), c=c))
+    assert seen == [2]
+    want = JC.projective_to_host_points(JM.msm_fixed_base(JC.host_points_to_affine(basis), _jax_scalars(ks), c=c))
+    assert got == want == [native.g1_msm(basis, k) for k in ks]

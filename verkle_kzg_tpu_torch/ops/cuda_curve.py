@@ -6,10 +6,12 @@ line 350, body ``k_point_double``) and ``mixed_add`` (K12, line 358, body
 ``k_point_mixed_add``), all in the reduced domain. On the single-MSM path K2
 folds the per-segment partial bucket tables of K3
 (``ops/msm.py::fold_reduce_lanes``), as ``pallas_curve.add`` folds the lanes
-in ``pallas_msm._single_tail``. K11 and K2 are the two group operations of
-every bit of ``curve.scalar_mul``, which scales the G1 NTT's butterflies
-(``ops/ntt.py``) and the FK prover's pointwise product. K12 has no caller on
-any path of either package; it makes ``curve.mixed_add`` run on the card.
+in ``pallas_msm._single_tail``. K11 runs ``curve.double``. Their device
+functions are also every bit of ``curve.scalar_mul`` and of the G1 NTT's
+butterflies, which run as one launch a call (G1SMUL, G1BFLY in
+``cuda_g1_chain.py``), no longer as a K11 and a K2 launch a bit. K12 has no
+caller on any path of either package; it makes ``curve.mixed_add`` run on
+the card.
 The lazy group law that K3-K10 inline lives beside them in
 ``csrc/bn254_curve.cuh``.
 

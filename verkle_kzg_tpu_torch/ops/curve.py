@@ -14,8 +14,8 @@ follows the same sequence of field operations as its Pallas twin in
 ``verkle_kzg_tpu/ops/pallas_curve.py``, so in the same domain (reduced or
 lazy) all three give the same projective representative. On word tensors
 ``add``, ``double`` and ``mixed_add`` are kernels K2, K11 and K12
-(``cuda_curve.py``), ``neg`` is a K1 subtraction, ``scalar_mul`` is a loop of
-K11, K2 and a select per bit, and ``scalar_mul_affine`` is kernel K5
+(``cuda_curve.py``), ``neg`` is a K1 subtraction, ``scalar_mul`` is kernel
+G1SMUL (``cuda_g1_chain.py``), and ``scalar_mul_affine`` is kernel K5
 (``cuda_scalar_mul.py``).
 """
 
@@ -167,17 +167,12 @@ def neg(p: torch.Tensor) -> torch.Tensor:
 
 
 def scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """Branchless double-and-add (``ops/curve.py::scalar_mul``): (..., 3, 8)
-    projective points x (..., 8) standard scalars, reduced domain. Each of
-    the 256 MSB-first bits is one ``double`` (K11), one complete ``add``
-    (K2) and one select, the JAX package's XLA scan step for step, so the
-    projective coordinates are the same."""
-    bits = scalar_bits_msb(scalars) != 0
-    acc = infinity(p.shape[:-2], p.device)
-    for bit in bits:
-        acc = double(acc)
-        acc = torch.where(bit[..., None, None], add(acc, p), acc)
-    return acc
+    """Double-and-add (``ops/curve.py::scalar_mul``): (..., 3, 8) projective
+    points x (..., 8) standard scalars, reduced domain, in one G1SMUL launch.
+    Its rounds are the JAX package's XLA scan step for step (a doubling, a
+    complete add and a select a bit, MSB first; only steps that leave the
+    words as they are skipped), so the projective coordinates are the same."""
+    return _g1.scalar_mul(p, scalars)
 
 
 def scalar_mul_affine(pts: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
@@ -249,3 +244,4 @@ def projective_to_host_points(p: torch.Tensor) -> list:
 
 from . import cuda_curve as _k2  # noqa: E402  (K2 wrapper; it imports this module)
 from . import cuda_scalar_mul as _k5  # noqa: E402  (K5 wrapper; it imports this module)
+from . import cuda_g1_chain as _g1  # noqa: E402  (G1SMUL wrapper; it imports this module)

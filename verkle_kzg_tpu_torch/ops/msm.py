@@ -119,9 +119,10 @@ def _auto_c(n: int, c: int | None) -> int:
 def segments(n: int, table_rows: int = 0) -> tuple:
     """(S, L): the point stream is cut into S segments of L points (padded
     with zero scalars at the (0, 0) sentinel), one accumulation thread per
-    (window, segment). ``table_rows`` (W x rows of one segment's tables)
-    caps S so that the partial tables stay under TABLE_BYTES: at c = 16 a
-    window has 2^15 or 2^16 - 1 rows, and 1,024 segments would need 51 GB."""
+    (window, segment). ``table_rows`` (the rows of one segment's tables:
+    W x rows, times the lanes of a batch) caps S so that the partial tables
+    stay under TABLE_BYTES: at c = 16 a window has 2^15 or 2^16 - 1 rows,
+    and 1,024 segments would need 51 GB."""
     nseg = max(1, min(SEG_MAX, math.ceil(n / SEG_MIN)))
     if table_rows:
         nseg = max(1, min(nseg, TABLE_BYTES // (table_rows * ROW_BYTES)))
@@ -212,10 +213,11 @@ def _msm_lanewise(points_affine: torch.Tensor, scalars: torch.Tensor, c: int) ->
     (B, 3, 8). The scalars become (W, B, N) LSB-carry signed digits, the
     point stream is cut into segments (zero digits and (0, 0) points pad
     it), K6 fills one bucket table per (window, lane, segment), K2 folds
-    the segments and K7 runs the tails."""
+    the segments and K7 runs the tails. The segments are capped so that
+    the B lanes' tables stay under TABLE_BYTES, as a single MSM's are."""
     digits = window_digits_signed(scalars, c).to(torch.int32)
-    n = digits.shape[-1]
-    nseg, seg_len = segments(n)
+    w, b, n = digits.shape
+    nseg, seg_len = segments(n, w * b * KB.rows(c))
     pad = nseg * seg_len - n
     if pad:
         digits = torch.nn.functional.pad(digits, (0, pad))

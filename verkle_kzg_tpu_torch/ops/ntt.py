@@ -5,14 +5,14 @@ uses it for the G1 Lagrange SRS (``kzg/mod.rs:121``) and for the
 Feist-Khovratovich all-points prover (``kzg/mod.rs:215-224``,
 ``lagrange_basis.rs:146-148``).
 
-Decimation in time: a bit-reversal gather, then log2(N) butterfly stages,
-each the same gather/compute/scatter over N/2 pairs with its u/v position
-indices and twiddles as data (:class:`_Plan`). Fr butterflies
-(u + w v, u - w v) are K1 products and add/subs; G1 butterflies multiply v by
-the twiddle with ``curve.scalar_mul`` (K11, K2 and a select per bit) and
-take u + v and u + (-v) with K2 and a K1 negation. The operations and their
-order are the JAX package's, so Fr outputs and G1 projective coordinates
-are the same words.
+Decimation in time: a bit-reversal gather, then log2(N) butterfly stages
+with their u/v position indices and twiddles as data (:class:`_Plan`). An
+Fr stage (u + w v, u - w v) is a gather, K1 products and add/subs and a
+scatter; a G1 stage is one G1BFLY launch (``cuda_g1_chain.butterfly``),
+which multiplies v by the twiddle with ``curve.scalar_mul``'s chain and
+takes u + v and u + (-v) in one kernel. The operations and their order are
+the JAX package's, so Fr outputs and G1 projective coordinates are the
+same words.
 
 Conventions match ark_poly: ``ntt_*`` maps natural-order coefficients to
 natural-order evaluations [p(w^i)]; ``intt_*`` is its inverse, with the 1/N
@@ -28,6 +28,7 @@ import torch
 
 from ..hostmath.field import fr_inv
 from ..params import R, fr_root_of_unity
+from . import cuda_g1_chain as G
 from . import curve as C
 from . import field as F
 
@@ -64,63 +65,62 @@ class _Plan:
         self._mirrors: dict = {}
 
     def on(self, device, field: bool):
-        """(bitrev, [(u_idx, v_idx, twiddles)]) on ``device``: twiddles as
-        Montgomery words for the Fr butterflies (``field``), else as
-        standard scalar words for the G1 scalar multiplication."""
+        """The plan on ``device``: for the Fr butterflies (``field``)
+        (bitrev, [(u_idx, v_idx, Montgomery twiddles)]); for G1BFLY
+        (bitrev, [standard-form twiddles of stage s's first block]), since
+        butterfly j of every block takes w_j."""
         key = (torch.device(device), field)
         if key not in self._mirrors:
-            words = (lambda v: F.ints_to_mont(v, "fr", device)) if field else (lambda v: F.ints_to_words(v, device))
             idx = functools.partial(torch.tensor, dtype=torch.int64, device=device)
-            self._mirrors[key] = (
-                idx(self.bitrev),
-                [(idx(u), idx(v), words(tw)) for u, v, tw in self.stages],
-            )
+            if field:
+                stages = [(idx(u), idx(v), F.ints_to_mont(tw, "fr", device)) for u, v, tw in self.stages]
+            else:
+                stages = [F.ints_to_words(tw[: 1 << s], device) for s, (_, _, tw) in enumerate(self.stages)]
+            self._mirrors[key] = (idx(self.bitrev), stages)
         return self._mirrors[key]
 
 
-def _run(x: torch.Tensor, plan: _Plan, butterfly, field: bool) -> torch.Tensor:
-    bitrev, stages = plan.on(x.device, field)
+def _run_fr(x: torch.Tensor, plan: _Plan) -> torch.Tensor:
+    """(u + w v, u - w v) over Fr, Montgomery words (``ntt.py::_fr_stage``)."""
+    bitrev, stages = plan.on(x.device, True)
     x = x[bitrev]
     for u_idx, v_idx, tw in stages:
-        hi, lo = butterfly(x[u_idx], x[v_idx], tw)
+        u, v = x[u_idx], F.mont_mul(x[v_idx], tw, "fr")
         x = torch.empty_like(x)
-        x[u_idx] = hi
-        x[v_idx] = lo
+        x[u_idx] = F.add(u, v, "fr")
+        x[v_idx] = F.sub(u, v, "fr")
     return x
 
 
-def _fr_butterfly(u, v, tw):
-    """(u + w v, u - w v) over Fr, Montgomery words (``ntt.py::_fr_stage``)."""
-    v = F.mont_mul(v, tw, "fr")
-    return F.add(u, v, "fr"), F.sub(u, v, "fr")
-
-
-def _g1_butterfly(u, v, tw):
-    """(u + w v, u - w v) over G1, standard-form twiddles (``ntt.py::_g1_stage``)."""
-    v = C.scalar_mul(v, tw)
-    return C.add(u, v), C.add(u, C.neg(v))
+def _run_g1(x: torch.Tensor, plan: _Plan) -> torch.Tensor:
+    """(u + w v, u - w v) over G1 (``ntt.py::_g1_stage``): one G1BFLY launch a stage."""
+    bitrev, twiddles = plan.on(x.device, False)
+    x = x[bitrev]
+    for s, tw in enumerate(twiddles):
+        x = G.butterfly(x, tw, s)
+    return x
 
 
 def ntt_fr(x_mont: torch.Tensor) -> torch.Tensor:
     """(N, 8) coefficients -> evaluations [p(w^i)] (ark fft semantics)."""
-    return _run(x_mont, _Plan(x_mont.shape[0], False), _fr_butterfly, True)
+    return _run_fr(x_mont, _Plan(x_mont.shape[0], False))
 
 
 def intt_fr(x_mont: torch.Tensor) -> torch.Tensor:
     """(N, 8) evaluations -> coefficients (ark ifft semantics, 1/N folded in)."""
     plan = _Plan(x_mont.shape[0], True)
-    out = _run(x_mont, plan, _fr_butterfly, True)
+    out = _run_fr(x_mont, plan)
     return F.mont_mul(out, F.ints_to_mont([plan.n_inv], "fr", out.device), "fr")
 
 
 def ntt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) projective points -> the G1 NTT."""
-    return _run(pts_proj, _Plan(pts_proj.shape[0], False), _g1_butterfly, False)
+    return _run_g1(pts_proj, _Plan(pts_proj.shape[0], False))
 
 
 def intt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) projective points -> the G1 inverse NTT, 1/N folded in."""
     n = pts_proj.shape[0]
     plan = _Plan(n, True)
-    out = _run(pts_proj, plan, _g1_butterfly, False)
+    out = _run_g1(pts_proj, plan)
     return C.scalar_mul(out, F.ints_to_words([plan.n_inv], out.device).expand(n, F.WORDS))

@@ -69,6 +69,9 @@ class IPAParams:
     def q_affine(self) -> torch.Tensor:
         return C.host_points_to_affine([self.q_host], self.device)
 
+    def max_size(self) -> int:
+        return self.n
+
 
 @dataclasses.dataclass
 class IPAProof:
@@ -160,6 +163,15 @@ class IPA:
         sc += [(-x) % R for x in cl] + [(-x) % R for x in cr]
         extra = [params.q_host, commitment] + list(proof.l) + list(proof.r)
         return _msm_is_zero(params, len(coeffs), extra, sc)
+
+    @staticmethod
+    def prove_batch(params, commitment, indexes, data):
+        """todo!() in the reference (``ipa/mod.rs:156-163``); use prove_multiproof."""
+        raise NotImplementedError("prove_batch is todo!() in the reference; use prove_multiproof")
+
+    @staticmethod
+    def verify_batch(params, commitment, proof):
+        raise NotImplementedError("verify_batch is todo!() in the reference; use verify_multiproof")
 
     @staticmethod
     def prove_commitment(params: IPAParams, commitment, data: FrVector) -> IPACommitProof:

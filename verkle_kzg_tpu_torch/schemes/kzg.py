@@ -55,6 +55,9 @@ class KZGParams:
     def lagrange_affine(self) -> torch.Tensor:
         return C.host_points_to_affine(self.lagrange_host, self.device)
 
+    def max_size(self) -> int:
+        return self.size
+
 
 @dataclasses.dataclass
 class KZGProof:

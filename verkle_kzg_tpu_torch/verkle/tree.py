@@ -225,7 +225,9 @@ class VerkleTree:
                 self._collect_dirty(child, depth + 1, dirty_ext, dirty_internal)
 
     # Dense node vectors per msm_fixed_base call: bounds the bucket tables
-    # (W x B x segments x 2^(c-1) rows x 96 bytes, 0.8 GB at width 256).
+    # (W x B x segments x 2^(c-1) rows x 96 bytes). At width 256 (c = 5,
+    # W = 52, 16 rows) 16 segments would take 2.6 GB; ops/msm.py::segments
+    # caps them at 1 GiB, which leaves 6 segments (0.98 GB).
     COMMIT_CHUNK = 2048
 
     # Sparse node vectors per K5 launch: a lane is a point and a scalar
