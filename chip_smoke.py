@@ -14,9 +14,13 @@ and no JAX. Phases, each of which raises on failure:
      its time and the least time the card could take for the same work;
      G1SMUL and G1BFLY also against the K11 + K2 + select chain they
      replace, timed in the same run, at block sizes of 32, 64 and 128;
+     each K4 and K7 tail with its CUDA launches and dependent chain, and
+     where its window sums take launches of their own, the sums and Horner
+     timed apart;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
-     checks, launch counts and timings, and a proof at domain 32 on the
-     card against the CPU plain path;
+     checks, launch counts and timings, the prove's 16 K4 tails timed by
+     CUDA events in one more prove, and a proof at domain 32 on the card
+     against the CPU plain path;
   4. one MSM of 2^20 points through msm_auto, against an exact oracle, and
      its rate;
   5. the verkle tree at Ethereum geometry (BASELINE.json config 4: 32-unit
@@ -216,7 +220,7 @@ def phase_kernels(dev, crs) -> dict:
         k3_err = max(k3_err, max_abs_err(table, K.plain_accumulate(pa, sc, masks, nseg, seg_len)))
         buckets = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
         out = K.tail(buckets)
-        plain_out = K.plain_tail(buckets)
+        plain_out, plain_ms = timed_once(lambda: K.plain_tail(buckets))
         k4_err = max(k4_err, max_abs_err(out, plain_out))
         assert k3_err == 0 and k4_err == 0, n
         assert C.projective_to_host_points(out) == C.projective_to_host_points(plain_out)
@@ -231,18 +235,14 @@ def phase_kernels(dev, crs) -> dict:
                 **bound(4 * (pa.numel() + sc.numel() + masks.numel() + table.numel()),
                         int(live.sum()) * MIXED_FMULS),
             }
-            rec["K4"] = {
-                "ms": cuda_ms(lambda: K.tail(buckets), 20),
-                "plain_ms": cuda_ms(lambda: K.plain_tail(buckets), 2),
-                "shape": "32 x 128 buckets",
-                **bound(4 * (buckets.numel() + 24), tail_fmuls(32, 128, 8)),
-            }
+            rec["K4"] = {**_tail_record("K4", buckets, 8, (plain_out, plain_ms), 20),
+                         "shape": "32 x 128 buckets"}
             rec["msm257"] = {
                 "ms": cuda_ms(lambda: M.msm_auto(pa[:n], sc[:n]), 20),
                 "plain_k3_k4_ms": rec["K3"]["plain_ms"] + rec["K4"]["plain_ms"],
             }
     rec["K3"]["max_abs_err"] = k3_err
-    rec["K4"]["max_abs_err"] = k4_err
+    rec["K4"]["max_abs_err"] = max(k4_err, rec["K4"]["max_abs_err"])
     rec.update(_kernels_k5_k7(dev, crs, rng))
     rec.update(_kernels_windows(dev, base, rng))
     rec.update(_kernels_k13(dev, base, rng))
@@ -250,22 +250,88 @@ def phase_kernels(dev, crs) -> dict:
     return rec
 
 
-def tail_fmuls(w: int, rows: int, c: int) -> int:
-    """Montgomery products of K4 on (W, rows) buckets: two adds a row for
-    the chunk sums; per combine group of m >= 2 pairs 2 (m - 2) + 1 + m adds
-    and 5 doublings a level; Horner (W - 1) (c doublings + 1 add)."""
+def _combine_ops(m: int, log2_len: int) -> tuple:
+    """Point adds and doublings of the tail's warp combine of m items
+    (``csrc/msm_tail.cuh::combine_group``), and its depth in dependent point
+    operations: per tree level h, a merge of a left node with a right one is
+    log2 h doublings, S and T (2 adds), X_r + E where the right node holds
+    two items or more and X_l + E from h = 2 on, which the warp runs in
+    log2 h doublings and 2 adds; the root 2^log2_len X and one add."""
+    if m == 1:
+        return 0, 0, 0
+    adds = dbls = depth = 0
+    h = 1
+    while h < m:
+        d = h.bit_length() - 1
+        for lo in range(0, m, 2 * h):
+            if lo + h < m:
+                dbls += d
+                adds += 2 + (min(h, m - lo - h) >= 2) + (h >= 2)
+        depth += d + 2
+        h *= 2
+    return adds + 1, dbls + log2_len, depth + log2_len + 1
+
+
+def tail_fmuls(w: int, rows: int, c: int, lanes: int = 1) -> int:
+    """Montgomery products that the tail's function needs, whatever the
+    design: per window and lane the suffix sums, 2 (rows - 1) adds, then
+    Horner's (W - 1) (c doublings + 1 add). The bound counts these."""
+    adds, dbls = w * 2 * (rows - 1) + (w - 1), (w - 1) * c
+    return lanes * (adds * ADD_FMULS + dbls * DOUBLE_FMULS)
+
+
+def tail_work(w: int, rows: int, c: int, lanes: int = 1) -> tuple:
+    """(Montgomery products, dependent point operations of one lane) of the
+    tail of K4 (lanes = 1) or K7 on (W, lanes, rows) buckets: 2 (L - 1)
+    adds a run of L rows, each combine level's groups (``_combine_ops``),
+    Horner's (W - 1) (c doublings + 1 add). The dependent chain is a run,
+    each level's combine and Horner."""
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
 
-    adds, dbls = w * 2 * rows, 0
-    for level, n in enumerate(K.tail_levels(rows)[:-1], start=1):
-        for g in range(math.ceil(n / K.CHUNK)):
-            m = min(K.CHUNK, n - K.CHUNK * g)
-            if m > 1:
-                adds += w * (2 * (m - 2) + 1 + m)
-                dbls += w * K.LOG2_CHUNK * level
-    adds += w - 1
-    dbls += (w - 1) * c
-    return adds * ADD_FMULS + dbls * DOUBLE_FMULS
+    levels = K.tail_levels(rows)
+    runs, log2_run = levels[0]
+    adds, dbls = 2 * (rows - runs), 0
+    depth = 2 * (min(1 << log2_run, rows) - 1)
+    for n, log2_len in levels:
+        for g in range(math.ceil(n / K.GROUP)):
+            a, d, _ = _combine_ops(min(K.GROUP, n - K.GROUP * g), log2_len)
+            adds, dbls = adds + a, dbls + d
+        depth += _combine_ops(min(K.GROUP, n), log2_len)[2]
+    adds, dbls = adds * w + (w - 1), dbls * w + (w - 1) * c
+    depth += (w - 1) * (c + 1)
+    return lanes * (adds * ADD_FMULS + dbls * DOUBLE_FMULS), depth
+
+
+def _tail_record(key: str, bk, c: int, plain_out_ms: tuple, reps: int) -> dict:
+    """Time and bound of one tail (K4 on (W, rows, 3, 8), K7 on (W, B, rows,
+    3, 8) buckets), its CUDA launches and dependent chain; where the window
+    sums take their own launches, the sums and Horner timed apart, with
+    Horner's microseconds a dependent point operation."""
+    from verkle_kzg_tpu_torch.ops import cuda_msm as K
+    from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+
+    b5 = bk[:, None] if bk.dim() == 4 else bk
+    w, lanes, rows = b5.shape[:3]
+    run = (lambda: K.tail(bk, c)) if key == "K4" else (lambda: KB.tail(bk, c))
+    out, (plain_out, plain_ms) = run(), plain_out_ms
+    design_fmuls, depth = tail_work(w, rows, c, lanes)
+    rec = {
+        "max_abs_err": max_abs_err(out, plain_out),
+        "ms": cuda_ms(run, reps),
+        "plain_ms": plain_ms,
+        "library_ms": None,
+        "cuda_launches": K.tail_launches(rows),
+        "design_fmuls": design_fmuls,
+        "chain_point_ops": depth,
+        "horner_point_ops": (w - 1) * (c + 1),
+        **bound(4 * (b5.numel() + out.numel()), tail_fmuls(w, rows, c, lanes)),
+    }
+    if K.tail_launches(rows) > 1:
+        _, sums = K.launch_tail(b5, c, key, parts=1)
+        rec["sums_ms"] = cuda_ms(lambda: K.launch_tail(b5, c, key, parts=1, sums=sums), reps)
+        rec["horner_ms"] = cuda_ms(lambda: K.launch_tail(b5, c, key, parts=2, sums=sums), reps)
+        rec["horner_us_per_point_op"] = rec["horner_ms"] * 1000 / rec["horner_point_ops"]
+    return rec
 
 
 def timed_once(fn) -> tuple:
@@ -352,18 +418,13 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
 
     for (c, signed), (bk, m) in buckets.items():
         out = K.tail(bk, c)
-        plain_out, plain_ms = timed_once(lambda: K.plain_tail(bk, c))
-        err = max_abs_err(out, plain_out)
-        assert err == 0 and C.projective_to_host_points(out) == [want[m]], (c, signed)
+        assert C.projective_to_host_points(out) == [want[m]], (c, signed)
         sign = "" if signed else "-unsigned"
         rec[f"K4@c{c}{sign}"] = {
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: K.tail(bk, c), 5),
-            "plain_ms": plain_ms,
-            "library_ms": None,
+            **_tail_record("K4", bk, c, timed_once(lambda: K.plain_tail(bk, c)), 5),
             "shape": f"{bk.shape[0]} x {bk.shape[1]} buckets, c = {c}{'' if signed else ', unsigned'}",
-            **bound(4 * (bk.numel() + 24), tail_fmuls(bk.shape[0], bk.shape[1], c)),
         }
+        assert rec[f"K4@c{c}{sign}"]["max_abs_err"] == 0, (c, signed)
     return rec
 
 
@@ -441,13 +502,13 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
         k6_err = max(k6_err, max_abs_err(table, KB.plain_accumulate(pts, digits, nseg, seg_len, c)))
         buckets = M.fold_reduce_lanes(table, dim=2)[:, :, 0].contiguous()
         out = KB.tail(buckets, c)
-        k7_err = max(k7_err, max_abs_err(out, KB.plain_tail(buckets, c)))
+        k7_plain = timed_once(lambda: KB.plain_tail(buckets, c))
+        k7_err = max(k7_err, max_abs_err(out, k7_plain[0]))
         assert k6_err == 0 and k7_err == 0, width
         from verkle_kzg_tpu_torch import native
 
         got = C.projective_to_host_points(out[:3])
         assert got == [native.g1_msm(crs.g_host[:width], k) for k in ks[:3]], "K6 + K7 != native oracle"
-    w, rows = KB.windows(c), KB.rows(c)
     live = int((digits != 0).sum())
     rec["K6"] = {
         "max_abs_err": k6_err,
@@ -456,14 +517,8 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
         "shape": f"width 256, c = 5, {b} lanes, {nseg} segments",
         **bound(4 * (digits.numel() + pts.numel() + table.numel()), live * MIXED_FMULS),
     }
-    adds, dbls = w * 2 * rows + (w - 1), (w - 1) * c
-    rec["K7"] = {
-        "max_abs_err": k7_err,
-        "ms": cuda_ms(lambda: KB.tail(buckets, c), 20),
-        "plain_ms": cuda_ms(lambda: KB.plain_tail(buckets, c), 1),
-        "shape": f"width 256, c = 5, {b} lanes",
-        **bound(4 * (buckets.numel() + out.numel()), b * (adds * ADD_FMULS + dbls * DOUBLE_FMULS)),
-    }
+    rec["K7"] = {**_tail_record("K7", buckets, c, k7_plain, 20), "shape": f"width 256, c = 5, {b} lanes"}
+    rec["K7"]["max_abs_err"] = max(k7_err, rec["K7"]["max_abs_err"])
     return rec
 
 
@@ -730,11 +785,43 @@ def phase_ipa(dev, crs, small: int = 32):
     assert proofs[0] == proofs[1], f"IPA proof at {small}: card != CPU"
     assert states[0] == states[1], f"IPA transcript at {small}: card != CPU"
     return {
+        "prove_k4_tails_ms": _prove_tails(crs, commit, index, data),
         "ms": ms,
         "launches_per_call": counts,
         "main_path_launches": main_path_launches,
         "cpu_plain_prove_s": secs[1], "cpu_plain_prove_domain": small,
     }, (vals, data, commit)
+
+
+def _prove_tails(crs, commit, index, data) -> dict:
+    """One more IPA prove with a CUDA-event pair around each of its K4 tails
+    (two a halving round, 16 at domain 256; ``cuda_msm.tail`` wrapped for
+    that call): their sum and each."""
+    import torch
+
+    from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
+    from verkle_kzg_tpu_torch.ops import cuda_msm as K
+    from verkle_kzg_tpu_torch.schemes import IPA
+
+    events, tail = [], K.tail
+
+    def timed_tail(buckets, c=8):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = tail(buckets, c)
+        end.record()
+        events.append((start, end))
+        return out
+
+    K.tail = timed_tail
+    try:
+        IPA.prove_point(crs, commit, index, data, Transcript("ipa"))
+        torch.cuda.synchronize()
+    finally:
+        K.tail = tail
+    each = [s.elapsed_time(e) for s, e in events]
+    assert len(each) == 2 * (crs.n.bit_length() - 1), len(each)
+    return {"sum": sum(each), "each": each}
 
 
 def _multiples_of_g(n: int) -> list:
@@ -1429,8 +1516,8 @@ def main() -> int:
     print(f"phase 9 tune_group grid ({time.perf_counter() - t0:.1f} s): launches",
           json.dumps(group["path_launches"]), f"[{card}]", flush=True)
 
-    sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm.cu",
-               "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_batched.cu",
+    sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm_tail.cuh",
+               "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_tail.cuh",
                "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu",
                "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu",
                "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu"}

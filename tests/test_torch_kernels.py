@@ -124,6 +124,72 @@ def test_window_modes_match_plain_on_card(cuda, c, signed, key):
     assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
 
 
+def _tail_buckets(c, signed, lanes, seed):
+    """(W, lanes, rows, 3, 8) reduced buckets on the card: sums of two
+    points (Z != 1), the identity in a share of the rows (most of them at
+    c >= 12, whose windows are 2,048-65,535 rows), lane 0 all identity when
+    there are several lanes."""
+    w, rows = K.windows(c), K.rows(c, signed)
+    g = torch.Generator().manual_seed(seed)
+    pts, _ = _inputs(32, seed)
+    pool = C.from_affine(C.host_points_to_affine(pts, "cuda"))
+    pool = cuda_curve.add(pool, pool.roll(3, 0))
+    idx = torch.randint(0, 32, (w, lanes, rows), generator=g)
+    dead = torch.rand((w, lanes, rows), generator=g) > (0.9 if rows <= 256 else 200 / rows)
+    if lanes > 1:
+        dead[:, 0] = True
+    bk = pool[idx.cuda()]
+    bk[dead.cuda()] = C.infinity((), "cuda")
+    return bk.contiguous()
+
+
+TAIL_CASES = ([(c, s, 1) for c in (1, 4, 8, 12, 16) for s in (True, False)]
+              + [(c, s, 3) for c in (4, 8, 12, 16) for s in (True, False)]
+              + [(4, True, 40), (5, True, 40), (8, True, 40)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,signed,lanes", TAIL_CASES)
+def test_tail_matches_plain_on_card(cuda, c, signed, lanes):
+    """The tail of K4 (one lane) and K7 (3 or 40 lanes) against its plain
+    version at c in {1, 4, 8, 12, 16}, both signs: one count a tail, one
+    CUDA launch up to 1,024 rows a window (c = 8 among them); where the
+    window sums take their own launches, the sums and Horner run apart give
+    the same words."""
+    bk = _tail_buckets(c, signed, lanes, 160 + 7 * c + lanes + signed)
+    key = "K4" if lanes == 1 else "K7"
+    cuda_lib.reset_launches()
+    out = K.tail(bk[:, 0].contiguous(), c)[None] if lanes == 1 else KB.tail(bk, c)
+    assert cuda_lib.launches[key] == 1 and cuda_lib.launches["K4" if key == "K7" else "K7"] == 0
+    assert torch.equal(out, K.plain_tail(bk, c))
+    assert (K.tail_launches(bk.shape[2]) == 1) == (bk.shape[2] <= 1024)
+    if c == 8:
+        assert K.tail_launches(bk.shape[2]) == 1
+    if K.tail_launches(bk.shape[2]) > 1:
+        _, sums = K.launch_tail(bk, c, key, parts=1)
+        assert torch.equal(K.launch_tail(bk, c, key, parts=2, sums=sums)[0], out)
+
+
+@pytest.mark.gpu
+def test_tails_on_two_streams_match_plain(cuda):
+    """One-launch tails of K4 and K7 (c = 8) launched in turn on two streams
+    with no sync between them each give their plain version's words: the
+    per-lane counters that pick the warp running Horner are a call's own."""
+    b1, b3 = _tail_buckets(8, True, 1, 301)[:, 0].contiguous(), _tail_buckets(8, True, 3, 302)
+    want1, want3 = K.plain_tail(b1, 8), K.plain_tail(b3, 8)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(16):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append((K.tail(b1, 8), KB.tail(b3, 8)) if i % 2 else (KB.tail(b3, 8), K.tail(b1, 8)))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(outs):
+        got1, got3 = (a, b) if i % 2 else (b, a)
+        assert torch.equal(got1, want1) and torch.equal(got3, want3)
+
+
 @pytest.mark.gpu
 def test_ipa_on_card_matches_cpu(cuda):
     n = 8

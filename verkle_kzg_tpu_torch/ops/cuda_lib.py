@@ -31,8 +31,9 @@ BUILD = _PKG / "_build"
 #: Launches per kernel since the last :func:`reset_launches`. Each wrapper
 #: adds one where it launches its kernel, and nowhere else. There is one
 #: key per TPU counterpart: K3, K8 and K9 are instances of one CUDA kernel,
-#: as are K6 and K10 (``cuda_msm.py``, ``cuda_msm_batched.py``). K4 counts
-#: one per tail, which is two to five CUDA launches (``cuda_msm.tail``).
+#: as are K6 and K10 (``cuda_msm.py``, ``cuda_msm_batched.py``). K4 and K7
+#: count one per tail: one CUDA launch up to 1,024 bucket rows a window,
+#: three or four above (``cuda_msm.tail_launches``).
 #: G1SMUL and G1BFLY fuse the K11 + K2 chain of ``curve.scalar_mul``
 #: (``cuda_g1_chain.py``).
 launches = {**{f"K{i}": 0 for i in range(1, 14)}, "G1SMUL": 0, "G1BFLY": 0}
@@ -48,10 +49,12 @@ _SIGNATURES = {
     "vkzg_point_double": [_P, _P, _I, _P],
     "vkzg_point_mixed_add": [_P, _P, _P, _I, _P],
     "vkzg_msm_accumulate": [_P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P],
-    "vkzg_msm_tail": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "vkzg_msm_tail": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _P],
     "vkzg_scalar_mul": [_P, _P, _P, _I, _P],
     "vkzg_msm_batched_accumulate": [_P, _I, _P, _P, ctypes.c_int, _I, _I, _I, ctypes.c_int, _P],
-    "vkzg_msm_batched_tail": [_P, _P, ctypes.c_int, _I, ctypes.c_int, ctypes.c_int, _P],
+    "vkzg_msm_batched_tail": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, _P],
     "vkzg_msm_group_accumulate": [_P, _P, _P, ctypes.c_int, _I, _I, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, _P],
     "vkzg_g1_scalar_mul": [_P, _P, _P, _I, ctypes.c_int, _P],

@@ -43,15 +43,16 @@ is ``cuda_msm.plain_tables``, shared with K3, K8 and K9.
 
 K7 replaces the launch at line 1152, ``_batched_tail_kernel``: per lane,
 each window's weighted bucket sum sum_i (i + 1) B_i, then Horner from the
-top window (c doublings, then an add), output reduced. One block per lane,
-one thread per window for the weighted sums (2 x 2^(c-1) lazy adds each,
-in parallel), then thread 0 runs Horner's W (c + 1) dependent point
-operations (about 312 at width 256), which bound the kernel by latency,
-whatever B is. It takes any row count and c in [2, 16] (at most 128
-windows, one block): the batched MSMs give it 2^(c-1) signed rows, c in
-[2, 7]; ``msm_stream.batched_bucket_tail`` also 2^c - 1 unsigned ones.
+top window (c doublings, then an add), output reduced. It is K4's tail
+(``csrc/msm_tail.cuh``, see ``cuda_msm.py``) over B lanes: the window sums
+of each (window, lane) in log depth on a warp, then a warp per lane for
+Horner with each step's products spread over its lanes, one CUDA launch up
+to 1,024 rows a window; the plain version is ``cuda_msm.plain_tail``. It
+takes any row count and c in [2, 16]: the batched MSMs give it 2^(c-1)
+signed rows, c in [2, 7]; ``msm_stream.batched_bucket_tail`` also 2^c - 1
+unsigned ones.
 
-Both plain versions follow their kernel's order of additions and domain
+Every plain version follows its kernel's order of additions and domain
 (lazy, reduced at the end), so kernel and plain version agree bit for bit.
 The tail adds in another order than the JAX double suffix scan, so against
 the JAX package only the group element is compared.
@@ -65,8 +66,6 @@ import torch
 
 from . import cuda_lib
 from . import cuda_msm as K
-from . import curve as C
-from . import field as F
 
 
 def windows(c: int) -> int:
@@ -125,40 +124,17 @@ def accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True
     return table
 
 
-def plain_tail(buckets: torch.Tensor, c: int) -> torch.Tensor:
-    """K7's plain version: (W, B, rows, 3, 8) reduced buckets (row i = the
-    bucket of digit i + 1; 2^(c-1) rows for signed digits, 2^c - 1 for
-    unsigned ones) -> (B, 3, 8) reduced projective, per lane
-    sum_w 2^(cw) sum_i (i + 1) B_wi."""
-    _check_c(c)
-    w, b, nrows = buckets.shape[:3]
-    bk = F.to_limbs(buckets)
-    s = C.infinity16((w, b), buckets.device)
-    t = s
-    for j in range(nrows - 1, -1, -1):
-        s = C.add16(s, bk[:, :, j], lazy=True)
-        t = C.add16(t, s, lazy=True)
-    acc = t[w - 1]
-    for win in range(w - 2, -1, -1):
-        for _ in range(c):
-            acc = C.double16(acc, lazy=True)
-        acc = C.add16(acc, t[win], lazy=True)
-    return F.from_limbs(C.reduce16(acc))
+plain_tail = K.plain_tail  # K7's plain version: (W, B, rows, 3, 8) -> (B, 3, 8)
 
 
 def tail(buckets: torch.Tensor, c: int) -> torch.Tensor:
+    _check_c(c)
     if buckets.device.type == "cpu":
         return plain_tail(buckets, c)
-    _check_c(c)
     w, b, nrows = buckets.shape[:3]
     if buckets.shape != (windows(c), b, nrows, 3, 8) or nrows < 1:
         raise ValueError("msm_batched tail: buckets must be (ceil(256 / c), B, rows, 3, 8)")
     cuda_lib.require_cuda("msm_batched.tail", buckets)
-    out = torch.empty((b, 3, 8), dtype=torch.int32, device=buckets.device)
-    if b:
-        err = cuda_lib.lib().vkzg_msm_batched_tail(
-            buckets.data_ptr(), out.data_ptr(), w, b, nrows, c, cuda_lib.stream(buckets)
-        )
-        cuda_lib.check(err, "vkzg_msm_batched_tail")
-        cuda_lib.launches["K7"] += 1
-    return out
+    if not b:
+        return torch.empty((0, 3, 8), dtype=torch.int32, device=buckets.device)
+    return K.launch_tail(buckets, c, "K7")[0]
