@@ -9,9 +9,15 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K13, G1SMUL, G1BFLY) against its plain PyTorch
+  2. each kernel (K1-K13, K1INV, G1SMUL, G1BFLY) against its plain PyTorch
      version on the card, at the shapes the main paths give it, exact, with
      its time and the least time the card could take for the same work;
+     K1INV also against the K1 chain it replaces, timed in the same run,
+     with its dependent chain (products and the inverse's loop steps); K5
+     in both regimes, with ptxas's registers and spills for each: many
+     lanes (2^12 edge lanes, the commit's 40,000) and few (1, 19, 32 and
+     51 lanes), and at the regime switch +- 1 both regimes timed, each
+     few-lane record with its dependent chain in point operations;
      G1SMUL and G1BFLY also against the K11 + K2 + select chain they
      replace, timed in the same run, at block sizes of 32, 64 and 128;
      each K4 and K7 tail with its CUDA launches and dependent chain, and
@@ -46,7 +52,10 @@ and no JAX. Phases, each of which raises on failure:
      of msm_stream once at 2^12 points against the native oracle.
 
 Each of phases 2, 3, 5, 6 and 8, and each run of phases 7 and 9, sets the
-launch counts to 0 just before its path and reads them just after. The last two
+launch counts to 0 just before its path and reads them just after; phases
+5, 6 and 8 print K1's and K1INV's launches stage by stage, and phases 5
+and 6 the launches of each K5 regime and the lanes of each K5 call. The
+last two
 lines of standard output are the card's name and power limit and a JSON
 object {"ok": true, "device": {...}}; the line before them holds the
 per-kernel JSON record.
@@ -150,6 +159,8 @@ def phase_kernels(dev, crs) -> dict:
         **bound(a.numel() * 4 * 3, a.shape[0]),
     }
 
+    rec.update(_kernels_k1inv(dev, random.Random(2)))  # its own seed: the other shapes' draws stay as they were
+
     # K2: the IPA MSM's first segment fold, 32 x 8 x 128 point pairs, with
     # infinity, P + P and P + (-P) among them.
     base = [hc.g1_mul(hc.g1_generator(), rng.getrandbits(128)) for _ in range(64)]
@@ -247,6 +258,100 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_windows(dev, base, rng))
     rec.update(_kernels_k13(dev, base, rng))
     rec.update(_kernels_g1_chain(dev, pz, rng))
+    return rec
+
+
+def inverse_steps(x: int, m: int) -> int:
+    """Loop steps (shifts and subtractions) of ``csrc/field_inv.cu``'s binary
+    extended Euclid on x in [1, m), the inverse's dependent chain."""
+    u, v, steps = x, m, 0
+    while u != 1 and v != 1:
+        while u % 2 == 0:
+            u, steps = u >> 1, steps + 1
+        while v % 2 == 0:
+            v, steps = v >> 1, steps + 1
+        if u >= v:
+            u -= v
+        else:
+            v -= u
+        steps += 1
+    return steps
+
+
+def _k1_chain(fn, *args):
+    """``fn`` (one of K1INV's plain versions) with each of its products a K1
+    launch: the chain that K1INV replaced, the same-run yardstick."""
+    from verkle_kzg_tpu_torch.ops import cuda_field
+
+    plain = cuda_field.plain
+    cuda_field.plain = cuda_field.binop
+    try:
+        return fn(*args)
+    finally:
+        cuda_field.plain = plain
+
+
+K1INV_CASES = (  # record, field, rows, elements a row
+    ("K1INV", "fr", 19, 256),  # invdiff_rows: a row an opening point, a zero a row
+    ("K1INV@1x256", "fr", 1, 256),  # the out-of-domain quotient's (w^i - z)
+    ("K1INV@4096x1", "fq", 4096, 1),  # inv_mont, as curve.to_affine takes Z
+)
+
+
+def _kernels_k1inv(dev, rng) -> dict:
+    """K1INV against its plain version and against the K1 chain it
+    replaced, exact, at K1INV_CASES; every row holds 0, 1 and m - 1. Each
+    record: ms, the plain version's and the chain's ms and K1 launches,
+    the bound (the bytes, and Montgomery's trick's 3 (N - 1) products a
+    row), and the dependent chain: products and the inverse's loop steps."""
+    from verkle_kzg_tpu_torch.ops import cuda_field, cuda_lib
+    from verkle_kzg_tpu_torch.ops import field as F
+
+    rec = {}
+    for name, spec, rows, n in K1INV_CASES:
+        m = F.SPECS[spec].modulus
+        vals = [rng.randrange(m) for _ in range(rows * n)]
+        for r in range(rows):
+            for j, v in enumerate((0, 1, m - 1)):
+                vals[r * n + (r + 7 * j) % n] = v
+        batch = n > 1
+        a = F.ints_to_mont(vals, spec, dev)
+        a = a.reshape(rows, n, F.WORDS) if batch else a
+        plain_fn = cuda_field.plain_batch_inv if batch else cuda_field.plain_inv
+        run = lambda: cuda_field.inverse(a, spec, batch)  # noqa: E731
+        out = run()
+        plain_out, plain_ms = timed_once(lambda: plain_fn(a, spec))
+        before = cuda_lib.launches["K1"]
+        chain_out, _ = timed_once(lambda: _k1_chain(plain_fn, a, spec))
+        chain_launches = cuda_lib.launches["K1"] - before
+        err = max(max_abs_err(out, plain_out), max_abs_err(out, chain_out))
+        assert err == 0, name
+        assert F.mont_to_ints(out, spec) == [pow(v, -1, m) if v else 0 for v in vals], name
+        if batch:  # each row's product of its nonzero entries is inverted
+            inverted = []
+            for r in range(rows):
+                prod = 1
+                for v in vals[r * n : (r + 1) * n]:
+                    prod = prod * (v or 1) % m
+                inverted.append(prod)
+            threads = min(256, max(32, 1 << (n - 1).bit_length()))
+            run_len = -(-n // threads)
+            products = 3 * (run_len - 1) + 2 * (threads.bit_length() - 1) + 3
+        else:
+            inverted, products = [v for v in vals if v], 1
+        rec[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(run, 20),
+            "plain_ms": plain_ms,
+            "chain_ms": cuda_ms(lambda: _k1_chain(plain_fn, a, spec), 2),
+            "chain_k1_launches": chain_launches,
+            "library_ms": None,
+            "shape": f"{rows} x {n} {spec}" + ("" if batch else " (inv_mont)"),
+            "chain_products": products,
+            "inverse_steps": max(inverse_steps((x << 256) % m, m) for x in inverted),
+            **bound(2 * a.numel() * 4, rows * 3 * (n - 1)),
+        }
+        print("phase 2 k1inv:", name, json.dumps(rec[name]), flush=True)
     return rec
 
 
@@ -459,7 +564,9 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     rec = {}
     basis = crs.g_affine  # (256, 2, 8)
 
-    # K5: edge lanes (zero scalars, r - 1, (0, 0) points), then the commit shape
+    # K5: edge lanes (zero scalars, r - 1, (0, 0) points), then the commit
+    # shape; both take the many-lane regime
+    K5.reset_regimes()
     errs = []
     for n, bits in ((1 << 12, 254), (lanes, 128)):
         idx = torch.tensor([rng.randrange(256) for _ in range(n)], device=dev)
@@ -478,13 +585,18 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     from verkle_kzg_tpu_torch.hostmath import curve as hc
 
     assert hp == [hc.g1_mul(g, k) for g, k in zip(gx, ks[:8])], "K5 != host scalar mul"
+    assert K5.regime_launches["many"] >= 2 and K5.regime_launches["few"] == 0, K5.regime_launches
     rec["K5"] = {
         "max_abs_err": max(errs),
         "ms": cuda_ms(lambda: K5.scalar_mul_affine(pa, sc), 5),
+        "ptxas": ptxas_of("scalar_mul_kernelILi4E"),
         "plain_ms": cuda_ms(lambda: K5.plain(pa, sc), 1),
+        "library_ms": None,
+        "regime": "many",
         "shape": f"{lanes} lanes, 128-bit scalars on half",
         **bound(4 * (pa.numel() + sc.numel() + out.numel()), _k5_work(pa, ks)),
     }
+    rec.update(_kernels_k5_few(dev, basis, random.Random(5)))
 
     # K6 and K7: 40 lanes over the basis, lane 0 all zero, ties in lane 1
     k6_err = k7_err = 0
@@ -519,6 +631,66 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     }
     rec["K7"] = {**_tail_record("K7", buckets, c, k7_plain, 20), "shape": f"width 256, c = 5, {b} lanes"}
     rec["K7"]["max_abs_err"] = max(k7_err, rec["K7"]["max_abs_err"])
+    return rec
+
+
+def _k5_in(regime: str, pa, sc):
+    """K5's wrapper with SWITCH set so that this call takes ``regime``."""
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
+
+    saved = K5.SWITCH
+    K5.SWITCH = pa.shape[0] if regime == "few" else pa.shape[0] - 1
+    try:
+        return K5.scalar_mul_affine(pa, sc)
+    finally:
+        K5.SWITCH = saved
+
+
+def _kernels_k5_few(dev, basis, rng) -> dict:
+    """K5 at few lanes, exact against its plain version: one lane with a
+    254-bit scalar (the IPA multiproof verify's E aggregation), 19, 32 and
+    51 lanes (the verkle verify's E at 51 in phase 5), and the regime
+    switch +- 1. Each record:
+    its regime, ms in both regimes, the bound, and, one warp a lane, the
+    dependent chain in point operations (the longest lane's doublings below
+    its top bit and mixed adds) and the microseconds of one."""
+    import torch
+
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
+    from verkle_kzg_tpu_torch.ops import field as F
+
+    rec = {}
+    for n in (1, 19, 32, 51, K5.SWITCH - 1, K5.SWITCH, K5.SWITCH + 1):
+        idx = torch.tensor([rng.randrange(256) for _ in range(n)], device=dev)
+        pa = basis[idx].contiguous()
+        ks = [rng.randrange(1 << 253, R) for _ in range(n)]  # 254-bit scalars
+        sc = F.ints_to_words(ks, dev)
+        run = lambda: K5.scalar_mul_affine(pa, sc)  # noqa: E731
+        K5.reset_regimes()
+        out = run()
+        regime = "few" if n <= K5.SWITCH else "many"
+        assert K5.regime_launches[regime] == 1, (n, K5.regime_launches)
+        plain_out, plain_ms = timed_once(lambda: K5.plain(pa, sc))
+        err = max_abs_err(out, plain_out)
+        assert err == 0, n
+        chain = max(k.bit_length() - 1 + bin(k).count("1") for k in ks)
+        ms = cuda_ms(run, 10)
+        rec[f"K5@{n}"] = {
+            "max_abs_err": err,
+            "ms": ms,
+            "ms_few": cuda_ms(lambda: _k5_in("few", pa, sc), 10),
+            "ms_many": cuda_ms(lambda: _k5_in("many", pa, sc), 10),
+            "ptxas": ptxas_of("scalar_mul_kernelILi32E" if regime == "few" else "scalar_mul_kernelILi4E"),
+            "plain_ms": plain_ms,
+            "library_ms": None,
+            "regime": regime,
+            "shape": f"{n} lanes, 254-bit scalars",
+            "chain_point_ops": chain,
+            "us_per_point_op": ms * 1e3 / chain if regime == "few" else None,
+            **bound(4 * (pa.numel() + sc.numel() + out.numel()), _k5_work(pa, ks)),
+        }
+        print("phase 2 k5:", f"K5@{n}", json.dumps(rec[f"K5@{n}"]), flush=True)
     return rec
 
 
@@ -1096,23 +1268,38 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
     return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches, "entry_points_checked": list(checks)}
 
 
-def _stage(name, fn, ms, counts):
+def _stage(name, fn, ms, counts, k5_lanes=None):
     """Run one stage of a path: CUDA-event and wall milliseconds, and the
-    launches per kernel it made."""
+    launches per kernel it made; with ``k5_lanes``, also the lane count of
+    each K5 call it made, into ``k5_lanes[name]``."""
     import torch
 
     from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
 
     before = dict(cuda_lib.launches)
+    inner, lanes = K5.scalar_mul_affine, []
+
+    def recorded(pts, sc):
+        lanes.append(int(pts.shape[0]))
+        return inner(pts, sc)
+
+    if k5_lanes is not None:
+        K5.scalar_mul_affine = recorded
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    out = fn()
+    try:
+        out = fn()
+    finally:
+        K5.scalar_mul_affine = inner
     end.record()
     torch.cuda.synchronize()
     ms[name] = {"events_ms": start.elapsed_time(end), "wall_ms": (time.perf_counter() - t0) * 1e3}
     counts[name] = {k: cuda_lib.launches[k] - before[k] for k in before}
+    if k5_lanes is not None:
+        k5_lanes[name] = lanes
     return out
 
 
@@ -1170,6 +1357,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
 
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
     from verkle_kzg_tpu_torch.schemes import IPA, IPAParams
     from verkle_kzg_tpu_torch.verkle import VerkleTree
 
@@ -1196,12 +1384,14 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     prove_keys = sample + [absent_e, absent_o, absent_l]
     claims = {k: values.get(k) for k in prove_keys}
 
-    ms, counts = {}, {}
+    ms, counts, k5_lanes = {}, {}, {}
     cuda_lib.reset_launches()
-    root = _stage("commit", tree.commitment, ms, counts)
-    proof = _stage("prove", lambda: tree.prove_keys(prove_keys), ms, counts)
-    ok = _stage("verify", lambda: tree.verify_keys(prove_keys, claims, proof), ms, counts)
+    K5.reset_regimes()
+    root = _stage("commit", tree.commitment, ms, counts, k5_lanes)
+    proof = _stage("prove", lambda: tree.prove_keys(prove_keys), ms, counts, k5_lanes)
+    ok = _stage("verify", lambda: tree.verify_keys(prove_keys, claims, proof), ms, counts, k5_lanes)
     path_launches = dict(cuda_lib.launches)
+    regimes = dict(K5.regime_launches)
 
     assert ok, "the honest verkle proof was rejected"
     bad = dict(claims)
@@ -1210,6 +1400,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
     assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
     assert min(path_launches[f"K{i}"] for i in range(1, 8)) > 0, path_launches
+    assert counts["prove"]["K1INV"] > 0 and regimes["many"] > 0 and regimes["few"] > 0, (counts["prove"], regimes)
 
     # sampled commitments against the native C++ Pippenger
     g = crs.g_host
@@ -1256,6 +1447,8 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
         "leaves_per_s": leaves / (ms["commit"]["wall_ms"] / 1e3),
         "launches_per_stage": counts,
         "path_launches": path_launches,
+        "k5_regime_launches": regimes,
+        "k5_lanes": k5_lanes,
         "queries": len(prove_keys),
         "profiled_commit": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms, "kernel_ms_by_name": top},
         "small_leaves": small_leaves,
@@ -1267,6 +1460,7 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     """BASELINE.json config 3 (``benchmarks/bench_all.py:103-123``, its first
     size): 1,024 queries at random domain points of the phase-3 vector."""
     from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.schemes import IPA, ProverQuery, prove_multiproof, verify_multiproof
 
@@ -1279,17 +1473,21 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     vq = [q.to_verifier_query() for q in queries]
     prove_multiproof(IPA, crs, queries)  # warm-up
 
-    ms, counts = {}, {}
+    ms, counts, k5_lanes = {}, {}, {}
     cuda_lib.reset_launches()
-    proof = _stage("prove", lambda: prove_multiproof(IPA, crs, queries), ms, counts)
-    ok = _stage("verify", lambda: verify_multiproof(IPA, crs, vq, proof), ms, counts)
+    K5.reset_regimes()
+    proof = _stage("prove", lambda: prove_multiproof(IPA, crs, queries), ms, counts, k5_lanes)
+    ok = _stage("verify", lambda: verify_multiproof(IPA, crs, vq, proof), ms, counts, k5_lanes)
     path_launches = dict(cuda_lib.launches)
+    regimes = dict(K5.regime_launches)
     assert ok, "the honest multiproof was rejected"
     bad = [q.to_verifier_query() for q in queries]
     bad[m // 2].y = (bad[m // 2].y + 1) % R
     assert not verify_multiproof(IPA, crs, bad, proof), "a wrong y was accepted"
-    assert min(path_launches[k] for k in ("K1", "K2", "K3", "K4", "K5")) > 0, path_launches
-    return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches}
+    assert min(path_launches[k] for k in ("K1", "K1INV", "K2", "K3", "K4", "K5")) > 0, path_launches
+    assert counts["verify"]["K5"] == regimes["few"] == 1, (counts["verify"], regimes)  # E's one lane
+    return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
+            "k5_regime_launches": regimes, "k5_lanes": k5_lanes}
 
 
 def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, m: int = 1024) -> dict:
@@ -1379,7 +1577,7 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
 
     torch.cuda.synchronize()
     path_launches = dict(cuda_lib.launches)
-    assert min(path_launches[k] for k in ("K1", "K2", "K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, path_launches
+    assert min(path_launches[k] for k in ("K1", "K1INV", "K2", "K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, path_launches
 
     # off the path: FK at `small` on the CPU, the card's G1 NTT at `small`
     # against the CPU's
@@ -1450,6 +1648,11 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
     }
 
 
+def k1_counts(phase: dict) -> dict:
+    """K1's and K1INV's launches in each stage of a phase's record."""
+    return {stage: {k: c[k] for k in ("K1", "K1INV")} for stage, c in phase["launches_per_stage"].items()}
+
+
 def main() -> int:
     import torch
 
@@ -1495,11 +1698,15 @@ def main() -> int:
     verkle = phase_verkle(dev, crs)
     print(f"phase 5 verkle, 10k leaves, Ethereum geometry ({time.perf_counter() - t0:.1f} s):", json.dumps(verkle),
           f"[{card}]", flush=True)
+    print("phase 5 K1 and K1INV launches per stage:", json.dumps(k1_counts(verkle)), flush=True)
+    print("phase 5 K5 lanes of each call per stage:", json.dumps(verkle["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
     mp = phase_multiproof(dev, crs, ipa_data)
     print(f"phase 6 multiproof, 1024 queries at 256 ({time.perf_counter() - t0:.1f} s):", json.dumps(mp),
           f"[{card}]", flush=True)
+    print("phase 6 K1 and K1INV launches per stage:", json.dumps(k1_counts(mp)), flush=True)
+    print("phase 6 K5 lanes of each call per stage:", json.dumps(mp["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
     sweep = phase_sweep(dev, card)
@@ -1510,19 +1717,23 @@ def main() -> int:
     kzg = phase_kzg(dev, card)
     print(f"phase 8 kzg@256, fk, kzg multiproof ({time.perf_counter() - t0:.1f} s):", json.dumps(kzg),
           f"[{card}]", flush=True)
+    print("phase 8 K1 and K1INV launches per stage:", json.dumps(k1_counts(kzg)),
+          "path:", json.dumps({k: kzg["path_launches"][k] for k in ("K1", "K1INV")}), flush=True)
 
     t0 = time.perf_counter()
     group = phase_group(dev, card)
     print(f"phase 9 tune_group grid ({time.perf_counter() - t0:.1f} s): launches",
           json.dumps(group["path_launches"]), f"[{card}]", flush=True)
 
-    sources = {"K1": "field.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm_tail.cuh",
+    sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm_tail.cuh",
                "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_tail.cuh",
                "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu",
                "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu",
                "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
+        # the K1 chain of verkle_kzg_tpu/ops/field.py:327's scan and :342's batch inversion
+        "K1INV": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         "K3": "verkle_kzg_tpu/ops/pallas_msm.py:700",
         "K4": "verkle_kzg_tpu/ops/pallas_msm.py:1041",
@@ -1539,8 +1750,8 @@ def main() -> int:
         "G1SMUL": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         "G1BFLY": "verkle_kzg_tpu/ops/pallas_curve.py:328",
     }
-    # launches: K1-K7 from the verkle path of phase 5 (commit, prove,
-    # verify), which runs all seven; K8-K10 from the sweep of phase 7;
+    # launches: K1-K7 and K1INV from the verkle path of phase 5 (commit,
+    # prove, verify), which runs all eight; K8-K10 from the sweep of phase 7;
     # G1SMUL and G1BFLY from the KZG path of phase 8; K11 and K12 from
     # phase 2, since no path calls the standalone double (the scalar
     # multiplication it served is G1SMUL's) or mixed add; K13 from the
@@ -1548,13 +1759,15 @@ def main() -> int:
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
-        **dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), ("phase 5", verkle["path_launches"])),
+        **dict.fromkeys(("K1", "K1INV", "K2", "K3", "K4", "K5", "K6", "K7"), ("phase 5", verkle["path_launches"])),
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
         "K11": ("phase 2 only: no path calls curve.double since G1SMUL", phase2_launches),
         "K12": ("phase 2 only: no path of either package calls it", phase2_launches),
         **dict.fromkeys(("G1SMUL", "G1BFLY"), ("phase 8", kzg["path_launches"])),
         "K13": ("phase 9", group["path_launches"]),
     }
+    chains = {"G1SMUL": "verkle_kzg_tpu/ops/curve.py:239", "G1BFLY": "verkle_kzg_tpu/ops/curve.py:239",
+              "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342"}
     kernels = []
     for k in sources:
         first = kern[k] if k in kern else kern[min(r for r in kern if r.startswith(k + "@"))]
@@ -1572,8 +1785,7 @@ def main() -> int:
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": None,
-            **({"chain_ms": first["chain_ms"], "replaces_chain": "verkle_kzg_tpu/ops/curve.py:239"}
-               if "chain_ms" in first else {}),
+            **({"chain_ms": first["chain_ms"], "replaces_chain": chains[k]} if k in chains else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -139,9 +139,10 @@ def test_domain_mirrors_match_jax():
 
 
 def test_cuda_header_constants():
-    """The moduli, 2m, Montgomery one and -m^-1 mod 2^32 written into the
-    CUDA header equal the ones derived in params.py (the header cannot be
-    compiled here)."""
+    """The moduli, 2m, Montgomery one, R^3 mod m (K1INV's step from
+    (a R)^-1 to a^-1 R) and -m^-1 mod 2^32 written into the CUDA header
+    equal the ones derived in params.py (the header cannot be compiled
+    here)."""
     src = (cuda_lib.CSRC / "bn254_field.cuh").read_text()
     for name, fs in (("Fq", FQ), ("Fr", FR)):
         body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
@@ -149,6 +150,6 @@ def test_cuda_header_constants():
             sum(int(w, 16) << (32 * i) for i, w in enumerate(re.findall(r"0x([0-9a-f]{8})u", blk)))
             for blk in re.findall(r"\{(0x[^}]*)\}", body)
         ]
-        assert arrays == [fs.modulus, 2 * fs.modulus, fs.r_mod]
+        assert arrays == [fs.modulus, 2 * fs.modulus, fs.r_mod, pow(fs.r_mod, 3, fs.modulus)]
         n0 = int(re.search(r"n0 = 0x([0-9a-f]+)u", body).group(1), 16)
         assert n0 == (-pow(fs.modulus, -1, 1 << 32)) % (1 << 32)

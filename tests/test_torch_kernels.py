@@ -69,7 +69,7 @@ def test_kernels_match_plain_on_card(cuda):
     out = K.tail(buckets)
     assert torch.equal(out, K.plain_tail(buckets))
     assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
-    # to_affine runs K1 only: Fermat inversion, then two products
+    # to_affine: the inverses of Z in one K1INV launch, then two K1 products
     assert torch.equal(C.to_affine(p), C.host_points_to_affine(pts, cuda))
     # K5 on the same lanes, (0, 0) and zero scalars among them
     pa, sc = C.host_points_to_affine(pts, cuda), a

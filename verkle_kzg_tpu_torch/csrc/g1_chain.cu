@@ -11,26 +11,6 @@ using namespace vkzg;
 
 namespace {
 
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// Word w of the scalar by a chain of selects: a register array indexed at
-// run time would be placed in local memory.
-__device__ __forceinline__ uint32_t pick_word(const uint32_t k[8], int w) {
-  uint32_t out = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) out = (j == w) ? k[j] : out;
-  return out;
-}
-
-// The highest set bit over the scalars of the whole warp, -1 if all are 0.
-__device__ __forceinline__ int warp_top_bit(const uint32_t k[8]) {
-  int top = -1;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (k[j]) top = 32 * j + 31 - __clz(k[j]);
-  return __reduce_max_sync(FULL, top);
-}
-
 // acc = k p by MSB-first double-and-add in the reduced domain, with K11's
 // point_double and K2's point_add in the order of the XLA scan
 // (verkle_kzg_tpu/ops/curve.py::scalar_mul), so the words are the scan's.

@@ -26,9 +26,10 @@
 //    more than 32 runs takes further levels of the same combine over the
 //    groups' pairs (one launch each, L growing 32-fold), so that the long
 //    windows of c = 16 spread over the SMs as their runs do.
-//  * Horner on a warp. Each RCB16 step's independent Montgomery products
-//    (4 + 4 for a doubling, 6 + 6 for an add) run on separate lanes, with
-//    the operands in shared memory and __syncwarp() between the levels;
+//  * Horner on a warp (warp_point.cuh, shared with K5). Each RCB16 step's
+//    independent Montgomery products (4 + 4 for a doubling, 6 + 6 for an
+//    add) run on separate lanes, with the operands in shared memory and
+//    __syncwarp() between the levels;
 //    every lane forms the lazy sums between the levels itself. The same
 //    field operations in the same order give the same words.
 //
@@ -46,7 +47,7 @@
 #pragma once
 #include <cuda_runtime.h>
 
-#include "bn254_curve.cuh"
+#include "warp_point.cuh"
 
 namespace vkzg {
 namespace {
@@ -55,17 +56,11 @@ constexpr int GROUP = 32;  // items (runs or pairs) a warp combines
 constexpr int WARPS = 4;   // warps a block
 constexpr unsigned FULL = 0xffffffffu;
 
-// Horner's scratch, one per warp: the accumulator, the addend and the two
-// levels of products.
-struct __align__(16) HornerScratch {
-  uint32_t acc[24], q[24], p1[48], p2[48];
-};
-
 // One warp's item slots in the combine: S, T and X of each lane.
 struct __align__(16) GroupSlots {
   uint32_t s[GROUP * 24], t[GROUP * 24], x[GROUP * 24];
 };
-static_assert(sizeof(HornerScratch) <= sizeof(GroupSlots), "Horner reuses the slots");
+static_assert(sizeof(WarpScratch) <= sizeof(GroupSlots), "Horner reuses the slots");
 
 __device__ __forceinline__ void select_point(Point& r, bool c, const uint32_t* a, const Point& b) {
   Point u;
@@ -78,204 +73,10 @@ __device__ __forceinline__ void select_point(Point& r, bool c, const uint32_t* a
   }
 }
 
-// Horner's lazy Fq sums over PTX carry chains, one instruction a word:
-// add_lazy is fadd<Fq, true> (a + b, less 2m when that reaches 2m),
-// sub_lazy fsub<Fq, true> (a - b, plus 2m when it borrows), mul9_lazy
-// fmul9<Fq, true>; the same integers, so the same words. Both read 2m from
-// Fq::m2, as fadd and fsub do.
-__device__ __forceinline__ void add_lazy(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-  uint32_t s[8], d[8], k[8], borrow;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) k[j] = Fq::m2(j);
-  asm("add.cc.u32 %0, %8, %16;\n\t"
-      "addc.cc.u32 %1, %9, %17;\n\t"
-      "addc.cc.u32 %2, %10, %18;\n\t"
-      "addc.cc.u32 %3, %11, %19;\n\t"
-      "addc.cc.u32 %4, %12, %20;\n\t"
-      "addc.cc.u32 %5, %13, %21;\n\t"
-      "addc.cc.u32 %6, %14, %22;\n\t"
-      "addc.u32 %7, %15, %23;"
-      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]), "=r"(s[6]),
-        "=r"(s[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
-        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
-  asm("sub.cc.u32 %0, %9, %17;\n\t"
-      "subc.cc.u32 %1, %10, %18;\n\t"
-      "subc.cc.u32 %2, %11, %19;\n\t"
-      "subc.cc.u32 %3, %12, %20;\n\t"
-      "subc.cc.u32 %4, %13, %21;\n\t"
-      "subc.cc.u32 %5, %14, %22;\n\t"
-      "subc.cc.u32 %6, %15, %23;\n\t"
-      "subc.cc.u32 %7, %16, %24;\n\t"
-      "subc.u32 %8, 0, 0;"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]),
-        "=r"(d[7]), "=r"(borrow)
-      : "r"(s[0]), "r"(s[1]), "r"(s[2]), "r"(s[3]), "r"(s[4]), "r"(s[5]), "r"(s[6]), "r"(s[7]),
-        "r"(k[0]), "r"(k[1]), "r"(k[2]), "r"(k[3]), "r"(k[4]), "r"(k[5]), "r"(k[6]), "r"(k[7]));
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r[j] = borrow ? s[j] : d[j];
-}
-
-__device__ __forceinline__ void sub_lazy(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-  uint32_t d[8], k[8], borrow;
-  asm("sub.cc.u32 %0, %9, %17;\n\t"
-      "subc.cc.u32 %1, %10, %18;\n\t"
-      "subc.cc.u32 %2, %11, %19;\n\t"
-      "subc.cc.u32 %3, %12, %20;\n\t"
-      "subc.cc.u32 %4, %13, %21;\n\t"
-      "subc.cc.u32 %5, %14, %22;\n\t"
-      "subc.cc.u32 %6, %15, %23;\n\t"
-      "subc.cc.u32 %7, %16, %24;\n\t"
-      "subc.u32 %8, 0, 0;"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]),
-        "=r"(d[7]), "=r"(borrow)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
-        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
-#pragma unroll
-  for (int j = 0; j < 8; ++j) k[j] = Fq::m2(j) & borrow;
-  asm("add.cc.u32 %0, %8, %16;\n\t"
-      "addc.cc.u32 %1, %9, %17;\n\t"
-      "addc.cc.u32 %2, %10, %18;\n\t"
-      "addc.cc.u32 %3, %11, %19;\n\t"
-      "addc.cc.u32 %4, %12, %20;\n\t"
-      "addc.cc.u32 %5, %13, %21;\n\t"
-      "addc.cc.u32 %6, %14, %22;\n\t"
-      "addc.u32 %7, %15, %23;"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]),
-        "=r"(r[7])
-      : "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3]), "r"(d[4]), "r"(d[5]), "r"(d[6]), "r"(d[7]),
-        "r"(k[0]), "r"(k[1]), "r"(k[2]), "r"(k[3]), "r"(k[4]), "r"(k[5]), "r"(k[6]), "r"(k[7]));
-}
-
-__device__ __forceinline__ void mul9_lazy(uint32_t r[8], const uint32_t x[8]) {
-  uint32_t t[8];
-  add_lazy(t, x, x);
-  add_lazy(t, t, t);
-  add_lazy(t, t, t);
-  add_lazy(r, t, x);
-}
-
-// acc = 2 acc on a warp (RCB16 algorithm 9, lazy), products on lanes 0-3.
-__device__ __forceinline__ void warp_double(HornerScratch& s, int lane) {
-  const uint32_t *X = s.acc, *Y = s.acc + 8, *Z = s.acc + 16;
-  if (lane < 4) {  // Y Y, Y Z, Z Z, X Y
-    uint32_t a[8], b[8];
-    load8(a, lane == 3 ? X : (lane == 2 ? Z : Y));
-    load8(b, lane == 0 || lane == 3 ? Y : Z);
-    fmul<Fq, true>(a, a, b);
-    store8(s.p1 + 8 * lane, a);
-  }
-  __syncwarp();
-  if (lane < 4) {
-    uint32_t t0[8], t2[8], z3[8], y3[8], u[8], a[8], b[8];
-    load8(t0, s.p1);
-    load8(t2, s.p1 + 16);
-    add_lazy(z3, t0, t0);
-    add_lazy(z3, z3, z3);
-    add_lazy(z3, z3, z3);  // Z3 = 8 t0
-    mul9_lazy(t2, t2);     // t2 = 9 t2
-    add_lazy(y3, t0, t2);  // Y3 = t0 + t2
-    add_lazy(u, t2, t2);
-    add_lazy(u, u, t2);
-    sub_lazy(t0, t0, u);   // t0 = t0 - 3 t2
-    uint32_t t1[8], txy[8];
-    load8(t1, s.p1 + 8);
-    load8(txy, s.p1 + 24);
-    // lane 0: t2 Z3, lane 1: t1 Z3, lane 2: t0 Y3, lane 3: t0 (X Y)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      a[j] = lane == 0 ? t2[j] : (lane == 1 ? t1[j] : t0[j]);
-      b[j] = lane < 2 ? z3[j] : (lane == 2 ? y3[j] : txy[j]);
-    }
-    fmul<Fq, true>(a, a, b);
-    store8(s.p2 + 8 * lane, a);
-  }
-  __syncwarp();
-  if (lane < 3) {  // X = 2 (t0 X Y), Y = t2 Z3 + t0 Y3, Z = t1 Z3 (+ 0)
-    uint32_t a[8], b[8];
-    load8(a, s.p2 + 8 * (lane == 0 ? 3 : (lane == 1 ? 0 : 1)));
-    if (lane == 2) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = 0;
-    } else {
-      load8(b, s.p2 + 8 * (lane == 0 ? 3 : 2));
-    }
-    add_lazy(a, a, b);
-    store8(s.acc + 8 * lane, a);
-  }
-  __syncwarp();
-}
-
-// acc = acc + q on a warp (RCB16 algorithm 7, lazy), products on lanes 0-5.
-__device__ __forceinline__ void warp_add(HornerScratch& s, int lane) {
-  // X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2)
-  if (lane < 6) {
-    const int i = lane < 3 ? lane : (lane == 4 ? 1 : 0);
-    const int k = lane == 3 ? 1 : 2;
-    uint32_t a[8], b[8];
-    load8(a, s.acc + 8 * i);
-    load8(b, s.q + 8 * i);
-    if (lane >= 3) {
-      uint32_t u[8];
-      load8(u, s.acc + 8 * k);
-      add_lazy(a, a, u);
-      load8(u, s.q + 8 * k);
-      add_lazy(b, b, u);
-    }
-    fmul<Fq, true>(a, a, b);
-    store8(s.p1 + 8 * lane, a);
-  }
-  __syncwarp();
-  if (lane < 6) {
-    uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], y3[8], z3[8], u[8], a[8], b[8];
-    load8(t0, s.p1);
-    load8(t1, s.p1 + 8);
-    load8(t2, s.p1 + 16);
-    load8(t3, s.p1 + 24);
-    load8(t4, s.p1 + 32);
-    load8(y3, s.p1 + 40);
-    add_lazy(u, t0, t1);
-    sub_lazy(t3, t3, u);  // t3 = t3 - (t0 + t1)
-    add_lazy(u, t1, t2);
-    sub_lazy(t4, t4, u);  // t4 = t4 - (t1 + t2)
-    add_lazy(u, t0, t2);
-    sub_lazy(y3, y3, u);
-    mul9_lazy(y3, y3);    // Y3 = 9 (X3 - (t0 + t2))
-    add_lazy(u, t0, t0);
-    add_lazy(t0, u, t0);  // t0 = 3 t0
-    mul9_lazy(t2, t2);
-    add_lazy(z3, t1, t2);  // Z3 = t1 + 9 t2
-    sub_lazy(t1, t1, t2);  // t1 = t1 - 9 t2
-    // lane 0: t4 Y3, 1: t3 t1, 2: Y3 t0, 3: t1 Z3, 4: t0 t3, 5: Z3 t4
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      a[j] = lane == 0 ? t4[j] : lane == 1 ? t3[j] : lane == 2 ? y3[j] : lane == 3 ? t1[j]
-           : lane == 4 ? t0[j] : z3[j];
-      b[j] = lane == 0 ? y3[j] : lane == 1 ? t1[j] : lane == 2 ? t0[j] : lane == 3 ? z3[j]
-           : lane == 4 ? t3[j] : t4[j];
-    }
-    fmul<Fq, true>(a, a, b);
-    store8(s.p2 + 8 * lane, a);
-  }
-  __syncwarp();
-  if (lane < 3) {  // X = t3 t1 - t4 Y3, Y = t1 Z3 + Y3 t0, Z = Z3 t4 + t0 t3
-    uint32_t a[8], b[8];
-    load8(a, s.p2 + 8 * (2 * lane + 1));
-    load8(b, s.p2 + 8 * (2 * lane));
-    if (lane == 0) {
-      sub_lazy(a, a, b);
-    } else {
-      add_lazy(a, a, b);
-    }
-    store8(s.acc + 8 * lane, a);
-  }
-  __syncwarp();
-}
-
 // One lane's Horner on a warp: sums (W, 3, 8) lazy window sums, written by
 // this launch or an earlier one (read through L2) -> out (3, 8) reduced.
 __device__ void warp_horner(const uint32_t* sums, uint32_t* out, int nwin, int c,
-                            HornerScratch& s, int lane) {
+                            WarpScratch& s, int lane) {
   if (lane < 24) s.acc[lane] = __ldcg(sums + (nwin - 1) * 24 + lane);
   __syncwarp();
   for (int w = nwin - 2; w >= 0; --w) {
@@ -438,7 +239,7 @@ __global__ void __launch_bounds__(32 * WARPS) tail_level_kernel(
   if (lane == 0) last = atomicAdd(counters + b, nseg) + nseg == nwin;
   if (!__shfl_sync(FULL, last, 0)) return;
   __threadfence();
-  warp_horner(sums + b * nwin * 24, out + b * 24, nwin, c, *reinterpret_cast<HornerScratch*>(&g),
+  warp_horner(sums + b * nwin * 24, out + b * 24, nwin, c, *reinterpret_cast<WarpScratch*>(&g),
               lane);
 }
 
@@ -446,7 +247,7 @@ __global__ void __launch_bounds__(32 * WARPS) tail_level_kernel(
 __global__ void __launch_bounds__(32 * WARPS) tail_horner_kernel(
     const uint32_t* __restrict__ sums, uint32_t* __restrict__ out, int nwin, int64_t nlanes,
     int c) {
-  __shared__ HornerScratch scratch[WARPS];
+  __shared__ WarpScratch scratch[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t b = (int64_t)blockIdx.x * WARPS + warp;
   if (b >= nlanes) return;

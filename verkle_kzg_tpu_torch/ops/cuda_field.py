@@ -16,6 +16,32 @@ element in registers from load to store.
 
 The plain version below is what the wrapper runs for CPU tensors; for a
 CUDA tensor the wrapper launches the kernel or raises.
+
+Kernel K1INV (``csrc/field_inv.cu``, :func:`inverse`): the inversions
+``inv_mont`` and ``batch_inv_mont``. It replaces the K1 chain that ran the
+JAX package's ``verkle_kzg_tpu/ops/field.py::inv_mont`` (line 327, a
+``lax.scan`` of 254 squarings and a product a set bit, inside one jitted
+program) and ``batch_inv_mont`` (line 342, Montgomery's trick with
+associative scans, one program too). Run eagerly through K1, that chain
+was 381 launches an inverse and 399 a batched inversion of 256 elements
+(two Hillis-Steele scans of 8 launches, the inverse, two products), each
+launch 20-34 us of host-bound time for a few microseconds of work: a
+KZG prove was ~410 launches, phase 5's verkle prove 693.
+
+What bounds it on the card is the inverse's dependent chain, not bytes or
+multiplies: 8 KB a row at N = 256. The design is one launch for all rows.
+N = 1 (``inv_mont`` on any shape, e.g. ``curve.to_affine``'s Z) takes a
+thread an element. N > 1 takes a block a row: each thread's run of
+elements is multiplied out, the run products are scanned both ways in
+shared memory (8 levels at 256 threads), one thread inverts the row's
+product, and each thread walks its run back with two products an element.
+The inverse is the binary extended Euclid of (a R, m), about 2 x 254
+shifts and 254 subtractions of 256-bit words, then one Montgomery product
+by R^3: Fermat's a^(m - 2) chains 381 products of ~500 instructions (0.68
+us each on one thread, ``tools/fmul_probe.py``), ~0.26 ms; the shifts and
+subtractions are a few dozen instructions each. Every product is reduced,
+and an inverse is unique, so the words are those of the JAX package's
+Fermat chain, which the plain version below runs unchanged.
 """
 
 from __future__ import annotations
@@ -52,4 +78,67 @@ def binop(op: str, a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
         )
         cuda_lib.check(err, "vkzg_field_binop")
         cuda_lib.launches["K1"] += 1
+    return out
+
+
+def plain_inv(a: torch.Tensor, spec: str) -> torch.Tensor:
+    """Fermat inverse a^(m-2) of Montgomery words, Montgomery in and out,
+    by square-and-multiply on K1's plain version (``ops/field.py::inv_mont``).
+    Zero maps to zero: the first multiply by a zeroes the accumulator."""
+    acc = F.const_words(F.SPECS[spec].r_mod, a.device).expand_as(a)
+    for bit in bin(F.SPECS[spec].modulus - 2)[2:]:
+        acc = plain("mul", acc, acc, spec)
+        if bit == "1":
+            acc = plain("mul", acc, a, spec)
+    return acc
+
+
+def _scan_products(a: torch.Tensor, spec: str) -> torch.Tensor:
+    """Inclusive prefix products over the element axis (-2), Hillis-Steele:
+    log2(N) rounds of products."""
+    k = 1
+    while k < a.shape[-2]:
+        a = torch.cat([a[..., :k, :], plain("mul", a[..., k:, :], a[..., :-k, :], spec)], dim=-2)
+        k *= 2
+    return a
+
+
+def plain_batch_inv(a: torch.Tensor, spec: str) -> torch.Tensor:
+    """Montgomery's trick over the element axis (-2) of (..., N, 8)
+    Montgomery words, each leading index on its own: prefix and suffix
+    products, ONE Fermat inversion of each total, two products per element
+    (``ops/field.py::batch_inv_mont``). Zero entries invert to zero
+    (ark_ff::batch_inversion skips zeros)."""
+    z = (a == 0).all(-1, keepdim=True)
+    one = F.const_words(F.SPECS[spec].r_mod, a.device).expand_as(a[..., :1, :])
+    safe = torch.where(z, one, a)
+    prefix = _scan_products(safe, spec)
+    suffix = _scan_products(safe.flip(-2), spec).flip(-2)
+    total_inv = plain_inv(prefix[..., -1:, :].contiguous(), spec)
+    left = torch.cat([one, prefix[..., :-1, :]], dim=-2)
+    right = torch.cat([suffix[..., 1:, :], one], dim=-2)
+    inv = plain("mul", plain("mul", left, right, spec), total_inv.expand_as(a), spec)
+    return torch.where(z, a, inv)
+
+
+def inverse(a: torch.Tensor, spec: str, batch: bool) -> torch.Tensor:
+    """Kernel K1INV. ``batch=False``: the inverse of each reduced Montgomery
+    element of ``a`` (..., 8); ``batch=True``: Montgomery's trick over the
+    element axis (-2) of ``a`` (..., N, 8), each leading index on its own.
+    Zero maps to zero. CPU tensors take the plain versions."""
+    if a.device.type == "cpu":
+        return plain_batch_inv(a, spec) if batch else plain_inv(a, spec)
+    if a.shape[-1] != F.WORDS or (batch and a.dim() < 2):
+        raise ValueError("field.inverse: words must be (..., 8), (..., N, 8) for a batch")
+    a = a.contiguous()
+    cuda_lib.require_cuda("field.inverse", a)
+    out = torch.empty_like(a)
+    n = a.shape[-2] if batch else 1
+    rows = a.numel() // (F.WORDS * n) if n else 0
+    if rows:
+        err = cuda_lib.lib().vkzg_field_batch_inv(
+            _FIELDS[spec], a.data_ptr(), out.data_ptr(), rows, n, cuda_lib.stream(a)
+        )
+        cuda_lib.check(err, "vkzg_field_batch_inv")
+        cuda_lib.launches["K1INV"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1-K13, G1SMUL, G1BFLY) and count
+"""Build and load the port's CUDA kernels (K1-K13, K1INV, G1SMUL, G1BFLY) and count
 their launches.
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, one
@@ -35,8 +35,9 @@ BUILD = _PKG / "_build"
 #: count one per tail: one CUDA launch up to 1,024 bucket rows a window,
 #: three or four above (``cuda_msm.tail_launches``).
 #: G1SMUL and G1BFLY fuse the K11 + K2 chain of ``curve.scalar_mul``
-#: (``cuda_g1_chain.py``).
-launches = {**{f"K{i}": 0 for i in range(1, 14)}, "G1SMUL": 0, "G1BFLY": 0}
+#: (``cuda_g1_chain.py``), K1INV the K1 chain of a batched inversion
+#: (``cuda_field.py``).
+launches = {**{f"K{i}": 0 for i in range(1, 14)}, "K1INV": 0, "G1SMUL": 0, "G1BFLY": 0}
 
 _lib = None
 _P = ctypes.c_void_p
@@ -51,7 +52,8 @@ _SIGNATURES = {
     "vkzg_msm_accumulate": [_P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P],
     "vkzg_msm_tail": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P],
-    "vkzg_scalar_mul": [_P, _P, _P, _I, _P],
+    "vkzg_scalar_mul": [_P, _P, _P, _P, _I, _P],
+    "vkzg_field_batch_inv": [ctypes.c_int, _P, _P, _I, _I, _P],
     "vkzg_msm_batched_accumulate": [_P, _I, _P, _P, ctypes.c_int, _I, _I, _I, ctypes.c_int, _P],
     "vkzg_msm_batched_tail": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, _P],

@@ -210,8 +210,9 @@ def from_affine(a: torch.Tensor) -> torch.Tensor:
 
 def to_affine(p: torch.Tensor) -> torch.Tensor:
     """(..., 3, 8) projective -> (..., 2, 8) canonical affine, (0, 0) for
-    infinity (``ops/curve.py::to_affine``): one Fermat inversion of Z per
-    point through K1. Z = 0 inverts to 0, which zeroes both coordinates."""
+    infinity (``ops/curve.py::to_affine``): the inverses of every Z in one
+    K1INV launch, then two K1 products. Z = 0 inverts to 0, which zeroes
+    both coordinates."""
     x, y, z = p.unbind(-2)
     zinv = F.inv_mont(z, _FQ)
     return torch.stack([F.mont_mul(x, zinv, _FQ), F.mont_mul(y, zinv, _FQ)], dim=-2)

@@ -13,8 +13,8 @@ Two layers live here:
     ``sub``, ``neg``, ``to_mont``, ``from_mont``, ``inv_mont``, and across
     elements ``sum_lanes``/``sum_axis``, ``batch_inv_mont`` and
     ``powers_of_mont``. Every product and modular add/sub goes through
-    kernel K1 (``cuda_field.py``), which runs its plain version only for
-    tensors on the CPU;
+    kernel K1, every inversion through K1INV (``cuda_field.py``), which
+    run their plain versions only for tensors on the CPU;
   * the plain arithmetic itself, on 16-bit limbs widened to ``int64``
     (``(..., 16)``). PyTorch on the CPU has no unsigned 32-bit ``+``, ``>>``
     or comparisons, and a 32x32-bit product does not fit in signed int64,
@@ -333,15 +333,9 @@ def from_mont(a: torch.Tensor, spec: str) -> torch.Tensor:
 
 
 def inv_mont(a: torch.Tensor, spec: str) -> torch.Tensor:
-    """Fermat inverse a^(m-2) of Montgomery words, Montgomery in and out,
-    by square-and-multiply through K1 (``ops/field.py::inv_mont``). Zero
-    maps to zero: the first multiply by a zeroes the accumulator."""
-    acc = const_words(SPECS[spec].r_mod, a.device).expand_as(a)
-    for bit in bin(SPECS[spec].modulus - 2)[2:]:
-        acc = mont_mul(acc, acc, spec)
-        if bit == "1":
-            acc = mont_mul(acc, a, spec)
-    return acc
+    """Inverse of each element of (..., 8) Montgomery words, Montgomery in
+    and out (``ops/field.py::inv_mont``); zero maps to zero. Kernel K1INV."""
+    return _k1.inverse(a, spec, batch=False)
 
 
 def sum_lanes(a: torch.Tensor, spec: str) -> torch.Tensor:
@@ -370,32 +364,12 @@ def sum_axis(a: torch.Tensor, dim: int, spec: str) -> torch.Tensor:
     return sum_lanes(a.movedim(dim, -2), spec).movedim(-2, dim)
 
 
-def _scan_products(a: torch.Tensor, spec: str) -> torch.Tensor:
-    """Inclusive prefix products over the element axis (-2), Hillis-Steele:
-    log2(N) rounds of K1 products."""
-    k = 1
-    while k < a.shape[-2]:
-        a = torch.cat([a[..., :k, :], mont_mul(a[..., k:, :], a[..., :-k, :], spec)], dim=-2)
-        k *= 2
-    return a
-
-
 def batch_inv_mont(a: torch.Tensor, spec: str) -> torch.Tensor:
     """Montgomery's trick over the element axis (-2) of (..., N, 8)
-    Montgomery words, each leading index on its own: prefix and suffix
-    products, ONE Fermat inversion of each total, two products per element
-    (``ops/field.py::batch_inv_mont``). Zero entries invert to zero
-    (ark_ff::batch_inversion skips zeros)."""
-    z = (a == 0).all(-1, keepdim=True)
-    one = const_words(SPECS[spec].r_mod, a.device).expand_as(a[..., :1, :])
-    safe = torch.where(z, one, a)
-    prefix = _scan_products(safe, spec)
-    suffix = _scan_products(safe.flip(-2), spec).flip(-2)
-    total_inv = inv_mont(prefix[..., -1:, :].contiguous(), spec)
-    left = torch.cat([one, prefix[..., :-1, :]], dim=-2)
-    right = torch.cat([suffix[..., 1:, :], one], dim=-2)
-    inv = mont_mul(mont_mul(left, right, spec), total_inv.expand_as(a), spec)
-    return torch.where(z, a, inv)
+    Montgomery words, each leading index on its own
+    (``ops/field.py::batch_inv_mont``); zero entries invert to zero
+    (ark_ff::batch_inversion skips zeros). Kernel K1INV, one launch."""
+    return _k1.inverse(a, spec, batch=True)
 
 
 def powers_of_mont(x: torch.Tensor, n: int, spec: str) -> torch.Tensor:
@@ -410,4 +384,4 @@ def powers_of_mont(x: torch.Tensor, n: int, spec: str) -> torch.Tensor:
     return out[:n]
 
 
-from . import cuda_field as _k1  # noqa: E402  (K1 wrapper; it imports this module)
+from . import cuda_field as _k1  # noqa: E402  (K1 and K1INV wrappers; they import this module)

@@ -104,7 +104,7 @@ class FrVector:
 
     def divide_by_vanishing_outside(self, point: int) -> "FrVector":
         """Out-of-domain quotient at ``point`` (``lagrange_basis.rs:121-142``):
-        one batched inversion of (w^i - z) through K1."""
+        one batched inversion of (w^i - z), one K1INV launch."""
         dev = self.device
         ev = F.ints_to_mont([self.evaluate(point)], "fr", dev)
         diff = F.sub(self.domain.d_omegas(dev), F.ints_to_mont([point], "fr", dev), "fr")
