@@ -22,13 +22,18 @@ and no JAX. Phases, each of which raises on failure:
      replace, timed in the same run, at block sizes of 32, 64 and 128;
      each K4 and K7 tail with its CUDA launches and dependent chain, and
      where its window sums take launches of their own, the sums and Horner
-     timed apart;
+     timed apart; each K3/K9 call (the bucket-sorted accumulation: 257
+     points at c = 8, 2^16 at c = 1 and 4, 2^12 at c = 16, and 2^12 at
+     c = 8 with all scalars equal) with its CUDA launches as its C entry
+     point counted them, live entries, chunk length and the times of its
+     four stages (digits, sort, sums, combine) from CUDA events recorded
+     between them in one call;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
      checks, launch counts and timings, the prove's 16 K4 tails timed by
      CUDA events in one more prove, and a proof at domain 32 on the card
      against the CPU plain path;
   4. one MSM of 2^20 points through msm_auto, against an exact oracle, and
-     its rate;
+     its rate, with K3's four stages and K4 timed apart;
   5. the verkle tree at Ethereum geometry (BASELINE.json config 4: 32-unit
      keys, width-256 nodes, 10,000 leaves): insert, commit, prove 16
      present and 3 absent keys with one multiproof, verify statelessly;
@@ -134,6 +139,7 @@ def phase_kernels(dev, crs) -> dict:
     from verkle_kzg_tpu_torch.params import FQ, FR, R
     from verkle_kzg_tpu_torch.ops import cuda_curve, cuda_field
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import msm as M
@@ -215,41 +221,31 @@ def phase_kernels(dev, crs) -> dict:
         assert rec[name]["max_abs_err"] == 0, name
 
     # K3 + K4: the 257-point IPA basis shape and 2^12 points, with zero
-    # scalars, r - 1 and (0, 0) padding.
+    # scalars, r - 1 and a (0, 0) point.
     k3_err = k4_err = 0
     for n in (257, 1 << 12):
         pts = [base[i % 64] for i in range(n)]
         pts[1] = None
         ks = [rng.randrange(R) for _ in range(n)]
         ks[0], ks[2], ks[3] = 0, R - 1, 0
-        nseg, seg_len = M.segments(n)
-        pad = nseg * seg_len - n
-        pa = torch.nn.functional.pad(C.host_points_to_affine(pts, dev), (0, 0, 0, 0, 0, pad)).contiguous()
-        sc = torch.nn.functional.pad(F.ints_to_words(ks, dev), (0, 0, 0, pad)).contiguous()
-        masks = M.signed_carries(sc, 8).contiguous()
-        table = K.accumulate(pa, sc, masks, nseg, seg_len)
-        k3_err = max(k3_err, max_abs_err(table, K.plain_accumulate(pa, sc, masks, nseg, seg_len)))
-        buckets = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
+        pa, sc = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
+        table = KS.accumulate(pa, sc, 8)
+        plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate(pa, sc, 8))
+        k3_err = max(k3_err, max_abs_err(table, plain_table))
+        buckets = table[:, 0].contiguous()
         out = K.tail(buckets)
-        plain_out, plain_ms = timed_once(lambda: K.plain_tail(buckets))
+        plain_out, plain_tail_ms = timed_once(lambda: K.plain_tail(buckets))
         k4_err = max(k4_err, max_abs_err(out, plain_out))
         assert k3_err == 0 and k4_err == 0, n
         assert C.projective_to_host_points(out) == C.projective_to_host_points(plain_out)
         if n == 257:
             want = hc.g1_msm_naive(pts, ks)
-            assert C.projective_to_host_points(M.msm_auto(pa[:n], sc[:n])) == [want]
-            live = (K.scalar_digits(sc, masks, 8, True) != 0) & ~C.affine_is_infinity(pa)[:, None]
-            rec["K3"] = {
-                "ms": cuda_ms(lambda: K.accumulate(pa, sc, masks, nseg, seg_len), 20),
-                "plain_ms": cuda_ms(lambda: K.plain_accumulate(pa, sc, masks, nseg, seg_len), 2),
-                "shape": f"257 points, {nseg} segments",
-                **bound(4 * (pa.numel() + sc.numel() + masks.numel() + table.numel()),
-                        int(live.sum()) * MIXED_FMULS),
-            }
-            rec["K4"] = {**_tail_record("K4", buckets, 8, (plain_out, plain_ms), 20),
+            assert C.projective_to_host_points(M.msm_auto(pa, sc)) == [want]
+            rec["K3"] = {**_sorted_record(pa, sc, 8, table, plain_ms, 20), "shape": "257 points, c = 8"}
+            rec["K4"] = {**_tail_record("K4", buckets, 8, (plain_out, plain_tail_ms), 20),
                          "shape": "32 x 128 buckets"}
             rec["msm257"] = {
-                "ms": cuda_ms(lambda: M.msm_auto(pa[:n], sc[:n]), 20),
+                "ms": cuda_ms(lambda: M.msm_auto(pa, sc), 20),
                 "plain_k3_k4_ms": rec["K3"]["plain_ms"] + rec["K4"]["plain_ms"],
             }
     rec["K3"]["max_abs_err"] = k3_err
@@ -439,6 +435,55 @@ def _tail_record(key: str, bk, c: int, plain_out_ms: tuple, reps: int) -> dict:
     return rec
 
 
+def sorted_stages(pa, sc, c: int, reps: int) -> dict:
+    """Milliseconds of each stage of a K3/K9 call (one window group): digits,
+    sort, sums, combine, from CUDA events the call records between its
+    stages; the median of ``reps`` calls after a warm-up, and each stage's
+    least and greatest."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
+
+    (w0, wg), = KS.window_groups(pa.shape[0], c)
+    out = torch.empty((KS.windows(c), 1, KS.rows(c), 3, 8), dtype=torch.int32, device=pa.device)
+    KS.launch(pa, sc, out, c, 1, None, w0, wg)
+    runs = [KS.launch(pa, sc, out, c, 1, None, w0, wg, timed=True)[1] for _ in range(reps)]
+    rec = {s: statistics.median(r[s] for r in runs) for s in KS.STAGES}
+    rec["spread"] = {s: [min(r[s] for r in runs), max(r[s] for r in runs)] for s in KS.STAGES}
+    return rec
+
+
+def sorted_cuda_launches(pa, sc, c: int) -> int:
+    """The CUDA launches of one K3/K9 call, as its C entry point counted them."""
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
+
+    key = KS.launch_key(c)
+    before = cuda_lib.cuda_launches[key]
+    KS.accumulate(pa, sc, c)
+    return cuda_lib.cuda_launches[key] - before
+
+
+def _sorted_record(pa, sc, c: int, table, plain_ms: float, reps: int) -> dict:
+    """Time and bound of one K3/K9 call on (n, 2, 8) points, its CUDA
+    launches, live entries and chunk length, and its stages' times. Bound:
+    the points, scalars and buckets once, and a lazy mixed add (11
+    products) a live entry."""
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
+
+    live = KS.live_entries(pa, sc, c)
+    return {
+        "ms": cuda_ms(lambda: KS.accumulate(pa, sc, c), reps),
+        "plain_ms": plain_ms,
+        "library_ms": None,
+        "cuda_launches": sorted_cuda_launches(pa, sc, c),
+        "entries": live,
+        "chunk_len": KS.chunk_len(live),
+        "stages_ms": sorted_stages(pa, sc, c, reps),
+        **bound(4 * (pa.numel() + sc.numel() + table.numel()), live * MIXED_FMULS),
+    }
+
+
 def timed_once(fn) -> tuple:
     """One call of ``fn`` and its milliseconds from CUDA events."""
     import torch
@@ -454,20 +499,23 @@ def timed_once(fn) -> tuple:
 
 def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) -> dict:
     """The single MSM's other modes (zero scalars, r - 1, ties, (0, 0)
-    points), exact against their plain versions: K3 at c = 1 and 4, K8
-    (unsigned, c = 8), K6 unsigned at c = 5 and K10 unsigned at c = 9 on
-    ``n`` points, phase 7's smallest size and segmentation; K9 (c = 16), K8
-    at c = 16 and K10 at c = 12 signed on ``n_wide`` points, where the 1 GiB
-    table cap already gives phase 7's segment counts (21, 10 and 248) and
-    only the segment length is shorter. Then K4 on every mode's folded
-    tables, signed and unsigned, each tail also against the native oracle.
-    A plain version is timed on the one call that is compared."""
+    points), exact against their plain versions: the sorted K3 at c = 1
+    and 4, K8 (unsigned, c = 8), K6 unsigned at c = 5 and K10 unsigned at
+    c = 9 on ``n`` points, phase 7's smallest size; K9 (c = 16), K8 at
+    c = 16 and K10 at c = 12 signed on ``n_wide`` points, where the 1 GiB
+    table cap already gives phase 7's segment counts for the table kernels
+    (10 and 248) and only the segment length is shorter; and K3 at c = 8 on
+    ``n_wide`` points whose scalars are all equal (one bucket a window, over
+    every chunk). Then K4 on every mode's buckets, signed and unsigned, each
+    tail also against the native oracle. A plain version is timed on the
+    one call that is compared."""
     import torch
 
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
     from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import msm as M
@@ -479,24 +527,39 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
     want = {m: native.g1_msm(pts[:m], ks[:m]) for m in (n, n_wide)}
     pa_all, sc_all = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
     rec, buckets = {}, {}
-    modes = [  # name, c, signed, route (scalar words or digit tensor), points
-        ("K3@c1", 1, True, "words", n), ("K3@c4", 4, True, "words", n), ("K9", 16, True, "words", n_wide),
+    modes = [  # name, c, signed, route (sorted, scalar words or digit tensor), points
+        ("K3@c1", 1, True, "sorted", n), ("K3@c4", 4, True, "sorted", n), ("K9", 16, True, "sorted", n_wide),
         ("K8", 8, False, "words", n), ("K8@c16", 16, False, "words", n_wide),
         ("K6@c5-unsigned", 5, False, "digits", n),
         ("K10", 12, True, "digits", n_wide), ("K10@c9-unsigned", 9, False, "digits", n),
+        ("K3@c8-equal-scalars", 8, True, "sorted", n_wide),
     ]
     for name, c, signed, route, m in modes:
+        sign = "signed" if signed else "unsigned"
+        if route == "sorted":
+            pa, sc = pa_all[:m], sc_all[:m]
+            if name.endswith("equal-scalars"):
+                sc = sc_all[4:5].expand(m, 8).contiguous()
+                want[name] = native.g1_msm(pts[:m], [ks[4]] * m)
+            table = KS.accumulate(pa, sc, c)
+            plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate(pa, sc, c))
+            err = max_abs_err(table, plain_table)
+            assert err == 0, name
+            rec[name] = {"max_abs_err": err, **_sorted_record(pa, sc, c, table, plain_ms, 5),
+                         "shape": f"{m} points, c = {c}, signed{', all scalars equal' if name in want else ''}"}
+            buckets[name] = (table[:, 0].contiguous(), c, signed, want[name if name in want else m])
+            del table, plain_table
+            continue
         nseg, seg_len = M.segments(m, K.windows(c) * K.rows(c, signed))
         pad = nseg * seg_len - m
         pa = torch.nn.functional.pad(pa_all[:m], (0, 0, 0, 0, 0, pad)).contiguous()
         sc = torch.nn.functional.pad(sc_all[:m], (0, 0, 0, pad)).contiguous()
         dead = C.affine_is_infinity(pa)
         if route == "words":
-            masks = M.signed_carries(sc, c).contiguous() if signed else None
-            args = (pa, sc, masks, nseg, seg_len, c, signed)
+            args = (pa, sc, nseg, seg_len, c)
             run, plain = (lambda a=args: K.accumulate(*a)), (lambda a=args: K.plain_accumulate(*a))
-            live = int(((K.scalar_digits(sc, masks, c, signed) != 0) & ~dead[:, None]).sum())
-            inputs = pa.numel() + sc.numel() + (masks.numel() if signed else 0)
+            live = int(((K.scalar_digits(sc, None, c, False) != 0) & ~dead[:, None]).sum())
+            inputs = pa.numel() + sc.numel()
         else:
             digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
             digits = digits.to(torch.int32)[:, None].contiguous()
@@ -509,7 +572,6 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
         err = max_abs_err(table, plain_table.reshape(table.shape))
         assert err == 0, name
         del plain_table
-        sign = "signed" if signed else "unsigned"
         rec[name] = {
             "max_abs_err": err,
             "ms": cuda_ms(run, 5),
@@ -518,12 +580,14 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
             "shape": f"{m} points, c = {c}, {sign}, {nseg} segments of {seg_len}",
             **bound(4 * (inputs + table.numel()), live * MIXED_FMULS),
         }
-        buckets[(c, signed)] = (M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), m)
+        buckets[name] = (M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), c, signed, want[m])
         del table
 
-    for (c, signed), (bk, m) in buckets.items():
+    for name, (bk, c, signed, expect) in buckets.items():
         out = K.tail(bk, c)
-        assert C.projective_to_host_points(out) == [want[m]], (c, signed)
+        assert C.projective_to_host_points(out) == [expect], name
+        if name.endswith("equal-scalars"):
+            continue
         sign = "" if signed else "-unsigned"
         rec[f"K4@c{c}{sign}"] = {
             **_tail_record("K4", bk, c, timed_once(lambda: K.plain_tail(bk, c)), 5),
@@ -939,7 +1003,9 @@ def phase_ipa(dev, crs, small: int = 32):
     assert counts["commit"]["K3"] == 1 and counts["commit"]["K4"] == 1
     assert counts["prove"]["K3"] == 16 and counts["prove"]["K4"] == 16
     assert counts["verify"]["K3"] == 1 and counts["verify"]["K4"] == 1
-    assert min(main_path_launches[k] for k in ("K1", "K2", "K3", "K4")) > 0, main_path_launches
+    # (K2 is not among them: its launches here were the folds of K3's point
+    # segments, which the sorted K3 has no more)
+    assert min(main_path_launches[k] for k in ("K1", "K3", "K4")) > 0, main_path_launches
 
     # the same proof from the plain path on this machine's CPU, at domain
     # `small` (the setup ipa_setup(small) makes: the first small + 1 of the
@@ -1045,6 +1111,7 @@ def phase_msm(dev) -> dict:
     from verkle_kzg_tpu_torch.hostmath.curve import g1_generator, g1_mul
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import msm as M
@@ -1074,16 +1141,13 @@ def phase_msm(dev) -> dict:
         reps.append(cuda_ms(lambda: M.msm_auto(pts, sc), 1))
     med = statistics.median(reps)
 
-    # the three stages of one MSM, timed apart
-    nseg, seg_len = M.segments(n)
-    masks = M.signed_carries(sc, 8).contiguous()
+    # the stages of one MSM, timed apart: K3's four and K4
     stage = {
-        "signed_carries_ms": cuda_ms(lambda: M.signed_carries(sc, 8), 3),
-        "k3_accumulate_ms": cuda_ms(lambda: K.accumulate(pts, sc, masks, nseg, seg_len), 3),
+        "k3_accumulate_ms": cuda_ms(lambda: KS.accumulate(pts, sc, 8), 3),
+        "k3_cuda_launches": sorted_cuda_launches(pts, sc, 8),
+        "k3_stages_ms": sorted_stages(pts, sc, 8, 5),
     }
-    table = K.accumulate(pts, sc, masks, nseg, seg_len)
-    stage["k2_fold_ms"] = cuda_ms(lambda: M.fold_reduce_lanes(table, dim=1), 3)
-    buckets = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
+    buckets = KS.accumulate(pts, sc, 8)[:, 0].contiguous()
     stage["k4_tail_ms"] = cuda_ms(lambda: K.tail(buckets), 3)
     return {
         "n": n, "setup_s": setup_s, "reps_ms": reps, "median_ms": med,
@@ -1149,6 +1213,7 @@ def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extr
     plan = [(n, c, True) for n in sizes for c in SWEEP_SIGNED_C]
     plan += [(extra_n, c, False) for c in (8, 16)] + [(extra_n, c, True) for c in (5, 10, 13)]
     runs, path_launches = [], dict.fromkeys(cuda_lib.launches, 0)
+    path_cuda_launches = dict.fromkeys(cuda_lib.cuda_launches, 0)
     for n, c, signed in plan:
         pts, sc = pts_all[:n], sc_all[:n]
         if signed:
@@ -1160,20 +1225,24 @@ def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extr
         out = run()
         torch.cuda.synchronize()
         counts = {k: v for k, v in cuda_lib.launches.items() if v}
+        cuda_counts = {k: v for k, v in cuda_lib.cuda_launches.items() if v}
         got = C.projective_to_host_points(out)
         assert got == [want[n]], f"n = {n}, c = {c}, signed = {signed}: != (sum k_i s_i) G"
         if n == small:
             assert got == [native_want], f"n = {n}, c = {c}: != native oracle"
         for k, v in counts.items():
             path_launches[k] += v
+        for k, v in cuda_counts.items():
+            path_cuda_launches[k] += v
         med, reps = _median_ms(run)
         line = {"n": n, "c": c, "signed": signed, "median_ms": med, "reps_ms": reps,
-                "points_per_s": n / (med / 1e3), "launches": counts}
+                "points_per_s": n / (med / 1e3), "launches": counts, "cuda_launches": cuda_counts}
         runs.append(line)
         print("phase 7 msm sweep:", json.dumps(line), f"[{card}]", flush=True)
     for k in ("K2", "K3", "K4", "K6", "K8", "K9", "K10"):
         assert path_launches[k] > 0, (k, path_launches)
-    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches}
+    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches,
+            "path_cuda_launches": path_cuda_launches}
 
 
 GROUP_GRID = ((6, 2, False), (6, 2, True), (6, 4, True), (8, 2, False), (8, 2, True), (8, 4, True))
@@ -1235,6 +1304,11 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
             path_launches[k] += v
         stream, digits = _k13_stream(pts, sc, lanes, c, True)
         line["k13_ms"] = _median_ms(lambda: KG.accumulate(stream, digits, c, True, g, fused), 1)[0]
+        # K13's bound, as phase 2 counts it: the stream, digits and tables
+        # once, a mixed add a live digit (phase 4's points have no (0, 0))
+        rows = 1 << (c - 1)
+        line["k13_bound"] = bound(4 * (stream.numel() + digits.numel() + digits.shape[0] * lanes * rows * 24),
+                                  int((digits != 0).sum()) * MIXED_FMULS)
         runs.append(line)
         print("phase 9 group grid:", json.dumps(line), f"[{card}]", flush=True)
     assert path_launches["K13"] > 0, path_launches
@@ -1391,6 +1465,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     proof = _stage("prove", lambda: tree.prove_keys(prove_keys), ms, counts, k5_lanes)
     ok = _stage("verify", lambda: tree.verify_keys(prove_keys, claims, proof), ms, counts, k5_lanes)
     path_launches = dict(cuda_lib.launches)
+    path_cuda_launches = dict(cuda_lib.cuda_launches)
     regimes = dict(K5.regime_launches)
 
     assert ok, "the honest verkle proof was rejected"
@@ -1447,6 +1522,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
         "leaves_per_s": leaves / (ms["commit"]["wall_ms"] / 1e3),
         "launches_per_stage": counts,
         "path_launches": path_launches,
+        "path_cuda_launches": path_cuda_launches,
         "k5_regime_launches": regimes,
         "k5_lanes": k5_lanes,
         "queries": len(prove_keys),
@@ -1484,7 +1560,7 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     bad = [q.to_verifier_query() for q in queries]
     bad[m // 2].y = (bad[m // 2].y + 1) % R
     assert not verify_multiproof(IPA, crs, bad, proof), "a wrong y was accepted"
-    assert min(path_launches[k] for k in ("K1", "K1INV", "K2", "K3", "K4", "K5")) > 0, path_launches
+    assert min(path_launches[k] for k in ("K1", "K1INV", "K3", "K4", "K5")) > 0, path_launches  # K2: see phase 3
     assert counts["verify"]["K5"] == regimes["few"] == 1, (counts["verify"], regimes)  # E's one lane
     return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
             "k5_regime_launches": regimes, "k5_lanes": k5_lanes}
@@ -1577,7 +1653,8 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
 
     torch.cuda.synchronize()
     path_launches = dict(cuda_lib.launches)
-    assert min(path_launches[k] for k in ("K1", "K1INV", "K2", "K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, path_launches
+    assert min(path_launches[k] for k in ("K1", "K1INV", "K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, \
+        path_launches  # K2: see phase 3
 
     # off the path: FK at `small` on the CPU, the card's G1 NTT at `small`
     # against the CPU's
@@ -1725,9 +1802,9 @@ def main() -> int:
     print(f"phase 9 tune_group grid ({time.perf_counter() - t0:.1f} s): launches",
           json.dumps(group["path_launches"]), f"[{card}]", flush=True)
 
-    sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K2": "curve.cu", "K3": "msm_accumulate.cuh", "K4": "msm_tail.cuh",
+    sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K2": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
                "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_tail.cuh",
-               "K8": "msm_accumulate.cuh", "K9": "msm_accumulate.cuh", "K10": "msm_batched.cu",
+               "K8": "msm_accumulate.cuh", "K9": "msm_sorted.cu", "K10": "msm_batched.cu",
                "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu",
                "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu"}
     replaces = {
@@ -1766,6 +1843,7 @@ def main() -> int:
         **dict.fromkeys(("G1SMUL", "G1BFLY"), ("phase 8", kzg["path_launches"])),
         "K13": ("phase 9", group["path_launches"]),
     }
+    cuda_path = {"K3": verkle["path_cuda_launches"]["K3"], "K9": sweep["path_cuda_launches"]["K9"]}
     chains = {"G1SMUL": "verkle_kzg_tpu/ops/curve.py:239", "G1BFLY": "verkle_kzg_tpu/ops/curve.py:239",
               "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342"}
     kernels = []
@@ -1786,6 +1864,10 @@ def main() -> int:
             "bound_by": first["bound_by"],
             "library_ms": None,
             **({"chain_ms": first["chain_ms"], "replaces_chain": chains[k]} if k in chains else {}),
+            # K3/K9: the main path's CUDA launches and one call's, as the C
+            # entry point counted them, and the first record's stage times
+            **({"cuda_launches": cuda_path[k], "cuda_launches_per_call": first["cuda_launches"],
+                "stages_ms": first["stages_ms"]} if k in cuda_path else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,6 +21,7 @@ from verkle_kzg_tpu_torch.ops import cuda_curve, cuda_field, cuda_lib, cuda_scal
 from verkle_kzg_tpu_torch.ops import cuda_g1_chain as G
 from verkle_kzg_tpu_torch.ops import cuda_msm as K
 from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
 from verkle_kzg_tpu_torch.ops import msm as M
@@ -58,22 +59,17 @@ def test_kernels_match_plain_on_card(cuda):
         assert torch.equal(cuda_field.binop(op, a, a.flip(0), "fr"), cuda_field.plain(op, a, a.flip(0), "fr"))
     p = C.from_affine(C.host_points_to_affine(pts, cuda))
     assert torch.equal(cuda_curve.add(p, p.flip(0)), cuda_curve.plain(p, p.flip(0)))
-    nseg, seg_len = M.segments(n)
-    pad = nseg * seg_len - n
-    pa = torch.nn.functional.pad(C.host_points_to_affine(pts, cuda), (0, 0, 0, 0, 0, pad)).contiguous()
-    sc = torch.nn.functional.pad(a, (0, 0, 0, pad)).contiguous()
-    masks = M.signed_carries(sc, 8).contiguous()
-    table = K.accumulate(pa, sc, masks, nseg, seg_len)
-    assert torch.equal(table, K.plain_accumulate(pa, sc, masks, nseg, seg_len))
-    buckets = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
+    pa = C.host_points_to_affine(pts, cuda)
+    table = KS.accumulate(pa, a, 8)
+    assert torch.equal(table, KS.plain_accumulate(pa, a, 8))
+    buckets = table[:, 0].contiguous()
     out = K.tail(buckets)
     assert torch.equal(out, K.plain_tail(buckets))
     assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
     # to_affine: the inverses of Z in one K1INV launch, then two K1 products
     assert torch.equal(C.to_affine(p), C.host_points_to_affine(pts, cuda))
     # K5 on the same lanes, (0, 0) and zero scalars among them
-    pa, sc = C.host_points_to_affine(pts, cuda), a
-    assert torch.equal(cuda_scalar_mul.scalar_mul_affine(pa, sc), cuda_scalar_mul.plain(pa, sc))
+    assert torch.equal(cuda_scalar_mul.scalar_mul_affine(pa, a), cuda_scalar_mul.plain(pa, a))
     # K6 and K7 at c = 4 and 5 over a 64-point basis, three lanes
     basis = pa[:64].contiguous()
     scalars = torch.stack([a[:64], a[64:128], a[128:192]])
@@ -96,20 +92,28 @@ def test_kernels_match_plain_on_card(cuda):
     [(16, False, "K8"), (4, False, "K8"), (16, True, "K9"), (12, True, "K10"), (9, False, "K10"), (5, False, "K6")],
 )
 def test_window_modes_match_plain_on_card(cuda, c, signed, key):
-    """The single MSM's other widths and signs: the accumulation (K8, K9,
-    K10, K6 unsigned) and K4 on its folded tables, against their plain
-    versions, and the whole MSM against the native oracle."""
+    """The single MSM's other widths and signs: the accumulation (K8, K9
+    sorted, K10, K6 unsigned) and K4 on its (folded) tables, against their
+    plain versions, and the whole MSM against the native oracle."""
     n = 300
     pts, ks = _inputs(n, 90 + c)
+    cuda_lib.reset_launches()
+    if signed and c in K.IN_KERNEL_C:
+        pa, sc = C.host_points_to_affine(pts, cuda), F.ints_to_words(ks, cuda)
+        table = KS.accumulate(pa, sc, c)
+        assert torch.equal(table, KS.plain_accumulate(pa, sc, c))
+        assert cuda_lib.launches[key] == 1
+        out = K.tail(table[:, 0].contiguous(), c)
+        assert torch.equal(out, K.plain_tail(table[:, 0].contiguous(), c))
+        assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
+        return
     nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
     pad = nseg * seg_len - n
     pa = torch.nn.functional.pad(C.host_points_to_affine(pts, cuda), (0, 0, 0, 0, 0, pad)).contiguous()
     sc = torch.nn.functional.pad(F.ints_to_words(ks, cuda), (0, 0, 0, pad)).contiguous()
-    cuda_lib.reset_launches()
     if c in K.IN_KERNEL_C:
-        masks = M.signed_carries(sc, c).contiguous() if signed else None
-        table = K.accumulate(pa, sc, masks, nseg, seg_len, c, signed)
-        assert torch.equal(table, K.plain_accumulate(pa, sc, masks, nseg, seg_len, c, signed))
+        table = K.accumulate(pa, sc, nseg, seg_len, c)
+        assert torch.equal(table, K.plain_accumulate(pa, sc, nseg, seg_len, c))
     else:
         digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)[:, None].contiguous()
         table = KB.accumulate(pa, digits, nseg, seg_len, c, signed)
@@ -122,6 +126,34 @@ def test_window_modes_match_plain_on_card(cuda, c, signed, key):
     assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
     got = M.msm_pippenger(pa[:n], sc[:n], c=c, signed=signed)
     assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n,c,lanes,equal,given",
+    [(257, 8, 1, False, False), (257, 8, 1, True, False), (1 << 12, 16, 1, False, False),
+     (1 << 12, 16, 1, True, False), (1 << 12, 1, 1, False, False), (1 << 12, 8, 128, False, True),
+     (1 << 10, 16, 4, False, True), (600, 2, 2, False, False)],
+)
+def test_sorted_accumulation_matches_plain_on_card(cuda, n, c, lanes, equal, given):
+    """K3 / K9, the sorted accumulation, word for word against its plain
+    version: the IPA's 257 points, 2^12 points at c = 16, all scalars equal
+    (one bucket a window over every chunk), lanes with the caller's carry
+    words; and the single MSM's launch counts: one K3 or K9, one K4, no K2."""
+    pts, ks = _inputs(n, 110 + c)
+    if equal:
+        ks = [ks[5]] * n
+    pa, sc = C.host_points_to_affine(pts, cuda), F.ints_to_words(ks, cuda)
+    masks = M.signed_carries(sc, c).contiguous() if given else None
+    got = KS.accumulate(pa, sc, c, lanes, masks)
+    assert torch.equal(got, KS.plain_accumulate(pa, sc, c, lanes, masks))
+    if lanes == 1:
+        cuda_lib.reset_launches()
+        out = M.msm_auto(pa, sc, c=c)
+        counts = {k: v for k, v in cuda_lib.launches.items() if v}
+        assert counts == {KS.launch_key(c): 1, "K4": 1}
+        assert cuda_lib.cuda_launches[KS.launch_key(c)] >= 5  # digits, scan, scatter, sums, combine at least
+        assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
 
 
 def _tail_buckets(c, signed, lanes, seed):

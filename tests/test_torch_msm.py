@@ -16,6 +16,7 @@ from verkle_kzg_tpu.ops import msm as JM
 from verkle_kzg_tpu.ops.limbs import ints_to_limbs
 from verkle_kzg_tpu.params import R
 from verkle_kzg_tpu_torch.ops import cuda_msm as K
+from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
 from verkle_kzg_tpu_torch.ops import msm as M
@@ -87,25 +88,22 @@ def test_msm_matches_pallas_interpret():
 
 
 def test_plain_kernels_agree_with_oracle():
-    """K3's tables hold sum_d-weighted buckets: row i of window w is the sum
-    of the points whose window-w digit is +-(i + 1), signed; K4 turns the
-    folded tables into the MSM."""
+    """K3's buckets: row i of window w is the sum of the points whose
+    window-w digit is +-(i + 1), signed; K4 turns them into the MSM. (The
+    table-per-thread kernels still cut 40 points into 3 segments of 14.)"""
     n = 40
     pts, ks = _points(n, 70), _scalars(n, 71)
-    nseg, seg_len = M.segments(n)
-    assert (nseg, seg_len) == (3, 14)
-    pa = torch.nn.functional.pad(C.host_points_to_affine(pts, "cpu"), (0, 0, 0, 0, 0, 2))
-    sc = torch.nn.functional.pad(F.ints_to_words(ks, "cpu"), (0, 0, 0, 2))
-    table = K.accumulate(pa, sc, M.signed_carries(sc, 8), nseg, seg_len)
-    assert table.shape == (32, 3, 128, 3, 8)
-    digits = M.window_digits_signed(F.ints_to_words(ks, "cpu"), 8)  # no tie in these windows
+    assert M.segments(n) == (3, 14)
+    pa, sc = C.host_points_to_affine(pts, "cpu"), F.ints_to_words(ks, "cpu")
+    buckets = KS.accumulate(pa, sc, 8)[:, 0]
+    assert buckets.shape == (32, 128, 3, 8)
+    digits = M.window_digits_signed(sc, 8)  # no tie in these windows
     w = 0
-    folded = M.fold_reduce_lanes(table, dim=1)[:, 0]
     for row in (0, 1, 127):
         want = None
         for pt, d in zip(pts, digits[w].tolist()):
             if abs(d) == row + 1 and pt is not None:
                 want = hc.g1_add(want, pt if d > 0 else hc.g1_neg(pt))
-        assert C.projective_to_host_points(folded[w, row]) == [want]
-    out = K.tail(folded.contiguous())
+        assert C.projective_to_host_points(buckets[w, row]) == [want]
+    out = K.tail(buckets.contiguous())
     assert C.projective_to_host_points(out) == [hc.g1_msm_naive(pts, ks)]

@@ -118,7 +118,12 @@ def check_scalar_stream(c, signed):
     msm_pippenger at the same c and sign; its buckets equal
     bucket_accumulate's on the digits the kernel derives (signed: the carry
     rule of signed_carries, which may differ from window_digits_signed at a
-    tie)."""
+    tie), word for word unsigned and as group elements signed. Signed words
+    cannot match: the sorted sums add a bucket that spans chunks as a tree
+    of projective partials, where the K13 walk adds its points in one
+    chain, and at these sizes every bucket of 3 or more entries spans
+    chunks. The sorted kernel is held word for word against its own plain
+    version instead (test_torch_msm_sorted.py, and on the card)."""
     _, _, (_, js, _, _), (pts_stream, sc_stream), want = _data()
     if signed:
         masks = _masks(js, c)
@@ -131,7 +136,11 @@ def check_scalar_stream(c, signed):
         buckets = MS.bucket_accumulate_from_scalars(pts_stream, sc_stream, c)
         _, digits = _digits(js, c, False, LANES)
     assert _host(got) == [want] == _jax_msm(c, signed)
-    assert torch.equal(buckets, MS.bucket_accumulate(pts_stream, digits, c, signed=signed, wgroup=2, fused=True))
+    walked = MS.bucket_accumulate(pts_stream, digits, c, signed=signed, wgroup=2, fused=True)
+    if signed:  # the sorted sums add a bucket's chunks in a tree: the same group elements
+        assert _host(buckets) == _host(walked)
+    else:
+        assert torch.equal(buckets, walked)
 
 
 def _row_sums(pts, digits, c, signed, lanes):

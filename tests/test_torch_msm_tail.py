@@ -20,6 +20,7 @@ from verkle_kzg_tpu.params import R
 from verkle_kzg_tpu_torch import native
 from verkle_kzg_tpu_torch.ops import cuda_msm as K
 from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
 from verkle_kzg_tpu_torch.ops import msm as M
@@ -54,18 +55,21 @@ _buckets = {}
 
 
 def _single_buckets(pts, ks, c, signed):
-    """The single MSM's folded (W, rows, 3, 8) tables over the first SINGLE
-    lanes' points, through the plain accumulation (K3 / K8 / K9)."""
+    """The single MSM's (W, rows, 3, 8) buckets over the first SINGLE
+    lanes' points, through the plain accumulation: the sorted K3 / K9
+    signed, K8's folded tables unsigned."""
     if (c, signed) in _buckets:
         return _buckets[c, signed]
     n = SINGLE * N
-    pts, ks = pts[:n], ks[:n]
+    pa, sc = C.host_points_to_affine(pts[:n], "cpu"), F.ints_to_words(ks[:n], "cpu")
+    if signed:
+        _buckets[c, signed] = KS.accumulate(pa, sc, c)[:, 0].contiguous()
+        return _buckets[c, signed]
     nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
     pad = nseg * seg_len - n
-    pa = torch.nn.functional.pad(C.host_points_to_affine(pts, "cpu"), (0, 0, 0, 0, 0, pad))
-    sc = torch.nn.functional.pad(F.ints_to_words(ks, "cpu"), (0, 0, 0, pad))
-    masks = M.signed_carries(sc, c) if signed else None
-    table = K.accumulate(pa, sc, masks, nseg, seg_len, c, signed)
+    pa = torch.nn.functional.pad(pa, (0, 0, 0, 0, 0, pad))
+    sc = torch.nn.functional.pad(sc, (0, 0, 0, pad))
+    table = K.accumulate(pa, sc, nseg, seg_len, c)
     _buckets[c, signed] = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
     return _buckets[c, signed]
 

@@ -97,7 +97,7 @@ def test_plain_tables_hold_buckets(c, signed, key):
     sc = torch.nn.functional.pad(sc, (0, 0, 0, pad))
     if key == "K8":
         digits = K.scalar_digits(sc, None, c, False).T  # (W, n)
-        table = K.accumulate(pa, sc, None, nseg, seg_len, c, signed)
+        table = K.accumulate(pa, sc, nseg, seg_len, c)
     else:
         assert KB.launch_key(c, signed) == key
         digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)

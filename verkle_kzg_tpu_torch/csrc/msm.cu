@@ -1,28 +1,11 @@
 // K4 and K7, the MSM tail (msm_tail.cuh: one design for the single MSM's
-// one lane and the batched MSM's B lanes), and the entry point of the
-// accumulation with digits from the scalar words (K3, K8, K9), whose kernel
-// is in msm_accumulate.cuh. See ops/cuda_msm.py for what they replace and
-// why they are shaped so.
+// one lane and the batched MSM's B lanes). See ops/cuda_msm.py for what they
+// replace and why they are shaped so.
 #include <cuda_runtime.h>
 
 #include "msm_tail.cuh"
 
 using namespace vkzg;
-
-extern "C" int vkzg_msm_accumulate_signed(const void*, const void*, const void*, void*, int64_t,
-                                          int64_t, int, cudaStream_t);
-extern "C" int vkzg_msm_accumulate_unsigned(const void*, const void*, const void*, void*, int64_t,
-                                            int64_t, int, cudaStream_t);
-
-// pts (nseg * seg_len, 2, 8) affine, sc (.., 8) standard scalars, masks
-// (.., W / 32 + 1) carry words (signed only) -> table (W, nseg, rows, 3, 8).
-extern "C" int vkzg_msm_accumulate(const void* pts, const void* sc, const void* masks,
-                                   void* table, int64_t nseg, int64_t seg_len, int c,
-                                   int is_signed, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return is_signed ? vkzg_msm_accumulate_signed(pts, sc, masks, table, nseg, seg_len, c, st)
-                   : vkzg_msm_accumulate_unsigned(pts, sc, masks, table, nseg, seg_len, c, st);
-}
 
 // K4: buckets (W, rows, 3, 8) reduced -> out (3, 8) reduced; K7: buckets
 // (W, B, rows, 3, 8) -> out (B, 3, 8). pairs_a / pairs_b (W, B, groups, 2,

@@ -1,43 +1,30 @@
-"""Kernels K3, K8, K9 and K4: the single-MSM bucket accumulation with
-in-kernel digits, and the single-MSM tail at any window width.
+"""Kernels K8 and K4: the unsigned single-MSM bucket accumulation with
+in-kernel digits, and the single-MSM tail at any window width. (The signed
+accumulation, K3 and K9, is the bucket-sorted design of
+``cuda_msm_sorted.py``.)
 
-The accumulation is ONE ``__global__`` in ``csrc/msm_accumulate.cuh``,
+K8 replaces the launch at line 330 of ``verkle_kzg_tpu/ops/pallas_msm.py``,
+``_accum_kernel_sc``. It is ONE ``__global__`` in ``csrc/msm_accumulate.cuh``,
 templated on the window width c in {1, 2, 4, 8, 16} (c divides 16, so a
-digit lies inside one 32-bit scalar word) and on the digit sign, with its
-signed and unsigned instances built from ``csrc/msm_signed.cu`` and
-``csrc/msm_unsigned.cu`` in parallel. Its segment walk is the one K6 and
-K10 run too (``accumulate_segment``); only the digit fetch differs. Its
-launches are counted under the name of the TPU kernel each instance
-replaces, all in ``verkle_kzg_tpu/ops/pallas_msm.py``:
-
-  * K3, signed, c in {1, 2, 4, 8}: the launch at line 700,
-    ``_accum_kernel_sc_signed_pair`` (helpers ``_gather_scatter_step_pair``,
-    ``_negate_y_sel``); c = 8 is the default single MSM;
-  * K9, signed, c = 16: the launch at line 719, ``_accum_kernel_sc_signed``;
-  * K8, unsigned: the launch at line 330, ``_accum_kernel_sc``.
-
-Window w's digit is bits [w c, w c + c) of the scalar words. Signed, it is
-then balanced with the packed carry bits of ``ops/msm.py::signed_carries``
-(carry-in bit w, carry-out bit w + 1, read from ``nwords`` words), and y is
-negated where d < 0. Either sign adds the point into row |d| - 1 of a table
-of ``rows(c, signed)`` rows: 2^(c-1) signed, 2^c - 1 unsigned (digit 0 adds
-nothing), so the tail reads one layout, row i = the bucket of i + 1. (The
-TPU's unsigned kernel kept 2^c rows with a trash row 0.)
+digit lies inside one 32-bit scalar word), with its instances built from
+``csrc/msm_unsigned.cu``. Its segment walk is the one K6 and K10 run too
+(``accumulate_segment``); only the digit fetch differs. Window w's digit d
+is bits [w c, w c + c) of the scalar words, and the point is added into row
+d - 1 of a table of 2^c - 1 rows (digit 0 adds nothing), so the tail reads
+one layout with the signed tables, row i = the bucket of i + 1. (The TPU's
+unsigned kernel kept 2^c rows with a trash row 0.)
 
 The TPU has no scatter, so each of its lanes kept a private bucket column
-and every step gathered and scattered the whole table with masks, two
-windows interleaved for latency where the tables fit in VMEM. Hopper
-scatters freely, so here the point stream is cut into S segments and one
-thread owns one (window, segment) pair with its own table in global memory,
-(W, S, rows, 3, 8) in all; pairing windows buys nothing there. A step is one
-row read, one lazy mixed add (11 Montgomery products) and one row write. The
-kernel is bound by those products (integer throughput) and by the latency
-of its scattered 96-byte row accesses. S is chosen (``ops/msm.py::segments``)
-so that the W * S threads fill the card's 132 SMs (S = 1024 at 2^20 points
-and c = 8), under a cap on the tables' bytes: at c = 16 a table is 2^15 or
-2^16 rows, so S stays near 10-20 and each thread walks a long segment,
-which bounds the wide windows by the latency of one thread's chain. K2 then
-folds the S partial tables (``ops/msm.py``).
+and every step gathered and scattered the whole table with masks. Here the
+point stream is cut into S segments and one thread owns one (window,
+segment) pair with its own table in global memory, (W, S, rows, 3, 8) in
+all. A step is one row read, one lazy mixed add (11 Montgomery products) and
+one row write. The kernel is bound by those products (integer throughput)
+and by the latency of its scattered 96-byte row accesses. S is chosen
+(``ops/msm.py::segments``) so that the W * S threads fill the card's 132
+SMs, under a cap on the tables' bytes: at c = 16 a table is 2^16 - 1 rows,
+so S stays near 10 and each thread walks a long segment. K2 then folds the
+S partial tables (``ops/msm.py``).
 
 K4 replaces ``pallas_msm._single_tail``'s second launch (line 1041), with
 bodies ``_suffix_horner_kernel`` and ``_window_sum``: per window the
@@ -104,22 +91,16 @@ def mask_words(c: int) -> int:
     return windows(c) // 32 + 1
 
 
-def launch_key(c: int, signed: bool) -> str:
-    """The TPU counterpart an accumulation launch is counted under."""
-    if not signed:
-        return "K8"
-    return "K9" if c == 16 else "K3"
-
-
 def _check_c(c: int) -> None:
     if c not in IN_KERNEL_C:
         raise ValueError(f"in-kernel digits need c dividing 16, got {c}")
 
 
 def scalar_digits(sc, masks, c: int, signed: bool) -> torch.Tensor:
-    """The digits the kernel derives: (n, 8) standard scalars (and, signed,
-    (n, nwords) carry words) -> (n, W) int64; signed d_w = raw digit w +
-    carry-in bit w - (carry-out bit w + 1) << c, unsigned the raw digit."""
+    """The digits a kernel derives from the scalar words: (n, 8) standard
+    scalars (and, signed, (n, nwords) carry words) -> (n, W) int64; signed
+    d_w = raw digit w + carry-in bit w - (carry-out bit w + 1) << c,
+    unsigned the raw digit."""
     dev = sc.device
     w = windows(c)
     v = sc.to(torch.int64) & 0xFFFFFFFF
@@ -133,8 +114,8 @@ def scalar_digits(sc, masks, c: int, signed: bool) -> torch.Tensor:
 
 
 def plain_tables(pts, digits, base, nrows: int) -> torch.Tensor:
-    """The accumulation every bucket kernel (K3, K6, K8, K9, K10) runs, as
-    its plain version: table thread t walks the points base[t] + i, i < L,
+    """The accumulation of the segment-walk kernels (K6, K8, K10), as its
+    plain version: table thread t walks the points base[t] + i, i < L,
     of the (P, 2, 8) affine stream, adding point base[t] + i into row
     |digits[t, i]| - 1 with the lazy mixed add, y negated for a negative
     digit; digit 0 and the (0, 0) sentinel add nothing. (T, L) int64
@@ -167,36 +148,32 @@ def plain_tables(pts, digits, base, nrows: int) -> torch.Tensor:
     return table
 
 
-def plain_accumulate(pts, sc, masks, nseg: int, seg_len: int, c: int = 8, signed: bool = True) -> torch.Tensor:
-    """The plain version of K3 / K8 / K9: (S*L, 2, 8) affine x (S*L, 8)
-    standard scalars x (S*L, nwords) carry words (None unsigned) ->
-    (W, S, rows, 3, 8) reduced bucket tables, one per (window, segment)."""
+def plain_accumulate(pts, sc, nseg: int, seg_len: int, c: int = 8) -> torch.Tensor:
+    """The plain version of K8: (S*L, 2, 8) affine x (S*L, 8) standard
+    scalars -> (W, S, 2^c - 1, 3, 8) reduced bucket tables, one per
+    (window, segment)."""
     _check_c(c)
     w = windows(c)
-    d = scalar_digits(sc, masks, c, signed).reshape(nseg, seg_len, w).permute(2, 0, 1)  # (W, S, L)
+    d = scalar_digits(sc, None, c, False).reshape(nseg, seg_len, w).permute(2, 0, 1)  # (W, S, L)
     base = (torch.arange(nseg, device=pts.device) * seg_len).repeat(w)
-    table = plain_tables(pts, d.reshape(w * nseg, seg_len), base, rows(c, signed))
-    return table.reshape(w, nseg, rows(c, signed), 3, 8)
+    table = plain_tables(pts, d.reshape(w * nseg, seg_len), base, rows(c, False))
+    return table.reshape(w, nseg, rows(c, False), 3, 8)
 
 
-def accumulate(pts, sc, masks, nseg: int, seg_len: int, c: int = 8, signed: bool = True) -> torch.Tensor:
+def accumulate(pts, sc, nseg: int, seg_len: int, c: int = 8) -> torch.Tensor:
+    """K8: the plain version on the CPU; on a card the kernel or an error."""
     if pts.device.type == "cpu":
-        return plain_accumulate(pts, sc, masks, nseg, seg_len, c, signed)
+        return plain_accumulate(pts, sc, nseg, seg_len, c)
     _check_c(c)
     n = nseg * seg_len
     if pts.shape != (n, 2, 8) or sc.shape != (n, 8):
         raise ValueError("msm accumulate: shapes do not match the segmentation")
-    if signed and (masks is None or masks.shape != (n, mask_words(c))):
-        raise ValueError("msm accumulate: signed digits need (n, nwords) carry words")
-    tensors = (pts, sc, masks) if signed else (pts, sc)
-    cuda_lib.require_cuda("msm.accumulate", *tensors)
-    table = torch.empty((windows(c), nseg, rows(c, signed), 3, 8), dtype=torch.int32, device=pts.device)
-    err = cuda_lib.lib().vkzg_msm_accumulate(
-        pts.data_ptr(), sc.data_ptr(), masks.data_ptr() if signed else 0, table.data_ptr(),
-        nseg, seg_len, c, int(signed), cuda_lib.stream(pts),
-    )
+    cuda_lib.require_cuda("msm.accumulate", pts, sc)
+    table = torch.empty((windows(c), nseg, rows(c, False), 3, 8), dtype=torch.int32, device=pts.device)
+    err = cuda_lib.lib().vkzg_msm_accumulate(pts.data_ptr(), sc.data_ptr(), table.data_ptr(), nseg, seg_len, c,
+                                             cuda_lib.stream(pts))
     cuda_lib.check(err, "vkzg_msm_accumulate")
-    cuda_lib.launches[launch_key(c, signed)] += 1
+    cuda_lib.launches["K8"] += 1
     return table
 
 

@@ -1,0 +1,300 @@
+"""Kernels K3 and K9: the signed single-MSM bucket accumulation with digits
+from the scalar words, as a bucket-sorted Pippenger (``csrc/msm_sorted.cu``).
+
+They replace two TPU kernels of ``verkle_kzg_tpu/ops/pallas_msm.py``: K3,
+c in {1, 2, 4, 8}, the launch at line 700 (``_accum_kernel_sc_signed_pair``;
+c = 8 is the default single MSM), and K9, c = 16, the launch at line 719
+(``_accum_kernel_sc_signed``). For each of B point streams ("lanes": point
+p of the (B S, 2, 8) stream is in lane p // S), window w and row i <
+2^(c-1), bucket (w, b, i) is the sum of the lane's points whose balanced
+window-w digit is +-(i + 1), y negated for a negative digit; digit 0 and
+the (0, 0) sentinel add nothing. Output (W, B, rows, 3, 8), reduced, the
+identity in empty rows: the layout K4 (``cuda_msm.tail``) and the lane-stream
+functions take.
+
+The TPU has no scatter, so its kernels ran every step as a masked gather and
+scatter of a lane's whole bucket column. Hopper scatters freely, so the
+live entries are sorted by bucket and summed in registers, in four stages,
+each a hand-written kernel (the source's note has the details):
+
+  1. digits: a thread a scalar balances its raw digits with the carry rule
+     of ``ops/msm.py::signed_carries`` computed in registers
+     (:func:`carry_digits`), or with the caller's carry words; each live
+     (window, point) becomes key (window, lane, |d| - 1), value p and sign;
+  2. sort: a stable counting sort by key over tiles of points, one pass on
+     the row up to c = 8, two LSD passes (8 and 7 bits) at c = 16; each
+     bucket's entries then come in ascending point order;
+  3. sums: the E entries in :func:`chunk_len` chunks, a thread a chunk, one
+     lazy mixed add an entry from the identity; a run inside its chunk is a
+     whole bucket, the runs at a chunk's edges are partials;
+  4. combine: each spanning bucket's partials in a binary tree, then reduced.
+
+The plain version below follows the same digits, the same stable order, the
+same chunks and the same tree, so kernel and plain version agree word for
+word. Words differ from a sequential bucket walk (the JAX kernels', K13's)
+wherever a bucket spans chunks: only the group element is contract.
+
+What bounds the kernels: 11 Montgomery products a live entry, 264 32-bit
+multiplies each (5.8 ms at 2^20 points, c = 8, on 132 SMs x 64 a clock x
+1.98 GHz); the point gathers and the sort's traffic are a few percent. The
+sums run at about 2.6x that bound on the card whatever their occupancy,
+chunk count or prefetch (``tools/sorted_variants.py``); that the product's
+integer instructions set the pace is a hypothesis no profiler reading has
+tested.
+
+One call counts one launch of K3 or K9 in ``cuda_lib.launches``; the C entry
+point counts each CUDA launch it issues (5-7 a window group up to c = 8,
+8-12 at c = 16), which the wrapper adds to ``cuda_lib.cuda_launches``.
+:func:`launch` can also return the four stages' times, from CUDA events the
+call records between them. Above SCRATCH_BYTES of
+key/value scratch the windows run in groups (:func:`window_groups`): the
+order within a bucket stays the same, and each group's entries are cut into
+chunks of their own, in the plain version alike.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_lib
+from . import cuda_msm as K
+from . import curve as C
+from . import field as F
+
+SCRATCH_BYTES = 4 << 30  # the key/value scratch of one call at most: windows go in groups above it
+TARGET = 132 * 256  # chunks at most, a thread each: 256 on each of the 132 SMs
+L_MIN = 2  # entries a chunk at least
+STAGES = ("digits", "sort", "sums", "combine")
+
+
+def windows(c: int) -> int:
+    return K.windows(c)
+
+
+def rows(c: int) -> int:
+    return K.rows(c, True)
+
+
+def launch_key(c: int) -> str:
+    return "K9" if c == 16 else "K3"
+
+
+def _check_c(c: int) -> None:
+    if c not in K.IN_KERNEL_C:
+        raise ValueError(f"in-kernel signed digits need c dividing 16, got {c}")
+
+
+def entry_bytes(c: int) -> int:
+    """Scratch bytes a (window, point) entry: dense keys and values, and
+    the sorted pair of each pass."""
+    return 24 if c == 16 else 16
+
+
+def window_groups(n: int, c: int, lanes: int = 1) -> list:
+    """(w0, wg) runs of windows whose scratch fits SCRATCH_BYTES, and whose
+    keys (window, lane, row) and entry positions fit 31 bits."""
+    w = windows(c)
+    wg = SCRATCH_BYTES // (entry_bytes(c) * max(n, 1))
+    wg = max(1, min(w, wg, (2**31 - 1) // (lanes * rows(c)), (2**31 - 1) // max(n, 1)))
+    return [(w0, min(wg, w - w0)) for w0 in range(0, w, wg)]
+
+
+def chunk_len(entries: int) -> int:
+    """Entries a chunk of the sums: at least L_MIN, and at most TARGET chunks."""
+    return max(L_MIN, -(-entries // TARGET))
+
+
+def carry_digits(sc: torch.Tensor, c: int) -> torch.Tensor:
+    """The digits kernel's recoding: (n, 8) standard scalars -> (n, W) int64
+    balanced digits. Window w's carry out is raw_w > 2^(c-1), or raw_w =
+    2^(c-1) with a nonzero raw digit below w, none out of the top window;
+    d_w = raw_w + carry in - carry out << c. Equal to
+    ``scalar_digits(sc, signed_carries(sc, c), c, True)``, ties included."""
+    raw = K.scalar_digits(sc, None, c, False)
+    w, half = raw.shape[1], 1 << (c - 1)
+    out = torch.empty_like(raw)
+    cin = torch.zeros_like(raw[:, 0])
+    nz = torch.zeros_like(raw[:, 0], dtype=torch.bool)
+    for i in range(w):
+        r = raw[:, i]
+        cout = ((r > half) | ((r == half) & nz)).to(torch.int64) if i < w - 1 else torch.zeros_like(r)
+        out[:, i] = r + cin - (cout << c)
+        nz |= r != 0
+        cin = cout
+    return out
+
+
+def _live_digits(pts, sc, c: int, masks) -> tuple:
+    """The digits (n, W), from the carry rule or the given carry words, and
+    which (point, window) entries are live: nonzero, not the (0, 0) point."""
+    digits = carry_digits(sc, c) if masks is None else K.scalar_digits(sc, masks, c, True)
+    return digits, (digits != 0) & ~C.affine_is_infinity(pts)[:, None]
+
+
+def _pieces(fn, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """fn(p, q) over the leading axis: in pieces of ``K._BATCH`` on the CPU,
+    where the limb arithmetic is fastest near that batch, whole on a card."""
+    if p.device.type != "cpu" or p.shape[0] <= K._BATCH:
+        return fn(p, q)
+    return torch.cat([fn(p[i : i + K._BATCH], q[i : i + K._BATCH]) for i in range(0, p.shape[0], K._BATCH)])
+
+
+def _add16(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return _pieces(lambda a, b: C.add16(a, b, lazy=True), p, q)
+
+
+def _mixed_add16(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return _pieces(lambda a, b: C.mixed_add16(a, b, lazy=True), p, q)
+
+
+def _sums(out: torch.Tensor, pts: torch.Tensor, keys: torch.Tensor, pidx: torch.Tensor,
+          neg: torch.Tensor) -> None:
+    """Stages 3 and 4 on sorted entries (keys, point index, sign) into
+    ``out`` (rows, 3, 8), indexed by key: the chunks walked step by step,
+    vectorised over chunks, then each spanning bucket's tree."""
+    e = keys.numel()
+    if not e:
+        return
+    dev = keys.device
+    length = chunk_len(e)
+    nch = -(-e // length)
+    aff = F.to_limbs(pts[pidx])
+    neg_y = F.sub16(torch.zeros_like(aff[:, 1]), aff[:, 1], "fq")
+    aff[:, 1] = torch.where(neg[:, None], neg_y, aff[:, 1])
+    kpad = torch.cat([keys, keys.new_full((nch * length - e,), -1)]).reshape(nch, length)
+    first = torch.arange(nch, device=dev) * length
+    hi = (first + length).clamp(max=e)
+    first_cont = torch.zeros(nch, dtype=torch.bool, device=dev)
+    first_cont[1:] = keys[first[1:] - 1] == keys[first[1:]]
+    last_open = torch.zeros(nch, dtype=torch.bool, device=dev)
+    inner = hi < e
+    last_open[inner] = keys[hi[inner]] == keys[hi[inner] - 1]
+    acc = C.infinity16((nch,), dev)
+    open_p, cont_p = acc.clone(), acc.clone()
+    run_lo = first.clone()
+
+    def finish(sel, run_key, run_hi):
+        cont = sel & (run_lo == first) & first_cont
+        opened = sel & ~cont & (run_hi == hi) & last_open
+        whole = sel & ~cont & ~opened
+        cont_p[cont] = acc[cont]
+        open_p[opened] = acc[opened]
+        out[run_key[whole]] = F.from_limbs(C.reduce16(acc[whole]))
+        acc[sel] = C.infinity16((), dev)
+        run_lo[sel] = run_hi[sel]
+
+    for s in range(length):
+        valid = first + s < hi
+        if s:
+            ended = valid & (kpad[:, s] != kpad[:, s - 1])
+            if bool(ended.any()):
+                finish(ended, kpad[:, s - 1], first + s)
+        idx = valid.nonzero().flatten()
+        acc[idx] = _mixed_add16(acc[idx], aff[first[idx] + s])
+    finish(torch.ones(nch, dtype=torch.bool, device=dev), keys[hi - 1], hi)
+
+    # Stage 4: leaf j of a bucket spanning chunks k0..k1 is k0's open
+    # partial (j = 0) or the cont partial of k0 + j; node (h, base) =
+    # node (h - 1, base) + node (h - 1, base + 2^(h-1)) where that exists.
+    k0 = (last_open & ~(first_cont & (keys[first] == keys[hi - 1]))).nonzero().flatten()
+    if not k0.numel():
+        return
+    key = keys[hi[k0] - 1]
+    k1 = (torch.searchsorted(keys, key, right=True) - 1) // length
+    m = k1 - k0 + 1
+    top = int(m.max())
+    j = torch.arange(top, device=dev)
+    leaves = cont_p[(k0[:, None] + j).clamp(max=nch - 1)]
+    leaves[:, 0] = open_p[k0]
+    size = 1
+    while size < top:
+        base = torch.arange(0, top, 2 * size, device=dev)
+        bi, li = (base[None, :] + size < m[:, None]).nonzero(as_tuple=True)
+        left = base[li]
+        leaves[bi, left] = _add16(leaves[bi, left], leaves[bi, left + size])
+        size *= 2
+    out[key] = F.from_limbs(C.reduce16(leaves[:, 0]))
+
+
+def plain_accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
+                     masks: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of K3 / K9: (B S, 2, 8) affine x (B S, 8) standard
+    scalars [x (B S, nwords) carry words] -> (W, B, rows, 3, 8) reduced
+    buckets, in the kernels' order: the digits, a stable sort by key, the
+    chunks and the tree, window group by window group."""
+    _check_c(c)
+    dev = pts.device
+    n = pts.shape[0]
+    w, nrows = windows(c), rows(c)
+    out = C.infinity((w * lanes * nrows,), dev)
+    if n == 0:
+        return out.reshape(w, lanes, nrows, 3, 8)
+    digits, live = _live_digits(pts, sc, c, masks)
+    p = torch.arange(n, device=dev)
+    for w0, wg in window_groups(n, c, lanes):
+        d, on = digits[:, w0 : w0 + wg].T, live[:, w0 : w0 + wg].T  # (wg, n), (window, point) order
+        seg = torch.arange(wg, device=dev)[:, None] * lanes + p // (n // lanes)
+        keys, order = torch.sort((seg * nrows + d.abs() - 1)[on], stable=True)
+        pidx = p.expand(wg, n)[on][order]
+        _sums(out[w0 * lanes * nrows : (w0 + wg) * lanes * nrows], pts, keys, pidx, (d < 0)[on][order])
+    return out.reshape(w, lanes, nrows, 3, 8)
+
+
+def workspace_words(n: int, c: int, lanes: int, wg: int) -> int:
+    """The int32 workspace of one window group's call."""
+    words = ctypes.c_int64()
+    err = cuda_lib.lib().vkzg_msm_sorted_plan(n, lanes, c, wg, TARGET, ctypes.byref(words))
+    cuda_lib.check(err, "vkzg_msm_sorted_plan")
+    return words.value
+
+
+def launch(pts, sc, out, c: int, lanes: int, masks, w0: int, wg: int, timed: bool = False) -> tuple:
+    """Windows [w0, w0 + wg) into ``out`` (W, B, rows, 3, 8): -> (the CUDA
+    launches the call issued, as the C entry point counted them, and, when
+    ``timed``, {stage: ms} from events between the stages, else None; a timed
+    call waits for its last stage). Counts nothing: :func:`accumulate` does."""
+    n = pts.shape[0]
+    work = torch.empty(workspace_words(n, c, lanes, wg), dtype=torch.int32, device=pts.device)
+    group = out[w0 : w0 + wg]
+    issued = ctypes.c_int64(0)
+    ms = (ctypes.c_float * len(STAGES))() if timed else None
+    err = cuda_lib.lib().vkzg_msm_sorted(
+        pts.data_ptr(), sc.data_ptr(), 0 if masks is None else masks.data_ptr(), group.data_ptr(),
+        work.data_ptr(), work.numel(), n, lanes, c, w0, wg, TARGET, L_MIN,
+        ctypes.addressof(ms) if timed else None, ctypes.addressof(issued), cuda_lib.stream(pts),
+    )
+    cuda_lib.check(err, "vkzg_msm_sorted")
+    return issued.value, (dict(zip(STAGES, ms)) if timed else None)
+
+
+def accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
+               masks: torch.Tensor | None = None) -> torch.Tensor:
+    """K3 (c in {1, 2, 4, 8}) / K9 (c = 16): (B S, 2, 8) affine x (B S, 8)
+    standard scalars [x (B S, W // 32 + 1) carry words; without them the
+    kernel computes the carries] -> (W, B, rows, 3, 8) reduced buckets.
+    The plain version on the CPU; on a card the kernels or an error."""
+    if pts.device.type == "cpu":
+        return plain_accumulate(pts, sc, c, lanes, masks)
+    _check_c(c)
+    n = pts.shape[0]
+    if pts.shape != (n, 2, 8) or sc.shape != (n, 8) or lanes < 1 or n % lanes:
+        raise ValueError("msm accumulate: (B S, 2, 8) points and (B S, 8) scalars in B lanes")
+    if masks is not None and masks.shape != (n, K.mask_words(c)):
+        raise ValueError("msm accumulate: carry words must be (n, W // 32 + 1)")
+    cuda_lib.require_cuda("msm.accumulate_sorted", pts, sc, *(() if masks is None else (masks,)))
+    if n == 0:
+        return C.infinity((windows(c), lanes, rows(c)), pts.device)
+    out = torch.empty((windows(c), lanes, rows(c), 3, 8), dtype=torch.int32, device=pts.device)
+    issued = sum(launch(pts, sc, out, c, lanes, masks, w0, wg)[0] for w0, wg in window_groups(n, c, lanes))
+    cuda_lib.launches[launch_key(c)] += 1
+    cuda_lib.cuda_launches[launch_key(c)] += issued
+    return out
+
+
+def live_entries(pts: torch.Tensor, sc: torch.Tensor, c: int, masks=None) -> int:
+    """Live (window, point) entries of these inputs: nonzero digit, not the
+    (0, 0) sentinel."""
+    return int(_live_digits(pts, sc, c, masks)[1].sum())
+

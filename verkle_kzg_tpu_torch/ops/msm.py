@@ -6,15 +6,19 @@ The counterpart of ``verkle_kzg_tpu/ops/msm.py``. A single MSM of N >= 64
 with reduced coordinates, at any window width c in [1, 16] and either
 digit sign (default c = 8, signed), in three steps:
 
-  1. the bucket accumulation into (W, S, rows) partial tables, one per
-     (window, point segment), bucket |d| in row |d| - 1. For c dividing 16
-     the kernel takes the digits from the scalar words (``cuda_msm``: K3,
-     K9 at c = 16, K8 unsigned), signed ones with the packed carry bits of
-     :func:`signed_carries`; for any other c it reads the digit tensor of
-     :func:`window_digits_signed` or :func:`window_digits` with one lane
-     (``cuda_msm_batched``: K6 up to 128 rows, K10 above);
-  2. K2 (``curve.add``) folds the S segments (:func:`fold_reduce_lanes`);
-  3. K4 (``cuda_msm.tail``): the weighted bucket sums and Horner.
+  1. the bucket accumulation, bucket |d| in row |d| - 1 of a window's
+     table. Signed with c dividing 16 (the default), the bucket-sorted
+     accumulation (``cuda_msm_sorted``: K3, K9 at c = 16) takes the points
+     and scalars as they are: its kernels derive the digits and carries,
+     sort the entries by bucket and sum them into (W, rows) buckets, with
+     no padding, no segments and no fold. Otherwise the point stream is cut
+     into S segments (:func:`segments`) and a kernel fills (W, S, rows)
+     partial tables: from the scalar words unsigned (``cuda_msm``: K8), or
+     from the digit tensor of :func:`window_digits_signed` or
+     :func:`window_digits` with one lane (``cuda_msm_batched``: K6 up to
+     128 rows, K10 above); then K2 (``curve.add``) folds the S segments
+     (:func:`fold_reduce_lanes`);
+  2. K4 (``cuda_msm.tail``): the weighted bucket sums and Horner.
 
 Below 64 points ``msm_auto`` multiplies each point by its scalar with K5
 (``curve.scalar_mul_affine``) and folds the products with K2, as the JAX
@@ -39,13 +43,14 @@ import torch
 from ..utils import metrics
 from . import cuda_msm as K
 from . import cuda_msm_batched as KB
+from . import cuda_msm_sorted as KS
 from . import curve as C
 from . import field as F
 
 TOTAL_BITS = 256
 SEG_MIN = 16  # points per segment at least
-SEG_MAX = 1024  # segments at most: 32 x 1024 K3 threads fill 132 SMs
-TABLE_BYTES = 1 << 30  # partial bucket tables of a single MSM at most
+SEG_MAX = 1024  # segments at most: 32 x 1024 table threads fill 132 SMs
+TABLE_BYTES = 1 << 30  # partial bucket tables of a segmented MSM (K6, K8, K10) at most
 ROW_BYTES = 96  # one projective bucket, 3 x 8 words
 
 
@@ -117,12 +122,14 @@ def _auto_c(n: int, c: int | None) -> int:
 
 
 def segments(n: int, table_rows: int = 0) -> tuple:
-    """(S, L): the point stream is cut into S segments of L points (padded
-    with zero scalars at the (0, 0) sentinel), one accumulation thread per
-    (window, segment). ``table_rows`` (the rows of one segment's tables:
-    W x rows, times the lanes of a batch) caps S so that the partial tables
-    stay under TABLE_BYTES: at c = 16 a window has 2^15 or 2^16 - 1 rows,
-    and 1,024 segments would need 51 GB."""
+    """(S, L) for the table-per-thread accumulations (K6, K8, K10; the
+    signed single MSM at c dividing 16 sorts instead): the point stream is
+    cut into S segments of L points (padded with zero scalars at the (0, 0)
+    sentinel), one accumulation thread per (window, segment).
+    ``table_rows`` (the rows of one segment's tables: W x rows, times the
+    lanes of a batch) caps S so that the partial tables stay under
+    TABLE_BYTES: at c = 16 unsigned a window has 2^16 - 1 rows, and 1,024
+    segments would need 103 GB."""
     nseg = max(1, min(SEG_MAX, math.ceil(n / SEG_MIN)))
     if table_rows:
         nseg = max(1, min(nseg, TABLE_BYTES // (table_rows * ROW_BYTES)))
@@ -150,21 +157,23 @@ def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | N
     ``c``: window bits in [1, 16], default 8. ``signed``: balanced signed
     digits (2^(c-1) bucket rows a window) or unsigned ones (2^c - 1 rows).
     ``lanes`` is accepted for parity with the JAX package and has no
-    effect: the point segments of :func:`segments` take the place of the
-    TPU's lanes, and only the group element is contract."""
+    effect: the sorted entries' chunks (or the point segments of
+    :func:`segments`) take the place of the TPU's lanes, and only the
+    group element is contract."""
     n = points_affine.shape[0]
     c = _auto_c(n, c)
+    points_affine = points_affine.contiguous()
+    scalars = scalars.contiguous()
+    if signed and c in K.IN_KERNEL_C:
+        return K.tail(KS.accumulate(points_affine, scalars, c)[:, 0].contiguous(), c)
     w = K.windows(c)
     nseg, seg_len = segments(n, w * K.rows(c, signed))
     pad = nseg * seg_len - n
     if pad:
         points_affine = torch.nn.functional.pad(points_affine, (0, 0, 0, 0, 0, pad))
         scalars = torch.nn.functional.pad(scalars, (0, 0, 0, pad))
-    points_affine = points_affine.contiguous()
-    scalars = scalars.contiguous()
     if c in K.IN_KERNEL_C:
-        masks = signed_carries(scalars, c).contiguous() if signed else None
-        table = K.accumulate(points_affine, scalars, masks, nseg, seg_len, c, signed)
+        table = K.accumulate(points_affine, scalars, nseg, seg_len, c)
     else:
         digits = (window_digits_signed if signed else window_digits)(scalars, c)
         digits = digits.to(torch.int32)[:, None].contiguous()  # (W, 1 lane, N)

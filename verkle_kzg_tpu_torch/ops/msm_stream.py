@@ -22,13 +22,18 @@ Routing. ``wgroup`` takes K13 (``cuda_msm_group``), G windows a thread,
 with the pipelined row loads when ``fused``. Without it the digit tensor
 goes to K6/K10 (``cuda_msm_batched.accumulate``, counted by its
 ``launch_key``) with the stream transposed to its per-lane layout and one
-segment of S points a lane. The ``_from_scalars`` functions take K3/K8/K9
-(``cuda_msm.accumulate``), each lane a segment. ``msm_single_fused*`` fold
-the lanes' tables with K2 (``ops/msm.py::fold_reduce_lanes``) and run the
-tail K4; ``batched_bucket_tail`` is K7. Each bucket row holds the same
-group element as JAX's; the projective words differ (the TPU kernels run
-their identity adds through the complete formulas, and the port's tails
-add in another order), so only group elements are contract.
+segment of S points a lane. The signed ``_from_scalars`` functions take
+the bucket-sorted K3/K9 (``cuda_msm_sorted.accumulate``) with the caller's
+carry words, B lanes for the lane buckets and one for
+``msm_single_fused_sc_signed``, whose points need no lanes; the unsigned
+ones take K8 (``cuda_msm.accumulate``), each lane a segment. The other
+``msm_single_fused*`` fold the lanes' tables with K2
+(``ops/msm.py::fold_reduce_lanes``); every one runs the tail K4, and
+``batched_bucket_tail`` is K7. Each bucket row holds the same group element
+as JAX's; the projective words differ (the TPU kernels run their identity
+adds through the complete formulas, the sorted sums add a bucket's chunks in
+a tree, and the port's tails add in another order), so only group elements
+are contract.
 
 ``chunk`` and ``wpair`` are accepted and have no effect: they sized the
 TPU's VMEM blocks and paired its windows. ``msm_single_fused*`` raise for a
@@ -44,6 +49,7 @@ import torch
 from . import cuda_msm as K
 from . import cuda_msm_batched as KB
 from . import cuda_msm_group as KG
+from . import cuda_msm_sorted as KS
 from . import curve as C
 from .msm import fold_reduce_lanes
 
@@ -71,12 +77,15 @@ def _digit_tables(pts_stream, digits, c: int, signed: bool, wgroup, fused: bool)
 
 def _scalar_tables(pts_stream, sc_stream, masks, c: int, signed: bool) -> torch.Tensor:
     """(S, B, 2, 8) x (S, B, 8) [x (S, B, nwords)] -> (W, B, rows, 3, 8)
-    tables from the digits K3/K8/K9 take from the scalar words."""
+    tables from the digits K3/K9 (signed, with the carry words) or K8 take
+    from the scalar words."""
     s, b = pts_stream.shape[:2]
     pts = pts_stream.transpose(0, 1).reshape(b * s, 2, 8).contiguous()
     sc = sc_stream.transpose(0, 1).reshape(b * s, 8).contiguous()
-    m = masks.transpose(0, 1).reshape(b * s, -1).contiguous() if signed else None
-    return K.accumulate(pts, sc, m, b, s, c, signed)
+    if signed:
+        m = masks.transpose(0, 1).reshape(b * s, -1).contiguous()
+        return KS.accumulate(pts, sc, c, b, m)
+    return K.accumulate(pts, sc, b, s, c)
 
 
 def _jax_rows(tables: torch.Tensor, signed: bool) -> torch.Tensor:
@@ -128,9 +137,11 @@ def msm_single_fused_sc(pts_stream, sc_stream, c: int, chunk: int = 64) -> torch
 
 def msm_single_fused_sc_signed(pts_stream, sc_stream, masks, c: int, chunk: int = 64,
                                wpair: bool = True) -> torch.Tensor:
-    """The single MSM with signed digits from the scalar and carry words -> (3, 8)."""
+    """The single MSM with signed digits from the scalar and carry words ->
+    (3, 8): the whole stream as one lane, so no K2 fold."""
     _check_lanes(pts_stream.shape[1])
-    return _single(_scalar_tables(pts_stream, sc_stream, masks, c, True), c)
+    flat = lambda x: x.reshape(-1, *x.shape[2:]).contiguous()  # noqa: E731
+    return K.tail(KS.accumulate(flat(pts_stream), flat(sc_stream), c, 1, flat(masks))[:, 0].contiguous(), c)
 
 
 def batched_bucket_tail(buckets, c: int, nbuckets: int | None = None, shifted: bool = False) -> torch.Tensor:
