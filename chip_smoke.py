@@ -22,12 +22,14 @@ and no JAX. Phases, each of which raises on failure:
      replace, timed in the same run, at block sizes of 32, 64 and 128;
      each K4 and K7 tail with its CUDA launches and dependent chain, and
      where its window sums take launches of their own, the sums and Horner
-     timed apart; each K3/K9 call (the bucket-sorted accumulation: 257
-     points at c = 8, 2^16 at c = 1 and 4, 2^12 at c = 16, and 2^12 at
-     c = 8 with all scalars equal) with its CUDA launches as its C entry
-     point counted them, live entries, chunk length and the times of its
-     four stages (digits, sort, sums, combine) from CUDA events recorded
-     between them in one call;
+     timed apart; each call of the bucket-sorted accumulation (K3 at 257
+     points, c = 8, at 2^16, c = 1 and 4, and at 2^12, c = 8, with all
+     scalars equal; K9 at 2^12; K8, unsigned, at 2^16, c = 8, and 2^12,
+     c = 16; K10, a digit tensor, at 2^12, c = 12 signed, and 2^16, c = 9
+     unsigned) with its CUDA launches as its C entry point counted them,
+     live entries, chunk length and the times of its four stages (digits,
+     sort, sums, combine) from CUDA events recorded between them in one
+     call;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
      checks, launch counts and timings, the prove's 16 K4 tails timed by
      CUDA events in one more prove, and a proof at domain 32 on the card
@@ -42,7 +44,8 @@ and no JAX. Phases, each of which raises on failure:
   6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3);
   7. the single-MSM sweep of BASELINE.json config 5, 2^16-2^22 points, at
      c = 8, 4, 12 and 16 signed, and at 2^20 also unsigned c = 8 and 16 and
-     signed c = 5, 10 and 13, each run exact against an oracle;
+     signed c = 5, 10 and 13, each run exact against an oracle, with the
+     digit recoding's time where c does not divide 16;
   8. KZG at domain 256 (BASELINE.json config 1): setup, commit against the
      native oracle, proofs in and out of the domain with their pairings;
      FK all-points proofs against the 256 single proofs; FK at domain 16
@@ -54,7 +57,8 @@ and no JAX. Phases, each of which raises on failure:
      single MSM of 2^20 points in 128 lanes through the lane-stream entry
      point msm_stream.msm_single_fused with wgroup/fused (K13), against the
      c = 8 msm_pippenger (K3), each run exact; then every other entry point
-     of msm_stream once at 2^12 points against the native oracle.
+     of msm_stream once at 2^12 points against the native oracle, with
+     their launches (K3, K4, K6, K7, K8 and K10 among them).
 
 Each of phases 2, 3, 5, 6 and 8, and each run of phases 7 and 9, sets the
 launch counts to 0 just before its path and reads them just after; phases
@@ -435,52 +439,68 @@ def _tail_record(key: str, bk, c: int, plain_out_ms: tuple, reps: int) -> dict:
     return rec
 
 
-def sorted_stages(pa, sc, c: int, reps: int) -> dict:
-    """Milliseconds of each stage of a K3/K9 call (one window group): digits,
-    sort, sums, combine, from CUDA events the call records between its
-    stages; the median of ``reps`` calls after a warm-up, and each stage's
-    least and greatest."""
+def sorted_stages(pa, sc, c: int, reps: int, signed: bool = True, digits=None) -> dict:
+    """Milliseconds of each stage of a K3/K9/K8/K10 call (one window group,
+    the digits from ``sc`` or, for K10, from ``digits``): digits, sort,
+    sums, combine, from CUDA events the call records between its stages;
+    the median of ``reps`` calls after a warm-up, and each stage's least and
+    greatest."""
     import torch
 
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 
-    (w0, wg), = KS.window_groups(pa.shape[0], c)
-    out = torch.empty((KS.windows(c), 1, KS.rows(c), 3, 8), dtype=torch.int32, device=pa.device)
-    KS.launch(pa, sc, out, c, 1, None, w0, wg)
-    runs = [KS.launch(pa, sc, out, c, 1, None, w0, wg, timed=True)[1] for _ in range(reps)]
+    (w0, wg), = KS.window_groups(pa.shape[0], c, 1, signed)
+    out = torch.empty((KS.windows(c), 1, KS.rows(c, signed), 3, 8), dtype=torch.int32, device=pa.device)
+    src = (None, digits) if digits is not None else (sc, None)
+    KS.launch(pa, *src, None, out, c, signed, w0, wg)
+    runs = [KS.launch(pa, *src, None, out, c, signed, w0, wg, timed=True)[1] for _ in range(reps)]
     rec = {s: statistics.median(r[s] for r in runs) for s in KS.STAGES}
     rec["spread"] = {s: [min(r[s] for r in runs), max(r[s] for r in runs)] for s in KS.STAGES}
     return rec
 
 
-def sorted_cuda_launches(pa, sc, c: int) -> int:
-    """The CUDA launches of one K3/K9 call, as its C entry point counted them."""
+def sorted_run(pa, sc, c: int, signed: bool = True, digits=None):
+    """One call of the sorted accumulation through its wrapper: K3/K9/K8
+    from the scalar words, K10 from ``digits``."""
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
+
+    if digits is not None:
+        return KS.accumulate_digits(pa, digits, c, signed)
+    return KS.accumulate(pa, sc, c, signed=signed)
+
+
+def sorted_cuda_launches(pa, sc, c: int, signed: bool = True, digits=None) -> int:
+    """The CUDA launches of one K3/K9/K8/K10 call, as its C entry point
+    counted them."""
     from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 
-    key = KS.launch_key(c)
+    key = KS.launch_key(c, signed, digits is not None)
     before = cuda_lib.cuda_launches[key]
-    KS.accumulate(pa, sc, c)
+    sorted_run(pa, sc, c, signed, digits)
     return cuda_lib.cuda_launches[key] - before
 
 
-def _sorted_record(pa, sc, c: int, table, plain_ms: float, reps: int) -> dict:
-    """Time and bound of one K3/K9 call on (n, 2, 8) points, its CUDA
-    launches, live entries and chunk length, and its stages' times. Bound:
-    the points, scalars and buckets once, and a lazy mixed add (11
-    products) a live entry."""
+def _sorted_record(pa, sc, c: int, table, plain_ms: float, reps: int, signed: bool = True, digits=None) -> dict:
+    """Time and bound of one K3/K9/K8/K10 call on (n, 2, 8) points, its
+    CUDA launches, live entries and chunk length, and its stages' times.
+    Bound: the points, scalars (or digits) and buckets once, and a lazy
+    mixed add (11 products) a live entry."""
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 
-    live = KS.live_entries(pa, sc, c)
+    if digits is not None:
+        live, inputs = KS.live_tensor_entries(pa, digits), pa.numel() + digits.numel()
+    else:
+        live, inputs = KS.live_entries(pa, sc, c, signed=signed), pa.numel() + sc.numel()
     return {
-        "ms": cuda_ms(lambda: KS.accumulate(pa, sc, c), reps),
+        "ms": cuda_ms(lambda: sorted_run(pa, sc, c, signed, digits), reps),
         "plain_ms": plain_ms,
         "library_ms": None,
-        "cuda_launches": sorted_cuda_launches(pa, sc, c),
+        "cuda_launches": sorted_cuda_launches(pa, sc, c, signed, digits),
         "entries": live,
         "chunk_len": KS.chunk_len(live),
-        "stages_ms": sorted_stages(pa, sc, c, reps),
-        **bound(4 * (pa.numel() + sc.numel() + table.numel()), live * MIXED_FMULS),
+        "stages_ms": sorted_stages(pa, sc, c, reps, signed, digits),
+        **bound(4 * (inputs + table.numel()), live * MIXED_FMULS),
     }
 
 
@@ -499,16 +519,16 @@ def timed_once(fn) -> tuple:
 
 def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) -> dict:
     """The single MSM's other modes (zero scalars, r - 1, ties, (0, 0)
-    points), exact against their plain versions: the sorted K3 at c = 1
-    and 4, K8 (unsigned, c = 8), K6 unsigned at c = 5 and K10 unsigned at
-    c = 9 on ``n`` points, phase 7's smallest size; K9 (c = 16), K8 at
-    c = 16 and K10 at c = 12 signed on ``n_wide`` points, where the 1 GiB
-    table cap already gives phase 7's segment counts for the table kernels
-    (10 and 248) and only the segment length is shorter; and K3 at c = 8 on
-    ``n_wide`` points whose scalars are all equal (one bucket a window, over
-    every chunk). Then K4 on every mode's buckets, signed and unsigned, each
-    tail also against the native oracle. A plain version is timed on the
-    one call that is compared."""
+    points), exact against their plain versions: the bucket-sorted K3 at
+    c = 1 and 4, K8 (unsigned digits from the scalar words) at c = 8, K10
+    (a digit tensor) unsigned at c = 9 and K6's table walk unsigned at c = 5
+    on ``n`` points, phase 7's smallest size; K9 (c = 16), K8 at c = 16 and
+    K10 at c = 12 signed on ``n_wide`` points; and K3 at c = 8 on ``n_wide``
+    points whose scalars are all equal (one bucket a window, over every
+    chunk). Each sorted call with its CUDA launches, live entries, chunk
+    length and four stages' times. Then K4 on every mode's buckets, signed
+    and unsigned, each tail also against the native oracle. A plain version
+    is timed on the one call that is compared."""
     import torch
 
     from verkle_kzg_tpu_torch import native
@@ -527,46 +547,48 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
     want = {m: native.g1_msm(pts[:m], ks[:m]) for m in (n, n_wide)}
     pa_all, sc_all = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
     rec, buckets = {}, {}
-    modes = [  # name, c, signed, route (sorted, scalar words or digit tensor), points
-        ("K3@c1", 1, True, "sorted", n), ("K3@c4", 4, True, "sorted", n), ("K9", 16, True, "sorted", n_wide),
+    modes = [  # name, c, signed, digits (from the scalar words or a digit tensor), points
+        ("K3@c1", 1, True, "words", n), ("K3@c4", 4, True, "words", n), ("K9", 16, True, "words", n_wide),
         ("K8", 8, False, "words", n), ("K8@c16", 16, False, "words", n_wide),
-        ("K6@c5-unsigned", 5, False, "digits", n),
-        ("K10", 12, True, "digits", n_wide), ("K10@c9-unsigned", 9, False, "digits", n),
-        ("K3@c8-equal-scalars", 8, True, "sorted", n_wide),
+        ("K6@c5-unsigned", 5, False, "tensor", n),
+        ("K10", 12, True, "tensor", n_wide), ("K10@c9-unsigned", 9, False, "tensor", n),
+        ("K3@c8-equal-scalars", 8, True, "words", n_wide),
     ]
-    for name, c, signed, route, m in modes:
+    for name, c, signed, source, m in modes:
         sign = "signed" if signed else "unsigned"
-        if route == "sorted":
-            pa, sc = pa_all[:m], sc_all[:m]
-            if name.endswith("equal-scalars"):
-                sc = sc_all[4:5].expand(m, 8).contiguous()
-                want[name] = native.g1_msm(pts[:m], [ks[4]] * m)
-            table = KS.accumulate(pa, sc, c)
-            plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate(pa, sc, c))
+        pa, sc = pa_all[:m], sc_all[:m]
+        if name.endswith("equal-scalars"):
+            sc = sc_all[4:5].expand(m, 8).contiguous()
+            want[name] = native.g1_msm(pts[:m], [ks[4]] * m)
+        expect = want[name if name in want else m]
+        if source == "words" or KB.launch_key(c, signed) == "K10":
+            digits = None
+            if source == "words":
+                table = KS.accumulate(pa, sc, c, signed=signed)
+                plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate(pa, sc, c, signed=signed))
+            else:
+                digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
+                digits = digits.to(torch.int32)[:, None].contiguous()  # (W, 1 lane, m)
+                table = KS.accumulate_digits(pa, digits, c, signed)
+                plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate_digits(pa, digits, c, signed))
             err = max_abs_err(table, plain_table)
             assert err == 0, name
-            rec[name] = {"max_abs_err": err, **_sorted_record(pa, sc, c, table, plain_ms, 5),
-                         "shape": f"{m} points, c = {c}, signed{', all scalars equal' if name in want else ''}"}
-            buckets[name] = (table[:, 0].contiguous(), c, signed, want[name if name in want else m])
+            rec[name] = {"max_abs_err": err, **_sorted_record(pa, sc, c, table, plain_ms, 5, signed, digits),
+                         "shape": f"{m} points, c = {c}, {sign}{', all scalars equal' if name in want else ''}"}
+            buckets[name] = (table[:, 0].contiguous(), c, signed, expect)
             del table, plain_table
             continue
+        # K6: the table walk over point segments, then the K2 fold
         nseg, seg_len = M.segments(m, K.windows(c) * K.rows(c, signed))
         pad = nseg * seg_len - m
-        pa = torch.nn.functional.pad(pa_all[:m], (0, 0, 0, 0, 0, pad)).contiguous()
-        sc = torch.nn.functional.pad(sc_all[:m], (0, 0, 0, pad)).contiguous()
+        pa = torch.nn.functional.pad(pa, (0, 0, 0, 0, 0, pad)).contiguous()
+        sc = torch.nn.functional.pad(sc, (0, 0, 0, pad)).contiguous()
         dead = C.affine_is_infinity(pa)
-        if route == "words":
-            args = (pa, sc, nseg, seg_len, c)
-            run, plain = (lambda a=args: K.accumulate(*a)), (lambda a=args: K.plain_accumulate(*a))
-            live = int(((K.scalar_digits(sc, None, c, False) != 0) & ~dead[:, None]).sum())
-            inputs = pa.numel() + sc.numel()
-        else:
-            digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
-            digits = digits.to(torch.int32)[:, None].contiguous()
-            args = (pa, digits, nseg, seg_len, c, signed)
-            run, plain = (lambda a=args: KB.accumulate(*a)), (lambda a=args: KB.plain_accumulate(*a))
-            live = int(((digits[:, 0] != 0) & ~dead[None, :]).sum())
-            inputs = pa.numel() + digits.numel()
+        digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
+        digits = digits.to(torch.int32)[:, None].contiguous()
+        args = (pa, digits, nseg, seg_len, c, signed)
+        run, plain = (lambda a=args: KB.accumulate(*a)), (lambda a=args: KB.plain_accumulate(*a))
+        live = int(((digits[:, 0] != 0) & ~dead[None, :]).sum())
         table = run().reshape(K.windows(c), nseg, K.rows(c, signed), 3, 8)
         plain_table, plain_ms = timed_once(plain)
         err = max_abs_err(table, plain_table.reshape(table.shape))
@@ -578,9 +600,9 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
             "plain_ms": plain_ms,
             "library_ms": None,
             "shape": f"{m} points, c = {c}, {sign}, {nseg} segments of {seg_len}",
-            **bound(4 * (inputs + table.numel()), live * MIXED_FMULS),
+            **bound(4 * (pa.numel() + digits.numel() + table.numel()), live * MIXED_FMULS),
         }
-        buckets[name] = (M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), c, signed, want[m])
+        buckets[name] = (M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), c, signed, expect)
         del table
 
     for name, (bk, c, signed, expect) in buckets.items():
@@ -1181,14 +1203,17 @@ def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extr
     phase 4's points tiled, so every run is checked exactly against
     (sum_j k_j ((j mod 2^20) + 1)) G; at 2^16 also against the native C++
     Pippenger. Each run prints one line: the median of 3 CUDA-event reps
-    after the checked call, points/s, and the launches per kernel of the
-    checked call, whose counts start from 0."""
+    after the checked call, points/s, the launches per kernel of the
+    checked call, whose counts start from 0, and, where c does not divide
+    16, the median ms of the digit recoding the run includes (torch ops, the
+    JAX package's recoding)."""
     import torch
 
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.hostmath.curve import g1_generator, g1_mul
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_msm as K
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import msm as M
@@ -1237,6 +1262,9 @@ def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extr
         med, reps = _median_ms(run)
         line = {"n": n, "c": c, "signed": signed, "median_ms": med, "reps_ms": reps,
                 "points_per_s": n / (med / 1e3), "launches": counts, "cuda_launches": cuda_counts}
+        if c not in K.IN_KERNEL_C:  # the digit tensor's recoding in torch, inside median_ms
+            recode = M.window_digits_signed if signed else M.window_digits
+            line["recode_ms"] = _median_ms(lambda: recode(sc, c).to(torch.int32))[0]
         runs.append(line)
         print("phase 7 msm sweep:", json.dumps(line), f"[{card}]", flush=True)
     for k in ("K2", "K3", "K4", "K6", "K8", "K9", "K10"):
@@ -1323,6 +1351,8 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
     masks = M.signed_carries(sm, 8).reshape(steps, lanes, -1).contiguous()
     _, digits = _k13_stream(pa, sm, lanes, 6, True)
     _, udigits = _k13_stream(pa, sm, lanes, 8, False)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
     checks = {
         "msm_single_fused (K6)": (MS.msm_single_fused(stream, digits, 6, signed=True), [one]),
         "msm_single_fused unsigned (K10)": (MS.msm_single_fused(stream, udigits, 8), [one]),
@@ -1337,9 +1367,14 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
             MS.batched_bucket_tail(MS.bucket_accumulate_from_scalars_signed(stream, sc_stream, masks, 8), 8,
                                    nbuckets=MS.signed_table_size(8), shifted=True), lane_want),
     }
+    torch.cuda.synchronize()
+    entry_launches = {k: v for k, v in cuda_lib.launches.items() if v}
     for name, (got, expect) in checks.items():
         assert C.projective_to_host_points(got) == expect, f"{name} != native oracle"
-    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches, "entry_points_checked": list(checks)}
+    for k in ("K3", "K4", "K6", "K7", "K8", "K10"):
+        assert entry_launches.get(k, 0) > 0, (k, entry_launches)
+    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches, "entry_points_checked": list(checks),
+            "entry_point_launches": entry_launches}
 
 
 def _stage(name, fn, ms, counts, k5_lanes=None):
@@ -1800,11 +1835,12 @@ def main() -> int:
     t0 = time.perf_counter()
     group = phase_group(dev, card)
     print(f"phase 9 tune_group grid ({time.perf_counter() - t0:.1f} s): launches",
-          json.dumps(group["path_launches"]), f"[{card}]", flush=True)
+          json.dumps(group["path_launches"]), "entry points' launches", json.dumps(group["entry_point_launches"]),
+          f"[{card}]", flush=True)
 
     sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K2": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
                "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_tail.cuh",
-               "K8": "msm_accumulate.cuh", "K9": "msm_sorted.cu", "K10": "msm_batched.cu",
+               "K8": "msm_sorted.cu", "K9": "msm_sorted.cu", "K10": "msm_sorted.cu",
                "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu",
                "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu"}
     replaces = {
@@ -1843,7 +1879,8 @@ def main() -> int:
         **dict.fromkeys(("G1SMUL", "G1BFLY"), ("phase 8", kzg["path_launches"])),
         "K13": ("phase 9", group["path_launches"]),
     }
-    cuda_path = {"K3": verkle["path_cuda_launches"]["K3"], "K9": sweep["path_cuda_launches"]["K9"]}
+    cuda_path = {"K3": verkle["path_cuda_launches"]["K3"],
+                 **{k: sweep["path_cuda_launches"][k] for k in ("K8", "K9", "K10")}}
     chains = {"G1SMUL": "verkle_kzg_tpu/ops/curve.py:239", "G1BFLY": "verkle_kzg_tpu/ops/curve.py:239",
               "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342"}
     kernels = []
@@ -1864,8 +1901,8 @@ def main() -> int:
             "bound_by": first["bound_by"],
             "library_ms": None,
             **({"chain_ms": first["chain_ms"], "replaces_chain": chains[k]} if k in chains else {}),
-            # K3/K9: the main path's CUDA launches and one call's, as the C
-            # entry point counted them, and the first record's stage times
+            # K3/K9/K8/K10: the main path's CUDA launches and one call's, as
+            # the C entry point counted them, and the first record's stage times
             **({"cuda_launches": cuda_path[k], "cuda_launches_per_call": first["cuda_launches"],
                 "stages_ms": first["stages_ms"]} if k in cuda_path else {}),
         })

@@ -93,39 +93,70 @@ def test_kernels_match_plain_on_card(cuda):
 )
 def test_window_modes_match_plain_on_card(cuda, c, signed, key):
     """The single MSM's other widths and signs: the accumulation (K8, K9
-    sorted, K10, K6 unsigned) and K4 on its (folded) tables, against their
-    plain versions, and the whole MSM against the native oracle."""
+    and K10 sorted, K6's table walk unsigned) and K4 on its buckets (K6's
+    folded tables), against their plain versions, and the whole MSM against
+    the native oracle, with its launches: the sorted routes one count and no
+    K2 fold."""
     n = 300
     pts, ks = _inputs(n, 90 + c)
+    pa, sc = C.host_points_to_affine(pts, cuda), F.ints_to_words(ks, cuda)
     cuda_lib.reset_launches()
-    if signed and c in K.IN_KERNEL_C:
-        pa, sc = C.host_points_to_affine(pts, cuda), F.ints_to_words(ks, cuda)
-        table = KS.accumulate(pa, sc, c)
-        assert torch.equal(table, KS.plain_accumulate(pa, sc, c))
-        assert cuda_lib.launches[key] == 1
-        out = K.tail(table[:, 0].contiguous(), c)
-        assert torch.equal(out, K.plain_tail(table[:, 0].contiguous(), c))
-        assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
-        return
-    nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
-    pad = nseg * seg_len - n
-    pa = torch.nn.functional.pad(C.host_points_to_affine(pts, cuda), (0, 0, 0, 0, 0, pad)).contiguous()
-    sc = torch.nn.functional.pad(F.ints_to_words(ks, cuda), (0, 0, 0, pad)).contiguous()
     if c in K.IN_KERNEL_C:
-        table = K.accumulate(pa, sc, nseg, seg_len, c)
-        assert torch.equal(table, K.plain_accumulate(pa, sc, nseg, seg_len, c))
-    else:
+        table = KS.accumulate(pa, sc, c, signed=signed)
+        assert torch.equal(table, KS.plain_accumulate(pa, sc, c, signed=signed))
+        buckets = table[:, 0].contiguous()
+    elif key == "K10":
         digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)[:, None].contiguous()
-        table = KB.accumulate(pa, digits, nseg, seg_len, c, signed)
-        assert torch.equal(table, KB.plain_accumulate(pa, digits, nseg, seg_len, c, signed))
-        table = table[:, 0]
+        table = KS.accumulate_digits(pa, digits, c, signed)
+        assert torch.equal(table, KS.plain_accumulate_digits(pa, digits, c, signed))
+        buckets = table[:, 0].contiguous()
+    else:
+        nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
+        pad = nseg * seg_len - n
+        pp = torch.nn.functional.pad(pa, (0, 0, 0, 0, 0, pad)).contiguous()
+        sp = torch.nn.functional.pad(sc, (0, 0, 0, pad)).contiguous()
+        digits = (M.window_digits_signed if signed else M.window_digits)(sp, c).to(torch.int32)[:, None].contiguous()
+        table = KB.accumulate(pp, digits, nseg, seg_len, c, signed)
+        assert torch.equal(table, KB.plain_accumulate(pp, digits, nseg, seg_len, c, signed))
+        buckets = M.fold_reduce_lanes(table[:, 0], dim=1)[:, 0].contiguous()
     assert cuda_lib.launches[key] == 1
-    buckets = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
     out = K.tail(buckets, c)
     assert torch.equal(out, K.plain_tail(buckets, c))
     assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
-    got = M.msm_pippenger(pa[:n], sc[:n], c=c, signed=signed)
+    cuda_lib.reset_launches()
+    got = M.msm_pippenger(pa, sc, c=c, signed=signed)
     assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
+    if key != "K6":
+        assert {k: v for k, v in cuda_lib.launches.items() if v} == {key: 1, "K4": 1}
+        assert cuda_lib.cuda_launches[key] >= 5  # digits, scan, scatter, sums, combine at least
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n,c,signed,lanes,tensor,equal",
+    [(1 << 12, 8, False, 128, False, False), (1 << 12, 16, False, 1, False, True), (600, 1, False, 2, False, False),
+     (1 << 12, 12, True, 4, True, False), (1 << 12, 13, False, 1, True, True), (1 << 10, 9, True, 1, True, False)],
+)
+def test_wide_sorted_accumulation_matches_plain_on_card(cuda, n, c, signed, lanes, tensor, equal):
+    """K8 and K10 word for word against their plain version: 128 lanes
+    (the lane-stream shape), all scalars equal at 65,535 and 8,191 rows a
+    window (one bucket a window over every chunk), a digit tensor in four
+    lanes; one count a call, 5-12 CUDA launches."""
+    pts, ks = _inputs(n, 170 + c)
+    if equal:
+        ks = [ks[5]] * n
+    pa, sc = C.host_points_to_affine(pts, cuda), F.ints_to_words(ks, cuda)
+    key = KS.launch_key(c, signed, tensor)
+    cuda_lib.reset_launches()
+    if tensor:
+        digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)
+        digits = digits.reshape(-1, lanes, n // lanes).contiguous()
+        got = KS.accumulate_digits(pa, digits, c, signed)
+        assert torch.equal(got, KS.plain_accumulate_digits(pa, digits, c, signed))
+    else:
+        got = KS.accumulate(pa, sc, c, lanes, signed=signed)
+        assert torch.equal(got, KS.plain_accumulate(pa, sc, c, lanes, signed=signed))
+    assert cuda_lib.launches[key] == 1 and 5 <= cuda_lib.cuda_launches[key] <= 12
 
 
 @pytest.mark.gpu

@@ -1,5 +1,5 @@
 """The port's lane-stream MSM entry points (verkle_kzg_tpu_torch.ops.msm_stream
-over the plain versions of K13, K6/K10, K3/K8/K9, K2, K4 and K7 on the CPU)
+over the plain versions of K13, K6, K3/K8/K9/K10, K2, K4 and K7 on the CPU)
 against the host sums of each bucket, the native C++ oracle and, in
 interpret mode, the TPU kernel K13 replaces (pallas_msm._accum_kernel_group).
 Both packages take the same streams, made from a seed; exact on group
@@ -118,12 +118,12 @@ def check_scalar_stream(c, signed):
     msm_pippenger at the same c and sign; its buckets equal
     bucket_accumulate's on the digits the kernel derives (signed: the carry
     rule of signed_carries, which may differ from window_digits_signed at a
-    tie), word for word unsigned and as group elements signed. Signed words
-    cannot match: the sorted sums add a bucket that spans chunks as a tree
-    of projective partials, where the K13 walk adds its points in one
-    chain, and at these sizes every bucket of 3 or more entries spans
-    chunks. The sorted kernel is held word for word against its own plain
-    version instead (test_torch_msm_sorted.py, and on the card)."""
+    tie) as group elements. Words cannot match: the sorted sums (K3 and K8
+    alike) add a bucket that spans chunks as a tree of projective partials,
+    where the K13 walk adds its points in one chain, and at these sizes
+    every bucket of 3 or more entries spans chunks. The sorted kernels are
+    held word for word against their own plain version instead
+    (test_torch_msm_sorted*.py, and on the card)."""
     _, _, (_, js, _, _), (pts_stream, sc_stream), want = _data()
     if signed:
         masks = _masks(js, c)
@@ -137,10 +137,7 @@ def check_scalar_stream(c, signed):
         _, digits = _digits(js, c, False, LANES)
     assert _host(got) == [want] == _jax_msm(c, signed)
     walked = MS.bucket_accumulate(pts_stream, digits, c, signed=signed, wgroup=2, fused=True)
-    if signed:  # the sorted sums add a bucket's chunks in a tree: the same group elements
-        assert _host(buckets) == _host(walked)
-    else:
-        assert torch.equal(buckets, walked)
+    assert _host(buckets) == _host(walked)  # the sorted sums add a bucket's chunks in a tree
 
 
 def _row_sums(pts, digits, c, signed, lanes):

@@ -57,20 +57,12 @@ _buckets = {}
 def _single_buckets(pts, ks, c, signed):
     """The single MSM's (W, rows, 3, 8) buckets over the first SINGLE
     lanes' points, through the plain accumulation: the sorted K3 / K9
-    signed, K8's folded tables unsigned."""
+    signed, K8 unsigned."""
     if (c, signed) in _buckets:
         return _buckets[c, signed]
     n = SINGLE * N
     pa, sc = C.host_points_to_affine(pts[:n], "cpu"), F.ints_to_words(ks[:n], "cpu")
-    if signed:
-        _buckets[c, signed] = KS.accumulate(pa, sc, c)[:, 0].contiguous()
-        return _buckets[c, signed]
-    nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
-    pad = nseg * seg_len - n
-    pa = torch.nn.functional.pad(pa, (0, 0, 0, 0, 0, pad))
-    sc = torch.nn.functional.pad(sc, (0, 0, 0, pad))
-    table = K.accumulate(pa, sc, nseg, seg_len, c)
-    _buckets[c, signed] = M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
+    _buckets[c, signed] = KS.accumulate(pa, sc, c, signed=signed)[:, 0].contiguous()
     return _buckets[c, signed]
 
 

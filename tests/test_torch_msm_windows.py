@@ -20,6 +20,7 @@ from verkle_kzg_tpu.params import R
 from verkle_kzg_tpu_torch import native
 from verkle_kzg_tpu_torch.ops import cuda_msm as K
 from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
 from verkle_kzg_tpu_torch.ops import msm as M
@@ -86,32 +87,30 @@ def test_matches_jax_pippenger(n, c, lanes, signed):
 @pytest.mark.parametrize("c,signed,key", [(4, False, "K8"), (9, True, "K10"), (9, False, "K10")])
 def test_plain_tables_hold_buckets(c, signed, key):
     """Row i of window w is the sum of the points whose window-w digit is
-    +-(i + 1), negated for a negative digit; K4 turns the folded tables
-    into the MSM."""
+    +-(i + 1), negated for a negative digit, in the buckets of the sorted
+    accumulation (K8 from the scalar words, K10 from the digit tensor); K4
+    turns them into the MSM."""
     n = 40
     pts, ks = _case(n, c, 300 + c)
     pa, sc = _port(pts, ks)
-    nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
-    pad = nseg * seg_len - n
-    pa = torch.nn.functional.pad(pa, (0, 0, 0, 0, 0, pad))
-    sc = torch.nn.functional.pad(sc, (0, 0, 0, pad))
     if key == "K8":
+        assert KS.launch_key(c, signed) == key
         digits = K.scalar_digits(sc, None, c, False).T  # (W, n)
-        table = K.accumulate(pa, sc, nseg, seg_len, c)
+        buckets = KS.accumulate(pa, sc, c, signed=False)
     else:
         assert KB.launch_key(c, signed) == key
         digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
-        table = KB.accumulate(pa, digits.to(torch.int32)[:, None], nseg, seg_len, c, signed)[:, 0]
-    assert table.shape == (K.windows(c), nseg, K.rows(c, signed), 3, 8)
-    folded = M.fold_reduce_lanes(table, dim=1)[:, 0]
+        buckets = KS.accumulate_digits(pa, digits.to(torch.int32)[:, None], c, signed)
+    assert buckets.shape == (K.windows(c), 1, K.rows(c, signed), 3, 8)
+    buckets = buckets[:, 0].contiguous()
     for w in (0, 1, K.windows(c) - 2):
         for row in sorted({abs(d) - 1 for d in digits[w, :n].tolist() if d})[:3]:
             want = None
             for pt, d in zip(pts, digits[w, :n].tolist()):
                 if abs(d) == row + 1 and pt is not None:
                     want = hc.g1_add(want, pt if d > 0 else hc.g1_neg(pt))
-            assert C.projective_to_host_points(folded[w, row]) == [want]
-    out = K.tail(folded.contiguous(), c)
+            assert C.projective_to_host_points(buckets[w, row]) == [want]
+    out = K.tail(buckets, c)
     assert C.projective_to_host_points(out) == [native.g1_msm(pts, ks)]
 
 

@@ -1,26 +1,19 @@
-// K6 / K10: the digit-tensor Pippenger accumulation, each lane its own MSM,
-// over digits of any width (bucket |d| in row |d| - 1 of a `rows`-row table:
-// 2^(c-1) rows for balanced signed digits, 2^c - 1 unsigned; counted as K10
-// above 128 rows). K7, the lane-batched tail, is msm_tail.cuh's, with its
-// entry point in msm.cu. See ops/cuda_msm_batched.py for what they replace
-// and why they are shaped so.
+// K6: the digit-tensor Pippenger accumulation as a table walk, each lane its
+// own MSM, over digits of up to 128 rows a window (bucket |d| in row |d| - 1
+// of a `rows`-row table: 2^(c-1) rows for balanced signed digits, 2^c - 1
+// unsigned). A digit tensor of more rows takes K10, the bucket-sorted
+// design of msm_sorted.cu. K7, the lane-batched tail, is msm_tail.cuh's,
+// with its entry point in msm.cu. See ops/cuda_msm_batched.py for what they
+// replace and why they are shaped so.
 #include <cuda_runtime.h>
 
 #include "msm_accumulate.cuh"
 
 using namespace vkzg;
 
-namespace {
-// The digits of one (window, lane, segment), read from the digit tensor.
-struct TensorDigit {
-  const int32_t* __restrict__ dg;
-  __device__ __forceinline__ int operator()(int64_t i) const { return dg[i]; }
-};
-}  // namespace
-
-// K6 / K10. Thread t owns window w = t % W of lane b and point segment s
+// K6. Thread t owns window w = t % W of lane b and point segment s
 // ((t / W) = s * B + b), and a private table of `rows` buckets in global
-// memory, laid out (W, B, S, rows, 3, 8), filled by the shared segment walk
+// memory, laid out (W, B, S, rows, 3, 8), filled by the segment walk
 // (msm_accumulate.cuh) with digit d = digits[w, b, point]. Lane b reads its
 // points at pts + b * lane_stride: 0 for a basis shared by every lane.
 __global__ void __launch_bounds__(128) msm_batched_accumulate_kernel(
@@ -33,10 +26,9 @@ __global__ void __launch_bounds__(128) msm_batched_accumulate_kernel(
   const int64_t rest = t / nwin;
   const int64_t b = rest % nlanes;
   const int64_t s = rest / nlanes;
-  const TensorDigit digit{digits + ((int64_t)w * nlanes + b) * nseg * seg_len + s * seg_len};
   accumulate_segment(pts + b * lane_stride + s * seg_len * 16,
-                     table + (((int64_t)w * nlanes + b) * nseg + s) * rows * 24, rows, seg_len,
-                     digit);
+                     digits + ((int64_t)w * nlanes + b) * nseg * seg_len + s * seg_len,
+                     table + (((int64_t)w * nlanes + b) * nseg + s) * rows * 24, rows, seg_len);
 }
 
 // pts: (npoints, 2, 8) affine shared by every lane (lane_stride 0) or

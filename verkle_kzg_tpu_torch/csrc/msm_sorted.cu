@@ -1,12 +1,18 @@
-// K3 and K9: the signed single-MSM bucket accumulation with digits from the
-// scalar words, as a bucket-sorted Pippenger. It replaces the TPU kernels of
-// verkle_kzg_tpu/ops/pallas_msm.py launched at line 700
-// (_accum_kernel_sc_signed_pair, c in {1, 2, 4, 8}: K3) and at line 719
-// (_accum_kernel_sc_signed, c = 16: K9). For each of B point streams
-// ("lanes", point p in lane p / S), window w and row i < 2^(c-1), bucket
-// (w, b, i) is the sum of the lane's points whose balanced window-w digit is
-// +-(i + 1), y negated for a negative digit; digit 0 and the (0, 0) sentinel
-// add nothing. Output (W, B, rows, 3, 8) projective, reduced, the identity in
+// K3, K9, K8 and K10: the single-MSM bucket accumulations, as one
+// bucket-sorted Pippenger fed by three digit sources. It replaces the TPU
+// kernels of verkle_kzg_tpu/ops/pallas_msm.py launched at line 700
+// (_accum_kernel_sc_signed_pair: signed digits from the scalar words, c in
+// {1, 2, 4, 8}, K3), at line 719 (_accum_kernel_sc_signed: the same at
+// c = 16, K9), at line 330 (_accum_kernel_sc: unsigned digits from the
+// scalar words, c in {1, 2, 4, 8, 16}, K8) and at line 883 (_accum_kernel:
+// digits from a digit tensor, any c in [1, 16] whose window has more than
+// 128 rows, K10; up to 128 rows the digit tensor takes K6's table walk,
+// msm_batched.cu). For each of B point streams ("lanes", point p in lane
+// p / S), window w and row i, bucket (w, b, i) is the sum of the lane's
+// points whose window-w digit is +-(i + 1), y negated for a negative digit;
+// digit 0 and the (0, 0) sentinel add nothing. A window has 2^(c-1) rows
+// for balanced signed digits and 2^c - 1 for unsigned ones, W = ceil(256 /
+// c) windows. Output (W, B, rows, 3, 8) projective, reduced, the identity in
 // empty rows. ops/cuda_msm_sorted.py has the wrapper and the plain version,
 // which follows these kernels' order of additions step for step.
 //
@@ -23,23 +29,29 @@
 // the whole table. The H100 scatters freely, so the entries are sorted by
 // bucket instead: no per-thread tables, every mixed add accumulates in
 // registers, and each thread walks an equal share of the entries whatever
-// the key skew. The stages, each a kernel (several launches in all; no
-// library kernel):
+// the key skew or the window's rows (65,535 unsigned at c = 16). The
+// stages, each a kernel (several launches in all; no library kernel):
 //
-//  1. digits: one thread a scalar extracts its W raw digits and balances
-//     them in registers with the carry rule of ops/msm.py::signed_carries
-//     (or reads the caller's carry words). Each (window, point) gets
-//     key = (window, lane, |d| - 1), or -1 when dead, and value = point
-//     index with the sign in bit 31, dense in (window, point) order; a
-//     block counts its tile's keys by bin for the sort.
+//  1. digits: from the scalar words, one thread a scalar extracts its W raw
+//     digits (C divides 16) and, signed, balances them in registers with
+//     the carry rule of ops/msm.py::signed_carries (or reads the caller's
+//     carry words); unsigned, the raw digit is the digit. From a digit
+//     tensor (W, B, S), one thread a point reads its W digits as given.
+//     Each (window, point) gets key = (window, lane, |d| - 1), or -1 when
+//     dead, and value = point index with the sign in bit 31, dense in
+//     (window, point) order; a block counts its tile's keys by bin for the
+//     sort.
 //  2. sort: a stable counting sort of each (window, lane) segment by the
 //     row, over tiles of points: per-tile histograms, an exclusive scan over
 //     (segment, bin, tile), and a scatter that ranks equal bins within a
 //     tile by warp (__match_any_sync) and per-warp counts in shared memory,
 //     stages the tile in bin order there and writes each bin's run whole.
-//     c <= 8 (at most 128 rows) is one pass; c = 16 (2^15 rows) two LSD
-//     passes of 8 and 7 bits, the second over the first's segments. Each
-//     bucket's entries then come in ascending point order: deterministic.
+//     LSD passes of at most 8 bits of the row (the key less its segment's
+//     first key, so unsigned windows of 2^c - 1 rows bin as signed ones):
+//     one pass up to 256 rows, two above (c >= 10 signed, c >= 9
+//     unsigned; 8 + 8 bits at c = 16 unsigned), the second over the
+//     first's segments. Each bucket's entries then come in ascending point
+//     order: deterministic.
 //  3. sums: the E sorted entries are cut into chunks of L = chunk_len(E)
 //     (at most `target` chunks). A thread walks its chunk with the
 //     accumulator in registers, from the identity, one lazy mixed add an
@@ -67,26 +79,35 @@ namespace {
 constexpr int THREADS = 256;      // the digit, sort and scan kernels' blocks
 constexpr int WARPS = THREADS / 32;
 constexpr int SUM_THREADS = 128;  // the sums and combine kernels' blocks
-constexpr int MAX_COUNTS = 4096;  // the digit kernel's histogram: windows x bins
-constexpr int FILL_BLOCKS = 264;  // the digit kernel's blocks at least: 2 an SM fill the buckets
+constexpr int MAX_COUNTS = 8192;  // the digit kernels' histogram: windows x bins (32 KB of shared memory)
+constexpr int FILL_BLOCKS = 264;  // the digit kernels' blocks at least: 2 an SM fill the buckets
 constexpr int MAX_TILE = 2048;    // points a sort tile at most: its entries are staged in shared memory
 constexpr int SCAN_ITEMS = 16;
 constexpr int SCAN_PIECE = THREADS * SCAN_ITEMS;
 constexpr int64_t SCAN_ONE = 4 * SCAN_PIECE;  // one block scans arrays up to this
 constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ constexpr int rows_of(int c) { return 1 << (c - 1); }
-// Bins of the first sort pass: the whole row up to 128 rows, its low 8 bits
-// at c = 16; the second pass (c = 16) takes the 7 bits above them.
-__host__ __device__ constexpr int bins_a(int c) { return rows_of(c) < 256 ? rows_of(c) : 256; }
-constexpr int BINS_B = 128;
+__host__ __device__ constexpr int bit_len(int x) { return x ? 1 + bit_len(x >> 1) : 0; }
+__host__ __device__ constexpr int rows_of(int c, bool sgn) { return sgn ? 1 << (c - 1) : (1 << c) - 1; }
+__host__ __device__ constexpr int row_bits(int c, bool sgn) { return bit_len(rows_of(c, sgn) - 1); }
+// Bins of the first sort pass: the row's low 8 bits (all of them up to 256
+// rows); the second pass, where there is one, takes the bits above them.
+__host__ __device__ constexpr int first_bins(int c, bool sgn) {
+  return 1 << (row_bits(c, sgn) < 8 ? row_bits(c, sgn) : 8);
+}
+__host__ __device__ constexpr int second_bins(int c, bool sgn) {
+  return row_bits(c, sgn) > 8 ? 1 << (row_bits(c, sgn) - 8) : 0;
+}
 
 int64_t round4(int64_t words) { return (words + 3) & ~int64_t(3); }
 
 // The sizes of one call over windows [w0, w0 + wg), and where each array
 // lies in the int32 workspace (offsets in words, each a multiple of 4).
+// from_words: the digits come from the scalar words (c must divide 16),
+// else from a digit tensor.
 struct Plan {
-  int c = 0, wg = 0, tile = 0, target = 0;
+  int c = 0, wg = 0, tile = 0, target = 0, nwin = 0, rows = 0, bins_a = 0, bins_b = 0;
+  bool sgn = true;
   int64_t n = 0, lanes = 0, lane_len = 0, tps = 0, hist_a = 0, hist_b = 0;
   int64_t counters = 0, partials = 0, firsts = 0, keys[3] = {0, 0, 0}, vals[3] = {0, 0, 0};
   int64_t h_a = 0, o_a = 0, p_a = 0, h_b = 0, o_b = 0, p_b = 0, words = 0;
@@ -94,26 +115,30 @@ struct Plan {
 
   static int64_t scan_parts(int64_t h) { return h <= SCAN_ONE ? 0 : (h + SCAN_PIECE - 1) / SCAN_PIECE; }
 
-  Plan(int64_t npoints, int64_t nlanes, int c_, int wg_, int target_)
-      : c(c_), wg(wg_), target(target_), n(npoints), lanes(nlanes) {
-    if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return;
-    if (n < 1 || lanes < 1 || n % lanes || wg < 1 || wg > 256 / c || target < 1) return;
+  Plan(int64_t npoints, int64_t nlanes, int c_, bool sgn_, bool from_words, int wg_, int target_)
+      : c(c_), wg(wg_), target(target_), sgn(sgn_), n(npoints), lanes(nlanes) {
+    if (c < 1 || c > 16 || (from_words && 16 % c)) return;
+    nwin = (256 + c - 1) / c;
+    rows = rows_of(c, sgn);
+    bins_a = first_bins(c, sgn);
+    bins_b = second_bins(c, sgn);
+    if (n < 1 || lanes < 1 || n % lanes || wg < 1 || wg > nwin || target < 1) return;
     if (n >= (int64_t(1) << 31) || (int64_t)wg * n >= (int64_t(1) << 31)) return;
-    if ((int64_t)wg * lanes * rows_of(c) >= (int64_t(1) << 31)) return;
-    if (wg * bins_a(c) > MAX_COUNTS) return;
+    if ((int64_t)wg * lanes * rows >= (int64_t(1) << 31)) return;
+    if (wg * bins_a > MAX_COUNTS) return;
     lane_len = n / lanes;
     // Points a sort tile: about 64 tiles a lane, 256 to MAX_TILE.
     int64_t want = (lane_len + 63) / 64;
     tile = 256;
     while (tile < want && tile < MAX_TILE) tile *= 2;
     tps = (lane_len + tile - 1) / tile;
-    hist_a = (int64_t)wg * lanes * bins_a(c) * tps;
-    hist_b = c == 16 ? (int64_t)wg * lanes * BINS_B * tps : 0;
+    hist_a = (int64_t)wg * lanes * bins_a * tps;
+    hist_b = (int64_t)wg * lanes * bins_b * tps;
     int64_t at = 0;
     counters = at, at += round4(4 * (int64_t)target);  // 2 uint64 a chunk
     partials = at, at += round4(48 * (int64_t)target);  // 2 points a chunk
     firsts = at, at += round4(target);                  // a chunk's first key
-    const int npairs = c == 16 ? 3 : 2;
+    const int npairs = bins_b ? 3 : 2;
     for (int i = 0; i < npairs; ++i) {
       keys[i] = at, at += round4((int64_t)wg * n);
       vals[i] = at, at += round4((int64_t)wg * n);
@@ -121,7 +146,7 @@ struct Plan {
     h_a = at, at += round4(hist_a);
     o_a = at, at += round4(hist_a + 1);
     p_a = at, at += round4(scan_parts(hist_a) + 1);
-    if (c == 16) {
+    if (bins_b) {
       h_b = at, at += round4(hist_b);
       o_b = at, at += round4(hist_b + 1);
       p_b = at, at += round4(scan_parts(hist_b) + 1);
@@ -135,29 +160,12 @@ struct Plan {
 // Stage 1: digits, keys and the first pass's tile histograms.
 // ---------------------------------------------------------------------------
 
-// Block (b, t) takes points [b S + t tile, ...) of lane b, 256 at a time.
-// Window w's raw digit is bits [w C, w C + C) of the scalar (C divides 16,
-// so inside one word). Without carry words, the carry into window w + 1 is
-// raw_w > 2^(C-1), or raw_w == 2^(C-1) with a nonzero raw digit below w (a
-// scalar mod 2^(C(w+1)) above half of 2^(C(w+1)), ties down when the bits
-// below are zero), none out of the top window; with them, bit w and bit
-// w + 1 of the caller's words are the carries in and out. d = raw + carry
-// in - carry out << C. The blocks, with FILL_BLOCKS at least in the grid,
-// also fill this window group's bucket rows with the identity (50 MB at
-// c = 16); the sums and the combine overwrite the rows with points.
-template <int C>
-__global__ void __launch_bounds__(THREADS) sorted_digits_kernel(
-    const uint32_t* __restrict__ pts, const uint32_t* __restrict__ sc,
-    const uint32_t* __restrict__ masks, int32_t* __restrict__ keys, int32_t* __restrict__ vals,
-    int32_t* __restrict__ hist, uint32_t* __restrict__ buckets, int64_t lane_len, int nlanes,
-    int w0, int wg, int tile, int64_t tps) {
-  constexpr int W = 256 / C, ROWS = rows_of(C), BINS = bins_a(C), HALF = 1 << (C - 1);
-  constexpr int PER_WORD = 32 / C, NWORDS = W / 32 + 1;
-  constexpr uint32_t DMASK = (1u << C) - 1u;
-  __shared__ int cnt[MAX_COUNTS];
-  const int ncnt = wg * BINS;
+// What the two digit kernels share. Every block zeroes its counts and,
+// with FILL_BLOCKS at least in the grid, fills this window group's bucket
+// rows with the identity (50-100 MB at c = 16); the sums and the combine
+// overwrite the rows with points. Returns false to a block that only fills.
+__device__ bool digits_begin(int* cnt, int ncnt, uint32_t* buckets, int64_t fill, int64_t tiles) {
   for (int i = threadIdx.x; i < ncnt; i += THREADS) cnt[i] = 0;
-  const int64_t fill = (int64_t)wg * nlanes * ROWS;
   for (int64_t r = (int64_t)blockIdx.x * THREADS + threadIdx.x; r < fill;
        r += (int64_t)gridDim.x * THREADS) {
     Point inf;
@@ -165,9 +173,57 @@ __global__ void __launch_bounds__(THREADS) sorted_digits_kernel(
     store_point(buckets + 24 * r, inf);
   }
   __syncthreads();
-  if (blockIdx.x >= nlanes * tps) return;  // a block that only fills
+  return blockIdx.x < tiles;
+}
 
-  const int lane = threadIdx.x & 31;
+// Entry (wl, p) of segment seg = wl * lanes + b with digit d: its key and
+// value, and its count in the block's histogram of (window, bin). Every
+// lane of the warp calls it together; `in` is false past the tile's end.
+__device__ __forceinline__ void put_entry(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
+                                          int* cnt, int64_t n, int64_t p, bool in, bool live, int d,
+                                          int wl, int64_t seg, int rows, int bins) {
+  const bool on = live && d != 0;
+  const int row = (d < 0 ? -d : d) - 1;
+  if (in) {
+    keys[wl * n + p] = on ? (int32_t)(seg * rows + row) : -1;
+    vals[wl * n + p] = (int32_t)((uint32_t)p | (d < 0 ? 0x80000000u : 0u));
+  }
+  const int slot = on ? wl * bins + (row & (bins - 1)) : -1;
+  const unsigned peers = __match_any_sync(FULL, slot);
+  if (on && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&cnt[slot], __popc(peers));
+}
+
+// The block's counts into the first pass's tile histograms.
+__device__ void digits_end(const int* cnt, int wg, int bins, int nlanes, int64_t b, int64_t t,
+                           int64_t tps, int32_t* __restrict__ hist) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < wg * bins; i += THREADS) {
+    const int64_t seg = (int64_t)(i / bins) * nlanes + b;
+    hist[(seg * bins + i % bins) * tps + t] = cnt[i];
+  }
+}
+
+// Digits from the scalar words. Block (b, t) takes points [b S + t tile,
+// ...) of lane b, 256 at a time. Window w's raw digit is bits [w C, w C + C)
+// of the scalar (C divides 16, so inside one word). Unsigned (K8), the raw
+// digit is the digit. Signed (K3, K9), without carry words, the carry into
+// window w + 1 is raw_w > 2^(C-1), or raw_w == 2^(C-1) with a nonzero raw
+// digit below w (a scalar mod 2^(C(w+1)) above half of 2^(C(w+1)), ties down
+// when the bits below are zero), none out of the top window; with them, bit
+// w and bit w + 1 of the caller's words are the carries in and out.
+// d = raw + carry in - carry out << C.
+template <int C, bool SGN>
+__global__ void __launch_bounds__(THREADS) sorted_digits_kernel(
+    const uint32_t* __restrict__ pts, const uint32_t* __restrict__ sc,
+    const uint32_t* __restrict__ masks, int32_t* __restrict__ keys, int32_t* __restrict__ vals,
+    int32_t* __restrict__ hist, uint32_t* __restrict__ buckets, int64_t lane_len, int nlanes,
+    int w0, int wg, int tile, int64_t tps) {
+  constexpr int W = 256 / C, ROWS = rows_of(C, SGN), BINS = first_bins(C, SGN), HALF = 1 << (C - 1);
+  constexpr int PER_WORD = 32 / C, NWORDS = W / 32 + 1;
+  constexpr uint32_t DMASK = (1u << C) - 1u;
+  __shared__ int cnt[MAX_COUNTS];
+  if (!digits_begin(cnt, wg * BINS, buckets, (int64_t)wg * nlanes * ROWS, nlanes * tps)) return;
+
   const int64_t b = blockIdx.x / tps, t = blockIdx.x % tps;
   const int64_t n = lane_len * nlanes;
   const int64_t lo = b * lane_len + t * tile;
@@ -187,7 +243,7 @@ __global__ void __launch_bounds__(THREADS) sorted_digits_kernel(
       load8(ax, pts + 16 * p);
       load8(ay, pts + 16 * p + 8);
       live = !(is_zero(ax) && is_zero(ay));
-      if (masks) {
+      if (SGN && masks) {
 #pragma unroll
         for (int j = 0; j < NWORDS; ++j) mw[j] = masks[NWORDS * p + j];
       }
@@ -204,36 +260,62 @@ __global__ void __launch_bounds__(THREADS) sorted_digits_kernel(
       for (int s = 0; s < PER_WORD; ++s) {
         const int w = j * PER_WORD + s;
         const int raw = (int)((k[j] >> (s * C)) & DMASK);
-        int cout;
-        if (masks) {
-          const int bit = w & 31;
-          cin = (int)((pair >> bit) & 1u);
-          cout = (int)((pair >> (bit + 1)) & 1u);
-        } else {
-          cout = w < W - 1 && (raw > HALF || (raw == HALF && nz));
+        int d = raw;
+        if constexpr (SGN) {
+          int cout;
+          if (masks) {
+            const int bit = w & 31;
+            cin = (int)((pair >> bit) & 1u);
+            cout = (int)((pair >> (bit + 1)) & 1u);
+          } else {
+            cout = w < W - 1 && (raw > HALF || (raw == HALF && nz));
+          }
+          d = raw + cin - (cout << C);
+          nz = nz || raw != 0;
+          cin = cout;
         }
-        const int d = raw + cin - (cout << C);
-        nz = nz || raw != 0;
-        cin = cout;
         const int wl = w - w0;
         if (wl < 0 || wl >= wg) continue;  // uniform over the block
-        const bool on = live && d != 0;
-        const int row = (d < 0 ? -d : d) - 1;
-        if (in) {
-          keys[wl * n + p] = on ? (int32_t)(((int64_t)wl * nlanes + b) * ROWS + row) : -1;
-          vals[wl * n + p] = (int32_t)((uint32_t)p | (d < 0 ? 0x80000000u : 0u));
-        }
-        const int slot = on ? wl * BINS + (row & (BINS - 1)) : -1;
-        const unsigned peers = __match_any_sync(FULL, slot);
-        if (on && lane == __ffs(peers) - 1) atomicAdd(&cnt[slot], __popc(peers));
+        put_entry(keys, vals, cnt, n, p, in, live, d, wl, (int64_t)wl * nlanes + b, ROWS, BINS);
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ncnt; i += THREADS) {
-    const int64_t seg = (int64_t)(i / BINS) * nlanes + b;
-    hist[(seg * BINS + i % BINS) * tps + t] = cnt[i];
+  digits_end(cnt, wg, BINS, nlanes, b, t, tps, hist);
+}
+
+// Digits from a digit tensor (K10): digits (W, B, S) int32, window w of
+// point p at w n + p, signed or unsigned as the caller recoded them (|d| at
+// most the rows of a window). Block (b, t) takes points [b S + t tile, ...)
+// of lane b, 256 at a time, a thread a point, and reads each window's digit
+// as the whole warp does: 128 contiguous bytes a window.
+__global__ void __launch_bounds__(THREADS) sorted_tensor_digits_kernel(
+    const uint32_t* __restrict__ pts, const int32_t* __restrict__ digits,
+    int32_t* __restrict__ keys, int32_t* __restrict__ vals, int32_t* __restrict__ hist,
+    uint32_t* __restrict__ buckets, int64_t lane_len, int nlanes, int w0, int wg, int rows,
+    int bins, int tile, int64_t tps) {
+  __shared__ int cnt[MAX_COUNTS];
+  if (!digits_begin(cnt, wg * bins, buckets, (int64_t)wg * nlanes * rows, nlanes * tps)) return;
+
+  const int64_t b = blockIdx.x / tps, t = blockIdx.x % tps;
+  const int64_t n = lane_len * nlanes;
+  const int64_t lo = b * lane_len + t * tile;
+  const int64_t hi = min(lo + tile, (b + 1) * lane_len);
+  for (int64_t first = lo; first < hi; first += THREADS) {
+    const int64_t p = first + threadIdx.x;
+    const bool in = p < hi;
+    bool live = false;
+    if (in) {
+      uint32_t ax[8], ay[8];
+      load8(ax, pts + 16 * p);
+      load8(ay, pts + 16 * p + 8);
+      live = !(is_zero(ax) && is_zero(ay));
+    }
+    for (int wl = 0; wl < wg; ++wl) {
+      const int d = in ? digits[(int64_t)(w0 + wl) * n + p] : 0;
+      put_entry(keys, vals, cnt, n, p, in, live, d, wl, (int64_t)wl * nlanes + b, rows, bins);
+    }
   }
+  digits_end(cnt, wg, bins, nlanes, b, t, tps, hist);
 }
 
 // ---------------------------------------------------------------------------
@@ -364,18 +446,27 @@ struct TileRange {
   }
 };
 
-// The second pass's tile histograms: bins (key >> shift) & (BINS - 1).
+// An entry's bin in a pass: bits [shift, shift + log2 BINS) of its row, the
+// key less its segment's first key (seg x rows).
+template <int BINS>
+__device__ __forceinline__ int bin_of(int32_t key, int32_t seg_key, int shift) {
+  return ((key - seg_key) >> shift) & (BINS - 1);
+}
+
+// The second pass's tile histograms.
 template <int BINS>
 __global__ void __launch_bounds__(THREADS) sorted_hist_kernel(
     const int32_t* __restrict__ keys, int32_t* __restrict__ hist,
-    const int32_t* __restrict__ seg_off, int64_t stride, int shift, int tile, int64_t tps) {
+    const int32_t* __restrict__ seg_off, int64_t stride, int rows, int shift, int tile,
+    int64_t tps) {
   __shared__ int cnt[BINS];
   for (int v = threadIdx.x; v < BINS; v += THREADS) cnt[v] = 0;
   __syncthreads();
   const int64_t seg = blockIdx.x / tps, t = blockIdx.x % tps;
   const TileRange r(seg_off, stride, seg, t, tile, 0, 1);
+  const int32_t seg_key = (int32_t)(seg * rows);
   for (int64_t i = r.lo + threadIdx.x; i < r.hi; i += THREADS) {
-    atomicAdd(&cnt[(keys[i] >> shift) & (BINS - 1)], 1);
+    atomicAdd(&cnt[bin_of<BINS>(keys[i], seg_key, shift)], 1);
   }
   __syncthreads();
   for (int v = threadIdx.x; v < BINS; v += THREADS) hist[(seg * BINS + v) * tps + t] = cnt[v];
@@ -418,8 +509,8 @@ __global__ void __launch_bounds__(THREADS) sorted_scatter_kernel(
     const int32_t* __restrict__ keys_in, const int32_t* __restrict__ vals_in,
     int32_t* __restrict__ keys_out, int32_t* __restrict__ vals_out,
     const int32_t* __restrict__ hist, const int32_t* __restrict__ off,
-    const int32_t* __restrict__ seg_off, int64_t stride, int64_t lane_len, int nlanes, int shift,
-    int tile, int64_t tps) {
+    const int32_t* __restrict__ seg_off, int64_t stride, int64_t lane_len, int nlanes, int rows,
+    int shift, int tile, int64_t tps) {
   __shared__ int run[BINS];
   __shared__ int stage_of[BINS];  // a bin's staging index less its global position
   __shared__ int wcnt[WARPS * BINS];
@@ -427,6 +518,7 @@ __global__ void __launch_bounds__(THREADS) sorted_scatter_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t seg = blockIdx.x / tps, t = blockIdx.x % tps;
   const TileRange r(seg_off, stride, seg, t, tile, lane_len, nlanes);
+  const int32_t seg_key = (int32_t)(seg * rows);
   int count;
   {
     const int64_t at = (seg * BINS + threadIdx.x) * tps + t;
@@ -440,7 +532,7 @@ __global__ void __launch_bounds__(THREADS) sorted_scatter_kernel(
   for (int64_t first = r.lo; first < r.hi; first += THREADS) {
     const int64_t i = first + threadIdx.x;
     const int32_t key = i < r.hi ? keys_in[i] : -1;
-    const int bin = key >= 0 ? (key >> shift) & (BINS - 1) : -1;
+    const int bin = key >= 0 ? bin_of<BINS>(key, seg_key, shift) : -1;
     for (int v = threadIdx.x; v < WARPS * BINS; v += THREADS) wcnt[v] = 0;
     __syncthreads();
     const unsigned peers = __match_any_sync(FULL, bin);
@@ -680,11 +772,45 @@ struct StageEvents {
   }
 };
 
-template <int C>
+// The kernel instances a run-time bin count or width selects (null for
+// one the design does not take); each is launched through its pointer.
+using ScatterKernel = void (*)(const int32_t*, const int32_t*, int32_t*, int32_t*, const int32_t*,
+                               const int32_t*, const int32_t*, int64_t, int64_t, int, int, int, int,
+                               int64_t);
+using HistKernel = void (*)(const int32_t*, int32_t*, const int32_t*, int64_t, int, int, int, int64_t);
+using DigitsKernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*, int32_t*, int32_t*,
+                              int32_t*, uint32_t*, int64_t, int, int, int, int, int64_t);
+
+#define VKZG_BINS(X) X(1) X(2) X(4) X(8) X(16) X(32) X(64) X(128) X(256)
+
+ScatterKernel scatter_for(int bins) {
+#define VKZG_CASE(B) if (bins == B) return sorted_scatter_kernel<B>;
+  VKZG_BINS(VKZG_CASE)
+#undef VKZG_CASE
+  return nullptr;
+}
+
+HistKernel hist_for(int bins) {
+#define VKZG_CASE(B) if (bins == B) return sorted_hist_kernel<B>;
+  VKZG_BINS(VKZG_CASE)
+#undef VKZG_CASE
+  return nullptr;
+}
+
+DigitsKernel word_digits_for(int c, bool sgn) {
+#define VKZG_CASE(C) \
+  if (c == C) return sgn ? sorted_digits_kernel<C, true> : sorted_digits_kernel<C, false>;
+  VKZG_CASE(1) VKZG_CASE(2) VKZG_CASE(4) VKZG_CASE(8) VKZG_CASE(16)
+#undef VKZG_CASE
+  return nullptr;
+}
+
+// The four stages of one call: digits from the scalar words (sc, and masks
+// or null) or from the digit tensor (digits), then the sort's one or two
+// passes, the sums and the combine.
 int launch_sorted(const Plan& pl, const uint32_t* pts, const uint32_t* sc, const uint32_t* masks,
-                  uint32_t* buckets, int32_t* work, int w0, int lmin, StageEvents& evs,
-                  cudaStream_t st, int64_t& count) {
-  constexpr int BA = bins_a(C);
+                  const int32_t* digits, uint32_t* buckets, int32_t* work, int w0, int lmin,
+                  StageEvents& evs, cudaStream_t st, int64_t& count) {
   int32_t* const ka = work + pl.keys[0];
   int32_t* const va = work + pl.vals[0];
   int32_t* const kb = work + pl.keys[1];
@@ -693,33 +819,45 @@ int launch_sorted(const Plan& pl, const uint32_t* pts, const uint32_t* sc, const
   int32_t* const off_b = work + pl.o_b;
   const int64_t segs = (int64_t)pl.wg * pl.lanes;
   const unsigned tiles = (unsigned)(segs * pl.tps);
+  const unsigned dblocks = (unsigned)max(pl.lanes * pl.tps, (int64_t)FILL_BLOCKS);
+  const int nl = (int)pl.lanes;
+  const ScatterKernel scatter_a = scatter_for(pl.bins_a);
+  const ScatterKernel scatter_b = scatter_for(pl.bins_b);
+  const HistKernel hist_b = hist_for(pl.bins_b);
+  const DigitsKernel word_digits = digits ? nullptr : word_digits_for(pl.c, pl.sgn);
+  if (!scatter_a || (pl.bins_b && !(scatter_b && hist_b)) || (!digits && !word_digits)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int err = 0;
   evs.mark(0, st);
-  const int64_t tiles_a = pl.lanes * pl.tps;
-  sorted_digits_kernel<C><<<(unsigned)max(tiles_a, (int64_t)FILL_BLOCKS), THREADS, 0, st>>>(
-      pts, sc, masks, ka, va, work + pl.h_a, buckets, pl.lane_len, (int)pl.lanes, w0, pl.wg,
-      pl.tile, pl.tps);
+  if (digits) {
+    sorted_tensor_digits_kernel<<<dblocks, THREADS, 0, st>>>(pts, digits, ka, va, work + pl.h_a, buckets,
+                                                             pl.lane_len, nl, w0, pl.wg, pl.rows,
+                                                             pl.bins_a, pl.tile, pl.tps);
+  } else {
+    word_digits<<<dblocks, THREADS, 0, st>>>(pts, sc, masks, ka, va, work + pl.h_a, buckets, pl.lane_len,
+                                             nl, w0, pl.wg, pl.tile, pl.tps);
+  }
   if ((err = launched(count))) return err;
   evs.mark(1, st);
   if ((err = launch_scan(work + pl.h_a, off_a, work + pl.p_a, pl.hist_a, st, count))) return err;
-  sorted_scatter_kernel<BA><<<tiles, THREADS, 0, st>>>(ka, va, kb, vb, work + pl.h_a, off_a, nullptr, 0,
-                                                      pl.lane_len, (int)pl.lanes, 0, pl.tile, pl.tps);
+  scatter_a<<<tiles, THREADS, 0, st>>>(ka, va, kb, vb, work + pl.h_a, off_a, nullptr, 0, pl.lane_len, nl,
+                                       pl.rows, 0, pl.tile, pl.tps);
   if ((err = launched(count))) return err;
-  if constexpr (C == 16) {
-    const int64_t stride = (int64_t)BA * pl.tps;
-    sorted_hist_kernel<BINS_B><<<tiles, THREADS, 0, st>>>(kb, work + pl.h_b, off_a, stride, 8,
-                                                         pl.tile, pl.tps);
+  if (pl.bins_b) {
+    const int64_t stride = (int64_t)pl.bins_a * pl.tps;
+    hist_b<<<tiles, THREADS, 0, st>>>(kb, work + pl.h_b, off_a, stride, pl.rows, 8, pl.tile, pl.tps);
     if ((err = launched(count))) return err;
     if ((err = launch_scan(work + pl.h_b, off_b, work + pl.p_b, pl.hist_b, st, count))) return err;
-    sorted_scatter_kernel<BINS_B><<<tiles, THREADS, 0, st>>>(
-        kb, vb, work + pl.keys[2], work + pl.vals[2], work + pl.h_b, off_b, off_a, stride, 0, 1, 8,
-        pl.tile, pl.tps);
+    scatter_b<<<tiles, THREADS, 0, st>>>(kb, vb, work + pl.keys[2], work + pl.vals[2], work + pl.h_b, off_b,
+                                         off_a, stride, 0, 1, pl.rows, 8, pl.tile, pl.tps);
     if ((err = launched(count))) return err;
   }
   evs.mark(2, st);
-  const int32_t* keys = work + pl.keys[C == 16 ? 2 : 1];
-  const int32_t* vals = work + pl.vals[C == 16 ? 2 : 1];
-  const int32_t* total = C == 16 ? off_b + pl.hist_b : off_a + pl.hist_a;
+  const int last = pl.bins_b ? 2 : 1;
+  const int32_t* keys = work + pl.keys[last];
+  const int32_t* vals = work + pl.vals[last];
+  const int32_t* total = pl.bins_b ? off_b + pl.hist_b : off_a + pl.hist_a;
   uint32_t* open_buf = reinterpret_cast<uint32_t*>(work + pl.partials);
   uint32_t* cont_buf = open_buf + 24 * (int64_t)pl.target;
   auto* counters = reinterpret_cast<unsigned long long*>(work + pl.counters);
@@ -738,48 +876,42 @@ int launch_sorted(const Plan& pl, const uint32_t* pts, const uint32_t* sc, const
 }  // namespace
 
 // The workspace of one call over wg windows, in int32 words: *words.
-extern "C" int vkzg_msm_sorted_plan(int64_t npoints, int64_t nlanes, int c, int wg, int target,
-                                    int64_t* words) {
-  const Plan pl(npoints, nlanes, c, wg, target);
+// from_words: the digits come from the scalar words (c dividing 16), else
+// from a digit tensor.
+extern "C" int vkzg_msm_sorted_plan(int64_t npoints, int64_t nlanes, int c, int sgn, int from_words,
+                                    int wg, int target, int64_t* words) {
+  const Plan pl(npoints, nlanes, c, sgn != 0, from_words != 0, wg, target);
   if (!pl.ok) return (int)cudaErrorInvalidValue;
   *words = pl.words;
   return 0;
 }
 
-// pts (N, 2, 8) affine, sc (N, 8) standard scalars, masks (N, W / 32 + 1)
-// carry words or null (the carries are then computed), N = lanes x S, lane
-// b's points [b S, (b + 1) S); buckets: the first row of window w0 in the
-// (W, B, rows, 3, 8) output; work: the plan's words. Adds each CUDA launch
-// it issues to *launches. stage_ms: null on the path; else the call records
-// an event at each stage boundary, waits for the last, and writes the
-// milliseconds of digits, sort, sums and combine there.
-extern "C" int vkzg_msm_sorted(const void* pts, const void* sc, const void* masks, void* buckets,
-                               void* work, int64_t work_words, int64_t npoints, int64_t nlanes,
-                               int c, int w0, int wg, int target, int lmin, float* stage_ms,
-                               int64_t* launches, void* stream) {
-  const Plan pl(npoints, nlanes, c, wg, target);
-  if (!pl.ok || work_words < pl.words || lmin < 1 || w0 < 0 || w0 + wg > 256 / c || !launches) {
+// pts (N, 2, 8) affine, N = lanes x S, lane b's points [b S, (b + 1) S).
+// The digits: from sc (N, 8) standard scalars, signed (sgn) with masks
+// (N, W / 32 + 1) carry words or null (the carries are then computed), or
+// unsigned (masks null); or, with sc null, from digits (W, B, S) int32,
+// balanced signed or unsigned as sgn says. buckets: the first row of window
+// w0 in the (W, B, rows, 3, 8) output; work: the plan's words. Adds each
+// CUDA launch it issues to *launches. stage_ms: null on the path; else the
+// call records an event at each stage boundary, waits for the last, and
+// writes the milliseconds of digits, sort, sums and combine there.
+extern "C" int vkzg_msm_sorted(const void* pts, const void* sc, const void* masks, const void* digits,
+                               void* buckets, void* work, int64_t work_words, int64_t npoints,
+                               int64_t nlanes, int c, int sgn, int w0, int wg, int target, int lmin,
+                               float* stage_ms, int64_t* launches, void* stream) {
+  const Plan pl(npoints, nlanes, c, sgn != 0, digits == nullptr, wg, target);
+  if (!pl.ok || work_words < pl.words || lmin < 1 || w0 < 0 || w0 + wg > pl.nwin || !launches ||
+      (sc == nullptr) == (digits == nullptr) || (masks && (!sgn || digits))) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto* p = (const uint32_t*)pts;
-  const auto* s = (const uint32_t*)sc;
-  const auto* m = (const uint32_t*)masks;
-  auto* bk = (uint32_t*)buckets;
-  auto* wk = (int32_t*)work;
   const cudaStream_t st = (cudaStream_t)stream;
   StageEvents evs;
   if (stage_ms) {
     if (int err = evs.make()) return err;
   }
-  int64_t& count = *launches;
-  int err;
-  switch (c) {
-    case 1: err = launch_sorted<1>(pl, p, s, m, bk, wk, w0, lmin, evs, st, count); break;
-    case 2: err = launch_sorted<2>(pl, p, s, m, bk, wk, w0, lmin, evs, st, count); break;
-    case 4: err = launch_sorted<4>(pl, p, s, m, bk, wk, w0, lmin, evs, st, count); break;
-    case 8: err = launch_sorted<8>(pl, p, s, m, bk, wk, w0, lmin, evs, st, count); break;
-    default: err = launch_sorted<16>(pl, p, s, m, bk, wk, w0, lmin, evs, st, count); break;
-  }
+  int err = launch_sorted(pl, (const uint32_t*)pts, (const uint32_t*)sc, (const uint32_t*)masks,
+                          (const int32_t*)digits, (uint32_t*)buckets, (int32_t*)work, w0, lmin, evs, st,
+                          *launches);
   if (!err && stage_ms) err = evs.read(stage_ms);
   return err;
 }

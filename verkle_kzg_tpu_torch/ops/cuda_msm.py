@@ -1,30 +1,16 @@
-"""Kernels K8 and K4: the unsigned single-MSM bucket accumulation with
-in-kernel digits, and the single-MSM tail at any window width. (The signed
-accumulation, K3 and K9, is the bucket-sorted design of
-``cuda_msm_sorted.py``.)
+"""Kernel K4, the single-MSM tail at any window width, and what the
+single-MSM accumulations share: the window count and rows of a width, the
+digits of the scalar words, and the table walk's plain version.
 
-K8 replaces the launch at line 330 of ``verkle_kzg_tpu/ops/pallas_msm.py``,
-``_accum_kernel_sc``. It is ONE ``__global__`` in ``csrc/msm_accumulate.cuh``,
-templated on the window width c in {1, 2, 4, 8, 16} (c divides 16, so a
-digit lies inside one 32-bit scalar word), with its instances built from
-``csrc/msm_unsigned.cu``. Its segment walk is the one K6 and K10 run too
-(``accumulate_segment``); only the digit fetch differs. Window w's digit d
-is bits [w c, w c + c) of the scalar words, and the point is added into row
-d - 1 of a table of 2^c - 1 rows (digit 0 adds nothing), so the tail reads
-one layout with the signed tables, row i = the bucket of i + 1. (The TPU's
+The accumulations are elsewhere. K3, K9 and K8 (signed and unsigned
+digits from the scalar words, c dividing 16) and K10 (a digit tensor of
+more than 128 rows a window) are one bucket-sorted design
+(``cuda_msm_sorted.py``); K6, the table walk of a digit tensor of up to
+128 rows, is ``cuda_msm_batched.py``, and :func:`plain_tables` is its plain
+version (and K13's). A window of width c has 2^(c-1) bucket rows for
+balanced signed digits and 2^c - 1 for unsigned ones, row i the bucket of
+digit +-(i + 1), so the tail reads one layout for both. (The TPU's
 unsigned kernel kept 2^c rows with a trash row 0.)
-
-The TPU has no scatter, so each of its lanes kept a private bucket column
-and every step gathered and scattered the whole table with masks. Here the
-point stream is cut into S segments and one thread owns one (window,
-segment) pair with its own table in global memory, (W, S, rows, 3, 8) in
-all. A step is one row read, one lazy mixed add (11 Montgomery products) and
-one row write. The kernel is bound by those products (integer throughput)
-and by the latency of its scattered 96-byte row accesses. S is chosen
-(``ops/msm.py::segments``) so that the W * S threads fill the card's 132
-SMs, under a cap on the tables' bytes: at c = 16 a table is 2^16 - 1 rows,
-so S stays near 10 and each thread walks a long segment. K2 then folds the
-S partial tables (``ops/msm.py``).
 
 K4 replaces ``pallas_msm._single_tail``'s second launch (line 1041), with
 bodies ``_suffix_horner_kernel`` and ``_window_sum``: per window the
@@ -91,11 +77,6 @@ def mask_words(c: int) -> int:
     return windows(c) // 32 + 1
 
 
-def _check_c(c: int) -> None:
-    if c not in IN_KERNEL_C:
-        raise ValueError(f"in-kernel digits need c dividing 16, got {c}")
-
-
 def scalar_digits(sc, masks, c: int, signed: bool) -> torch.Tensor:
     """The digits a kernel derives from the scalar words: (n, 8) standard
     scalars (and, signed, (n, nwords) carry words) -> (n, W) int64; signed
@@ -114,8 +95,8 @@ def scalar_digits(sc, masks, c: int, signed: bool) -> torch.Tensor:
 
 
 def plain_tables(pts, digits, base, nrows: int) -> torch.Tensor:
-    """The accumulation of the segment-walk kernels (K6, K8, K10), as its
-    plain version: table thread t walks the points base[t] + i, i < L,
+    """The accumulation of the table-walk kernels (K6, and K13 whose
+    chains add in the same order), as its plain version: table thread t walks the points base[t] + i, i < L,
     of the (P, 2, 8) affine stream, adding point base[t] + i into row
     |digits[t, i]| - 1 with the lazy mixed add, y negated for a negative
     digit; digit 0 and the (0, 0) sentinel add nothing. (T, L) int64
@@ -145,35 +126,6 @@ def plain_tables(pts, digits, base, nrows: int) -> torch.Tensor:
         touched[idx, row] = True
     ti, ri = touched.nonzero(as_tuple=True)
     table[ti, ri] = F.from_limbs(C.reduce16(F.to_limbs(table[ti, ri])))
-    return table
-
-
-def plain_accumulate(pts, sc, nseg: int, seg_len: int, c: int = 8) -> torch.Tensor:
-    """The plain version of K8: (S*L, 2, 8) affine x (S*L, 8) standard
-    scalars -> (W, S, 2^c - 1, 3, 8) reduced bucket tables, one per
-    (window, segment)."""
-    _check_c(c)
-    w = windows(c)
-    d = scalar_digits(sc, None, c, False).reshape(nseg, seg_len, w).permute(2, 0, 1)  # (W, S, L)
-    base = (torch.arange(nseg, device=pts.device) * seg_len).repeat(w)
-    table = plain_tables(pts, d.reshape(w * nseg, seg_len), base, rows(c, False))
-    return table.reshape(w, nseg, rows(c, False), 3, 8)
-
-
-def accumulate(pts, sc, nseg: int, seg_len: int, c: int = 8) -> torch.Tensor:
-    """K8: the plain version on the CPU; on a card the kernel or an error."""
-    if pts.device.type == "cpu":
-        return plain_accumulate(pts, sc, nseg, seg_len, c)
-    _check_c(c)
-    n = nseg * seg_len
-    if pts.shape != (n, 2, 8) or sc.shape != (n, 8):
-        raise ValueError("msm accumulate: shapes do not match the segmentation")
-    cuda_lib.require_cuda("msm.accumulate", pts, sc)
-    table = torch.empty((windows(c), nseg, rows(c, False), 3, 8), dtype=torch.int32, device=pts.device)
-    err = cuda_lib.lib().vkzg_msm_accumulate(pts.data_ptr(), sc.data_ptr(), table.data_ptr(), nseg, seg_len, c,
-                                             cuda_lib.stream(pts))
-    cuda_lib.check(err, "vkzg_msm_accumulate")
-    cuda_lib.launches["K8"] += 1
     return table
 
 

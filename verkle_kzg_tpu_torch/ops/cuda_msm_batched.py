@@ -1,18 +1,20 @@
-"""Kernels K6, K10 and K7: the digit-tensor Pippenger accumulation and the
-lane-batched tail.
+"""Kernels K6 and K7: the digit-tensor Pippenger accumulation as a table
+walk, and the lane-batched tail.
 
 A batch of B independent MSMs, each lane its own MSM over N points: the
 dense verkle node commits (``verkle/tree.py::_dense_commit`` ->
 ``ops/msm.py::msm_fixed_base``, the 256-point basis shared by every lane)
 and ``msm_batched`` (points per lane), with the balanced signed digits of
 ``ops/msm.py::window_digits_signed``, c in [2, 7]. The single MSM at a
-width whose digits are not taken in the kernel (c in {3, 5, 6, 7, 9 ...
-15}, ``ops/msm.py::msm_pippenger``) runs the same accumulation with one
-lane, signed or unsigned (``window_digits``). A window has ``rows(c,
-signed)`` bucket rows, row |d| - 1 holding the bucket of digit +-|d|: the
-kernel never reads the sign of the mode, only of each digit. Its launches
-count as K6 up to 128 rows and as K10 above (c >= 9), after the two TPU
-kernels the JAX package chose between by table size.
+width whose digits are not taken in the kernel and whose window has at
+most 128 rows (c in {3, 5, 6, 7}, ``ops/msm.py::msm_pippenger``) runs the
+same accumulation with one lane, signed or unsigned (``window_digits``).
+A window has ``rows(c, signed)`` bucket rows, row |d| - 1 holding the
+bucket of digit +-|d|: the kernel never reads the sign of the mode, only of
+each digit. A digit tensor of more than 128 rows a window is K10
+(:func:`launch_key`), the bucket-sorted accumulation of
+``cuda_msm_sorted.accumulate_digits``, after the two TPU kernels the JAX
+package chose between by table size; :func:`accumulate` refuses it.
 
 K6 replaces ``verkle_kzg_tpu/ops/pallas_msm.py``: the launch at line 853 in
 ``_bucket_accumulate_impl`` with body ``_accum_kernel_pair`` (helpers
@@ -24,22 +26,13 @@ lane, point segment) with its own 2^(c-1)-row table in global memory
 (16 rows x 96 bytes at c = 5): a step reads the row |d| - 1, does one lazy
 mixed add (11 Montgomery products) with y negated for d < 0 and writes the
 row back; the rows are reduced at the end (the segment walk
-``accumulate_segment`` of ``csrc/msm_accumulate.cuh``, shared with K3, K8
-and K9, which take their digits from the scalar words). A verkle level of 40 dense
-nodes at width 256 is only W x B = 52 x 40 = 2,080 (window, lane) pairs,
-under one warp per SM, so the point stream is cut into segments as K3
-does (``ops/msm.py::segments``, 16 at N = 256) and K2 folds the partial
-tables. The kernel is bound by the latency of its scattered 96-byte row
-accesses and of the serial mixed adds of a segment more than by multiply
-throughput.
-
-K10 is the same kernel over wider tables, and replaces the launch at line
-883, ``_accum_kernel`` (the unpaired window). The TPU kept a table in VMEM,
-so it could not pair windows past 8 MiB of tables; a table here lives in
-global memory at any size (2^14 signed or 2^15 - 1 unsigned rows at
-c = 15), so the only cost of a wide window is its bytes, which
-``ops/msm.py::segments`` caps by taking fewer segments. Its plain version
-is ``cuda_msm.plain_tables``, shared with K3, K8 and K9.
+``accumulate_segment`` of ``csrc/msm_accumulate.cuh``). A verkle level of
+40 dense nodes at width 256 is only W x B = 52 x 40 = 2,080 (window, lane)
+pairs, under one warp per SM, so the point stream is cut into segments
+(``ops/msm.py::segments``, 16 at N = 256) and K2 folds the partial tables.
+The kernel is bound by the latency of its scattered 96-byte row accesses
+and of the serial mixed adds of a segment more than by multiply
+throughput. Its plain version is ``cuda_msm.plain_tables``.
 
 K7 replaces the launch at line 1152, ``_batched_tail_kernel``: per lane,
 each window's weighted bucket sum sum_i (i + 1) B_i, then Horner from the
@@ -78,10 +71,11 @@ def rows(c: int, signed: bool = True) -> int:
     return K.rows(c, signed)
 
 
-def launch_key(c: int, signed: bool) -> str:
-    """K6 while a table has at most 128 rows (the TPU's window-paired
-    ``_accum_kernel_pair``), K10 beyond (its unpaired ``_accum_kernel``,
-    taken when a paired table would pass the VMEM cap, ``pallas_msm.py:838``)."""
+def launch_key(c: int, signed: bool = True) -> str:
+    """The accumulation of a digit tensor: K6's table walk while a window
+    has at most 128 rows (the TPU's window-paired ``_accum_kernel_pair``),
+    the sorted K10 beyond (its unpaired ``_accum_kernel``, taken when a
+    paired table would pass the VMEM cap, ``pallas_msm.py:838``)."""
     return "K6" if rows(c, signed) <= 128 else "K10"
 
 
@@ -91,9 +85,10 @@ def _check_c(c: int) -> None:
 
 
 def plain_accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True) -> torch.Tensor:
-    """The plain version of K6 / K10: (S*L, 2, 8) shared or (B, S*L, 2, 8)
-    per-lane affine points x (W, B, S*L) int32 digits (balanced signed, or
-    unsigned in [0, 2^c)) -> (W, B, S, rows, 3, 8) reduced bucket tables."""
+    """The plain version of K6 (and of K13, at any width): (S*L, 2, 8)
+    shared or (B, S*L, 2, 8) per-lane affine points x (W, B, S*L) int32
+    digits (balanced signed, or unsigned in [0, 2^c)) -> (W, B, S, rows, 3,
+    8) reduced bucket tables."""
     w, b, n = digits.shape
     dev = digits.device
     d = digits.to(torch.int64).reshape(w * b * nseg, seg_len)
@@ -104,10 +99,12 @@ def plain_accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool 
 
 
 def accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True) -> torch.Tensor:
+    """K6: the plain version on the CPU; on a card the kernel or an error."""
+    if not 1 <= c <= 16 or launch_key(c, signed) != "K6":
+        raise ValueError(f"K6 takes c in [1, 16] with at most 128 rows a window, got c = {c}: "
+                         "K10 (cuda_msm_sorted.accumulate_digits) takes wider ones")
     if pts.device.type == "cpu" and digits.device.type == "cpu":
         return plain_accumulate(pts, digits, nseg, seg_len, c, signed)
-    if not 1 <= c <= 16:
-        raise ValueError(f"the bucket accumulation takes c in [1, 16], got {c}")
     w, b, n = digits.shape
     shared = pts.dim() == 3
     if n != nseg * seg_len or w != windows(c) or pts.shape != ((n, 2, 8) if shared else (b, n, 2, 8)):
@@ -120,7 +117,7 @@ def accumulate(pts, digits, nseg: int, seg_len: int, c: int, signed: bool = True
             w, b, nseg, seg_len, rows(c, signed), cuda_lib.stream(pts),
         )
         cuda_lib.check(err, "vkzg_msm_batched_accumulate")
-        cuda_lib.launches[launch_key(c, signed)] += 1
+        cuda_lib.launches["K6"] += 1
     return table
 
 

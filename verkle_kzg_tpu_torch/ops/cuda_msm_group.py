@@ -27,7 +27,9 @@ on this card issues the loads of step i + 1's G rows before step i's
 arithmetic and forwards a row from registers where d_j(i + 1) hits the row
 step i wrote. Neither G nor ``fused`` changes any bucket's order of
 additions, so every (G, fused) gives the same words, and the same words
-as K6/K10 over one segment a lane; one plain version serves them all.
+as K6's table walk over one segment a lane (up to 128 rows a window; K10
+sorts wider ones, and agrees on group elements); one plain version serves
+them all.
 
 G is compiled for 1 to 4 (times ``fused``): a larger G runs as groups of
 at most 4 (:func:`group_width`), with the same values. A W that G does
@@ -68,8 +70,8 @@ def group_width(wgroup: int) -> int:
 def plain_accumulate(pts_stream, digits, c: int, signed: bool = True) -> torch.Tensor:
     """K13's plain version, for every (G, fused): (S, B, 2, 8) x (W, S, B)
     -> (W, B, rows, 3, 8) reduced, the chain of each (window, lane) in
-    step order (``cuda_msm.plain_tables`` through K6/K10's plain version,
-    one segment a lane)."""
+    step order (``cuda_msm.plain_tables`` through K6's plain version, at
+    any width, one segment a lane)."""
     s = pts_stream.shape[0]
     lanes = pts_stream.transpose(0, 1).contiguous()
     return KB.plain_accumulate(lanes, digits.permute(0, 2, 1), 1, s, c, signed)[:, :, 0]

@@ -1,15 +1,30 @@
-"""Kernels K3 and K9: the signed single-MSM bucket accumulation with digits
-from the scalar words, as a bucket-sorted Pippenger (``csrc/msm_sorted.cu``).
+"""Kernels K3, K9, K8 and K10: the single-MSM bucket accumulations, as one
+bucket-sorted Pippenger fed by three digit sources (``csrc/msm_sorted.cu``).
 
-They replace two TPU kernels of ``verkle_kzg_tpu/ops/pallas_msm.py``: K3,
-c in {1, 2, 4, 8}, the launch at line 700 (``_accum_kernel_sc_signed_pair``;
-c = 8 is the default single MSM), and K9, c = 16, the launch at line 719
-(``_accum_kernel_sc_signed``). For each of B point streams ("lanes": point
-p of the (B S, 2, 8) stream is in lane p // S), window w and row i <
-2^(c-1), bucket (w, b, i) is the sum of the lane's points whose balanced
-window-w digit is +-(i + 1), y negated for a negative digit; digit 0 and
-the (0, 0) sentinel add nothing. Output (W, B, rows, 3, 8), reduced, the
-identity in empty rows: the layout K4 (``cuda_msm.tail``) and the lane-stream
+They replace four TPU kernels of ``verkle_kzg_tpu/ops/pallas_msm.py``:
+
+  * K3: signed digits from the scalar words, c in {1, 2, 4, 8}, the launch
+    at line 700 (``_accum_kernel_sc_signed_pair``; c = 8 is the default
+    single MSM);
+  * K9: the same at c = 16, the launch at line 719
+    (``_accum_kernel_sc_signed``);
+  * K8: unsigned digits from the scalar words, c in {1, 2, 4, 8, 16}, the
+    launch at line 330 (``_accum_kernel_sc``);
+  * K10: digits from a (W, B, S) digit tensor as the caller recoded them
+    (``ops/msm.py::window_digits_signed`` or ``window_digits``), any c in
+    [1, 16] whose window has more than 128 rows, the launch at line 883
+    (``_accum_kernel``). Up to 128 rows a digit tensor takes K6's table
+    walk (``cuda_msm_batched``), as the JAX package chose between its two
+    kernels by table size.
+
+For each of B point streams ("lanes": point p of the (B S, 2, 8) stream is
+in lane p // S), window w and row i, bucket (w, b, i) is the sum of the
+lane's points whose window-w digit is +-(i + 1), y negated for a negative
+digit; digit 0 and the (0, 0) sentinel add nothing. A window has 2^(c-1)
+rows for balanced signed digits and 2^c - 1 for unsigned ones (row d - 1
+holds digit d; the TPU's unsigned kernel kept 2^c rows with a trash row
+0). Output (W, B, rows, 3, 8), W = ceil(256 / c), reduced, the identity in
+empty rows: the layout K4 (``cuda_msm.tail``), K7 and the lane-stream
 functions take.
 
 The TPU has no scatter, so its kernels ran every step as a masked gather and
@@ -17,39 +32,46 @@ scatter of a lane's whole bucket column. Hopper scatters freely, so the
 live entries are sorted by bucket and summed in registers, in four stages,
 each a hand-written kernel (the source's note has the details):
 
-  1. digits: a thread a scalar balances its raw digits with the carry rule
-     of ``ops/msm.py::signed_carries`` computed in registers
-     (:func:`carry_digits`), or with the caller's carry words; each live
-     (window, point) becomes key (window, lane, |d| - 1), value p and sign;
-  2. sort: a stable counting sort by key over tiles of points, one pass on
-     the row up to c = 8, two LSD passes (8 and 7 bits) at c = 16; each
-     bucket's entries then come in ascending point order;
+  1. digits: a thread a scalar takes its raw digits from the scalar words
+     and, signed, balances them with the carry rule of
+     ``ops/msm.py::signed_carries`` computed in registers
+     (:func:`carry_digits`), or with the caller's carry words; or a thread
+     a point reads its digits from the digit tensor. Each live (window,
+     point) becomes key (window, lane, |d| - 1), value p and sign;
+  2. sort: a stable counting sort by key over tiles of points, in LSD
+     passes of at most 8 bits of the row (:func:`bins`): one pass up to 256
+     rows, two above; each bucket's entries then come in ascending point
+     order;
   3. sums: the E entries in :func:`chunk_len` chunks, a thread a chunk, one
      lazy mixed add an entry from the identity; a run inside its chunk is a
      whole bucket, the runs at a chunk's edges are partials;
   4. combine: each spanning bucket's partials in a binary tree, then reduced.
 
-The plain version below follows the same digits, the same stable order, the
-same chunks and the same tree, so kernel and plain version agree word for
-word. Words differ from a sequential bucket walk (the JAX kernels', K13's)
-wherever a bucket spans chunks: only the group element is contract.
+Only the digits stage and the sort's bins depend on the source and the
+width; the sums and the combine see keys. The plain version below follows
+the same digits, the same stable order, the same chunks and the same tree,
+so kernel and plain version agree word for word. Words differ from a
+sequential bucket walk (the JAX kernels', K6's, K13's) wherever a bucket
+spans chunks: only the group element is contract.
 
 What bounds the kernels: 11 Montgomery products a live entry, 264 32-bit
 multiplies each (5.8 ms at 2^20 points, c = 8, on 132 SMs x 64 a clock x
-1.98 GHz); the point gathers and the sort's traffic are a few percent. The
-sums run at about 2.6x that bound on the card whatever their occupancy,
-chunk count or prefetch (``tools/sorted_variants.py``); that the product's
-integer instructions set the pace is a hypothesis no profiler reading has
-tested.
+1.98 GHz); the point gathers and the sort's traffic are a few percent, and
+the bucket rows' identity fill (100 MB at c = 16 unsigned) a fixed cost of
+a wide window. The sums run at about 2.6x that bound on the card whatever
+their occupancy, chunk count or prefetch (``tools/sorted_variants.py``);
+that the product's integer instructions set the pace is a hypothesis no
+profiler reading has tested.
 
-One call counts one launch of K3 or K9 in ``cuda_lib.launches``; the C entry
-point counts each CUDA launch it issues (5-7 a window group up to c = 8,
-8-12 at c = 16), which the wrapper adds to ``cuda_lib.cuda_launches``.
-:func:`launch` can also return the four stages' times, from CUDA events the
-call records between them. Above SCRATCH_BYTES of
-key/value scratch the windows run in groups (:func:`window_groups`): the
-order within a bucket stays the same, and each group's entries are cut into
-chunks of their own, in the plain version alike.
+One call counts one launch of K3, K9, K8 or K10 (:func:`launch_key`) in
+``cuda_lib.launches``; the C entry point counts each CUDA launch it issues
+(5-7 a window group with one sort pass, 8-12 with two), which the wrapper
+adds to ``cuda_lib.cuda_launches``. :func:`launch` can also return the four
+stages' times, from CUDA events the call records between them. The windows
+run in groups (:func:`window_groups`) above SCRATCH_BYTES of key/value
+scratch or MAX_COUNTS histogram slots: the order within a bucket stays the
+same, and each group's entries are cut into chunks of their own, in the
+plain version alike.
 """
 
 from __future__ import annotations
@@ -64,6 +86,7 @@ from . import curve as C
 from . import field as F
 
 SCRATCH_BYTES = 4 << 30  # the key/value scratch of one call at most: windows go in groups above it
+MAX_COUNTS = 8192  # the digit kernels' shared histogram, windows x first-pass bins (msm_sorted.cu)
 TARGET = 132 * 256  # chunks at most, a thread each: 256 on each of the 132 SMs
 L_MIN = 2  # entries a chunk at least
 STAGES = ("digits", "sort", "sums", "combine")
@@ -73,31 +96,52 @@ def windows(c: int) -> int:
     return K.windows(c)
 
 
-def rows(c: int) -> int:
-    return K.rows(c, True)
+def rows(c: int, signed: bool = True) -> int:
+    return K.rows(c, signed)
 
 
-def launch_key(c: int) -> str:
+def launch_key(c: int, signed: bool = True, tensor: bool = False) -> str:
+    """K10 for a digit tensor; from the scalar words K8 unsigned, K9 signed
+    at c = 16, else K3."""
+    if tensor:
+        return "K10"
+    if not signed:
+        return "K8"
     return "K9" if c == 16 else "K3"
 
 
-def _check_c(c: int) -> None:
+def _check_words(c: int) -> None:
     if c not in K.IN_KERNEL_C:
-        raise ValueError(f"in-kernel signed digits need c dividing 16, got {c}")
+        raise ValueError(f"digits from the scalar words need c dividing 16, got {c}")
 
 
-def entry_bytes(c: int) -> int:
+def _check_tensor(c: int, signed: bool) -> None:
+    if not 1 <= c <= 16 or rows(c, signed) <= 128:
+        raise ValueError(f"K10 takes c in [1, 16] with more than 128 rows a window, got c = {c}"
+                         f" ({rows(c, signed) if 1 <= c <= 16 else 0} rows): K6 takes the others")
+
+
+def bins(c: int, signed: bool = True) -> tuple:
+    """The sort passes' bins: the first over the row's low 8 bits (all of
+    them up to 256 rows), the second over the bits above, or 0 for none."""
+    bits = (rows(c, signed) - 1).bit_length()
+    return 1 << min(bits, 8), (1 << (bits - 8)) if bits > 8 else 0
+
+
+def entry_bytes(c: int, signed: bool = True) -> int:
     """Scratch bytes a (window, point) entry: dense keys and values, and
     the sorted pair of each pass."""
-    return 24 if c == 16 else 16
+    return 24 if bins(c, signed)[1] else 16
 
 
-def window_groups(n: int, c: int, lanes: int = 1) -> list:
-    """(w0, wg) runs of windows whose scratch fits SCRATCH_BYTES, and whose
-    keys (window, lane, row) and entry positions fit 31 bits."""
-    w = windows(c)
-    wg = SCRATCH_BYTES // (entry_bytes(c) * max(n, 1))
-    wg = max(1, min(w, wg, (2**31 - 1) // (lanes * rows(c)), (2**31 - 1) // max(n, 1)))
+def window_groups(n: int, c: int, lanes: int = 1, signed: bool = True) -> list:
+    """(w0, wg) runs of windows whose scratch fits SCRATCH_BYTES, whose
+    first-pass histogram fits MAX_COUNTS, and whose keys (window, lane,
+    row) and entry positions fit 31 bits."""
+    w, nrows = windows(c), rows(c, signed)
+    wg = SCRATCH_BYTES // (entry_bytes(c, signed) * max(n, 1))
+    wg = max(1, min(w, wg, MAX_COUNTS // bins(c, signed)[0], (2**31 - 1) // (lanes * nrows),
+                    (2**31 - 1) // max(n, 1)))
     return [(w0, min(wg, w - w0)) for w0 in range(0, w, wg)]
 
 
@@ -126,11 +170,13 @@ def carry_digits(sc: torch.Tensor, c: int) -> torch.Tensor:
     return out
 
 
-def _live_digits(pts, sc, c: int, masks) -> tuple:
-    """The digits (n, W), from the carry rule or the given carry words, and
-    which (point, window) entries are live: nonzero, not the (0, 0) point."""
-    digits = carry_digits(sc, c) if masks is None else K.scalar_digits(sc, masks, c, True)
-    return digits, (digits != 0) & ~C.affine_is_infinity(pts)[:, None]
+def word_digits(sc: torch.Tensor, c: int, signed: bool = True, masks=None) -> torch.Tensor:
+    """The digits kernel's digits from the scalar words: (n, 8) standard
+    scalars -> (n, W) int64; signed from the carry rule or the given carry
+    words, unsigned the raw digits."""
+    if not signed:
+        return K.scalar_digits(sc, None, c, False)
+    return carry_digits(sc, c) if masks is None else K.scalar_digits(sc, masks, c, True)
 
 
 def _pieces(fn, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -218,23 +264,20 @@ def _sums(out: torch.Tensor, pts: torch.Tensor, keys: torch.Tensor, pidx: torch.
     out[key] = F.from_limbs(C.reduce16(leaves[:, 0]))
 
 
-def plain_accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
-                     masks: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain version of K3 / K9: (B S, 2, 8) affine x (B S, 8) standard
-    scalars [x (B S, nwords) carry words] -> (W, B, rows, 3, 8) reduced
-    buckets, in the kernels' order: the digits, a stable sort by key, the
-    chunks and the tree, window group by window group."""
-    _check_c(c)
+def _plain(pts: torch.Tensor, digits: torch.Tensor, c: int, lanes: int, signed: bool) -> torch.Tensor:
+    """Every source's plain version from its (W, n) int64 digits: a stable
+    sort of the live (window, point) entries by key, then the chunks and
+    the tree, window group by window group -> (W, B, rows, 3, 8)."""
     dev = pts.device
     n = pts.shape[0]
-    w, nrows = windows(c), rows(c)
+    w, nrows = windows(c), rows(c, signed)
     out = C.infinity((w * lanes * nrows,), dev)
     if n == 0:
         return out.reshape(w, lanes, nrows, 3, 8)
-    digits, live = _live_digits(pts, sc, c, masks)
+    live = (digits != 0) & ~C.affine_is_infinity(pts)[None, :]
     p = torch.arange(n, device=dev)
-    for w0, wg in window_groups(n, c, lanes):
-        d, on = digits[:, w0 : w0 + wg].T, live[:, w0 : w0 + wg].T  # (wg, n), (window, point) order
+    for w0, wg in window_groups(n, c, lanes, signed):
+        d, on = digits[w0 : w0 + wg], live[w0 : w0 + wg]  # (wg, n), (window, point) order
         seg = torch.arange(wg, device=dev)[:, None] * lanes + p // (n // lanes)
         keys, order = torch.sort((seg * nrows + d.abs() - 1)[on], stable=True)
         pidx = p.expand(wg, n)[on][order]
@@ -242,59 +285,114 @@ def plain_accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int
     return out.reshape(w, lanes, nrows, 3, 8)
 
 
-def workspace_words(n: int, c: int, lanes: int, wg: int) -> int:
+def plain_accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
+                     masks: torch.Tensor | None = None, signed: bool = True) -> torch.Tensor:
+    """The plain version of K3 / K9 (signed) and K8 (unsigned): (B S, 2, 8)
+    affine x (B S, 8) standard scalars [x (B S, nwords) carry words, signed]
+    -> (W, B, rows, 3, 8) reduced buckets, in the kernels' order."""
+    _check_words(c)
+    return _plain(pts, word_digits(sc, c, signed, masks).T, c, lanes, signed)
+
+
+def plain_accumulate_digits(pts: torch.Tensor, digits: torch.Tensor, c: int, signed: bool = True) -> torch.Tensor:
+    """The plain version of K10: (B S, 2, 8) affine x (W, B, S) int32 digits
+    (balanced signed, or unsigned in [0, 2^c)) -> (W, B, rows, 3, 8)."""
+    _check_tensor(c, signed)
+    w, b, s = digits.shape
+    return _plain(pts, digits.reshape(w, b * s).to(torch.int64), c, b, signed)
+
+
+def workspace_words(n: int, c: int, lanes: int, wg: int, signed: bool = True, from_words: bool = True) -> int:
     """The int32 workspace of one window group's call."""
     words = ctypes.c_int64()
-    err = cuda_lib.lib().vkzg_msm_sorted_plan(n, lanes, c, wg, TARGET, ctypes.byref(words))
+    err = cuda_lib.lib().vkzg_msm_sorted_plan(n, lanes, c, int(signed), int(from_words), wg, TARGET,
+                                              ctypes.byref(words))
     cuda_lib.check(err, "vkzg_msm_sorted_plan")
     return words.value
 
 
-def launch(pts, sc, out, c: int, lanes: int, masks, w0: int, wg: int, timed: bool = False) -> tuple:
-    """Windows [w0, w0 + wg) into ``out`` (W, B, rows, 3, 8): -> (the CUDA
-    launches the call issued, as the C entry point counted them, and, when
-    ``timed``, {stage: ms} from events between the stages, else None; a timed
-    call waits for its last stage). Counts nothing: :func:`accumulate` does."""
-    n = pts.shape[0]
-    work = torch.empty(workspace_words(n, c, lanes, wg), dtype=torch.int32, device=pts.device)
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def launch(pts, sc, digits, masks, out, c: int, signed: bool, w0: int, wg: int, timed: bool = False) -> tuple:
+    """Windows [w0, w0 + wg) into ``out`` (W, B, rows, 3, 8), with the
+    digits from ``sc`` (and ``masks``) or from ``digits`` (the other None):
+    -> (the CUDA launches the call issued, as the C entry point counted
+    them, and, when ``timed``, {stage: ms} from events between the stages,
+    else None; a timed call waits for its last stage). Counts nothing:
+    :func:`accumulate` and :func:`accumulate_digits` do."""
+    n, lanes = pts.shape[0], out.shape[1]
+    words = workspace_words(n, c, lanes, wg, signed, digits is None)
+    work = torch.empty(words, dtype=torch.int32, device=pts.device)
     group = out[w0 : w0 + wg]
     issued = ctypes.c_int64(0)
     ms = (ctypes.c_float * len(STAGES))() if timed else None
     err = cuda_lib.lib().vkzg_msm_sorted(
-        pts.data_ptr(), sc.data_ptr(), 0 if masks is None else masks.data_ptr(), group.data_ptr(),
-        work.data_ptr(), work.numel(), n, lanes, c, w0, wg, TARGET, L_MIN,
-        ctypes.addressof(ms) if timed else None, ctypes.addressof(issued), cuda_lib.stream(pts),
+        pts.data_ptr(), _ptr(sc), _ptr(masks), _ptr(digits), group.data_ptr(), work.data_ptr(), work.numel(),
+        n, lanes, c, int(signed), w0, wg, TARGET, L_MIN, ctypes.addressof(ms) if timed else None,
+        ctypes.addressof(issued), cuda_lib.stream(pts),
     )
     cuda_lib.check(err, "vkzg_msm_sorted")
     return issued.value, (dict(zip(STAGES, ms)) if timed else None)
 
 
-def accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
-               masks: torch.Tensor | None = None) -> torch.Tensor:
-    """K3 (c in {1, 2, 4, 8}) / K9 (c = 16): (B S, 2, 8) affine x (B S, 8)
-    standard scalars [x (B S, W // 32 + 1) carry words; without them the
-    kernel computes the carries] -> (W, B, rows, 3, 8) reduced buckets.
-    The plain version on the CPU; on a card the kernels or an error."""
-    if pts.device.type == "cpu":
-        return plain_accumulate(pts, sc, c, lanes, masks)
-    _check_c(c)
-    n = pts.shape[0]
-    if pts.shape != (n, 2, 8) or sc.shape != (n, 8) or lanes < 1 or n % lanes:
-        raise ValueError("msm accumulate: (B S, 2, 8) points and (B S, 8) scalars in B lanes")
-    if masks is not None and masks.shape != (n, K.mask_words(c)):
-        raise ValueError("msm accumulate: carry words must be (n, W // 32 + 1)")
-    cuda_lib.require_cuda("msm.accumulate_sorted", pts, sc, *(() if masks is None else (masks,)))
-    if n == 0:
-        return C.infinity((windows(c), lanes, rows(c)), pts.device)
-    out = torch.empty((windows(c), lanes, rows(c), 3, 8), dtype=torch.int32, device=pts.device)
-    issued = sum(launch(pts, sc, out, c, lanes, masks, w0, wg)[0] for w0, wg in window_groups(n, c, lanes))
-    cuda_lib.launches[launch_key(c)] += 1
-    cuda_lib.cuda_launches[launch_key(c)] += issued
+def _run(pts, sc, digits, masks, c: int, lanes: int, signed: bool) -> torch.Tensor:
+    """Every window group on the card, counted as one launch of its key."""
+    out = torch.empty((windows(c), lanes, rows(c, signed), 3, 8), dtype=torch.int32, device=pts.device)
+    groups = window_groups(pts.shape[0], c, lanes, signed)
+    issued = sum(launch(pts, sc, digits, masks, out, c, signed, w0, wg)[0] for w0, wg in groups)
+    key = launch_key(c, signed, digits is not None)
+    cuda_lib.launches[key] += 1
+    cuda_lib.cuda_launches[key] += issued
     return out
 
 
-def live_entries(pts: torch.Tensor, sc: torch.Tensor, c: int, masks=None) -> int:
-    """Live (window, point) entries of these inputs: nonzero digit, not the
-    (0, 0) sentinel."""
-    return int(_live_digits(pts, sc, c, masks)[1].sum())
+def accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
+               masks: torch.Tensor | None = None, signed: bool = True) -> torch.Tensor:
+    """K3 (c in {1, 2, 4, 8}) / K9 (c = 16) signed, K8 unsigned: (B S, 2, 8)
+    affine x (B S, 8) standard scalars [x (B S, W // 32 + 1) carry words,
+    signed only; without them the kernel computes the carries] ->
+    (W, B, rows, 3, 8) reduced buckets. The plain version on the CPU; on a
+    card the kernels or an error."""
+    if pts.device.type == "cpu":
+        return plain_accumulate(pts, sc, c, lanes, masks, signed)
+    _check_words(c)
+    n = pts.shape[0]
+    if pts.shape != (n, 2, 8) or sc.shape != (n, 8) or lanes < 1 or n % lanes:
+        raise ValueError("msm accumulate: (B S, 2, 8) points and (B S, 8) scalars in B lanes")
+    if masks is not None and (not signed or masks.shape != (n, K.mask_words(c))):
+        raise ValueError("msm accumulate: carry words must be (n, W // 32 + 1), and only for signed digits")
+    cuda_lib.require_cuda("msm.accumulate_sorted", pts, sc, *(() if masks is None else (masks,)))
+    if n == 0:
+        return C.infinity((windows(c), lanes, rows(c, signed)), pts.device)
+    return _run(pts, sc, None, masks, c, lanes, signed)
 
+
+def accumulate_digits(pts: torch.Tensor, digits: torch.Tensor, c: int, signed: bool = True) -> torch.Tensor:
+    """K10: (B S, 2, 8) affine x (W, B, S) int32 digits, |d| at most the
+    window's rows (as ``ops/msm.py::window_digits_signed`` and
+    ``window_digits`` give them) -> (W, B, rows, 3, 8) reduced buckets. The
+    plain version on the CPU; on a card the kernels or an error."""
+    if pts.device.type == "cpu":
+        return plain_accumulate_digits(pts, digits, c, signed)
+    _check_tensor(c, signed)
+    w, b, s = digits.shape
+    if w != windows(c) or b < 1 or pts.shape != (b * s, 2, 8):
+        raise ValueError("msm accumulate: (B S, 2, 8) points and (ceil(256 / c), B, S) digits")
+    cuda_lib.require_cuda("msm.accumulate_digits", pts, digits)
+    if s == 0:
+        return C.infinity((w, b, rows(c, signed)), pts.device)
+    return _run(pts, None, digits, None, c, b, signed)
+
+
+def live_tensor_entries(pts: torch.Tensor, digits: torch.Tensor) -> int:
+    """Live (window, point) entries of (n, 2, 8) points and their (W, n) or
+    (W, B, S) digits: nonzero digit, not the (0, 0) sentinel."""
+    on = digits.reshape(digits.shape[0], -1) != 0
+    return int((on & ~C.affine_is_infinity(pts)[None, :]).sum())
+
+
+def live_entries(pts: torch.Tensor, sc: torch.Tensor, c: int, masks=None, signed: bool = True) -> int:
+    """Live (window, point) entries of points and their scalars' digits."""
+    return live_tensor_entries(pts, word_digits(sc, c, signed, masks).T)

@@ -7,17 +7,19 @@ with reduced coordinates, at any window width c in [1, 16] and either
 digit sign (default c = 8, signed), in three steps:
 
   1. the bucket accumulation, bucket |d| in row |d| - 1 of a window's
-     table. Signed with c dividing 16 (the default), the bucket-sorted
-     accumulation (``cuda_msm_sorted``: K3, K9 at c = 16) takes the points
-     and scalars as they are: its kernels derive the digits and carries,
-     sort the entries by bucket and sum them into (W, rows) buckets, with
-     no padding, no segments and no fold. Otherwise the point stream is cut
-     into S segments (:func:`segments`) and a kernel fills (W, S, rows)
-     partial tables: from the scalar words unsigned (``cuda_msm``: K8), or
-     from the digit tensor of :func:`window_digits_signed` or
-     :func:`window_digits` with one lane (``cuda_msm_batched``: K6 up to
-     128 rows, K10 above); then K2 (``curve.add``) folds the S segments
-     (:func:`fold_reduce_lanes`);
+     table, (W, rows) buckets. With c dividing 16 the bucket-sorted
+     accumulation (``cuda_msm_sorted.accumulate``: K3, K9 at c = 16, K8
+     unsigned) takes the points and scalars as they are: its kernels
+     derive the digits (and, signed, the carries), sort the entries by
+     bucket and sum them. At any other c the scalars are recoded first
+     (:func:`window_digits_signed` or :func:`window_digits`); a window of
+     more than 128 rows (c >= 9) takes the same sorted design over that
+     digit tensor (``cuda_msm_sorted.accumulate_digits``: K10). Neither
+     pads, cuts segments or folds. The rest (c in {3, 5, 6, 7}) cut the point stream
+     into S segments (:func:`segments`), fill (W, S, rows) partial tables
+     with one lane of K6's table walk (``cuda_msm_batched.accumulate``),
+     and fold the S segments with K2 (``curve.add``,
+     :func:`fold_reduce_lanes`);
   2. K4 (``cuda_msm.tail``): the weighted bucket sums and Horner.
 
 Below 64 points ``msm_auto`` multiplies each point by its scalar with K5
@@ -29,9 +31,11 @@ A batch of B independent MSMs (``msm_fixed_base``: one basis for every
 lane, the dense verkle node commits; ``msm_batched``: points per lane)
 takes K6 (``cuda_msm_batched.accumulate``) over LSB-carry signed digits
 (:func:`window_digits_signed`) with c from :func:`_auto_c_batched`, the K2
-fold of the point segments, and K7 (``cuda_msm_batched.tail``); below 64
-points per lane, K5 and a K2 fold. Only the group element is contract; the
-JAX package's own paths return other projective representatives.
+fold of the point segments, and K7 (``cuda_msm_batched.tail``); a given c
+of more than 128 rows takes K10 with the batch's lanes as its lanes, and
+K7; below 64 points per lane, K5 and a K2 fold. Only the group element is
+contract; the JAX package's own paths return other projective
+representatives.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from . import field as F
 TOTAL_BITS = 256
 SEG_MIN = 16  # points per segment at least
 SEG_MAX = 1024  # segments at most: 32 x 1024 table threads fill 132 SMs
-TABLE_BYTES = 1 << 30  # partial bucket tables of a segmented MSM (K6, K8, K10) at most
+TABLE_BYTES = 1 << 30  # partial bucket tables of a segmented MSM (K6) at most
 ROW_BYTES = 96  # one projective bucket, 3 x 8 words
 
 
@@ -122,14 +126,12 @@ def _auto_c(n: int, c: int | None) -> int:
 
 
 def segments(n: int, table_rows: int = 0) -> tuple:
-    """(S, L) for the table-per-thread accumulations (K6, K8, K10; the
-    signed single MSM at c dividing 16 sorts instead): the point stream is
-    cut into S segments of L points (padded with zero scalars at the (0, 0)
-    sentinel), one accumulation thread per (window, segment).
-    ``table_rows`` (the rows of one segment's tables: W x rows, times the
-    lanes of a batch) caps S so that the partial tables stay under
-    TABLE_BYTES: at c = 16 unsigned a window has 2^16 - 1 rows, and 1,024
-    segments would need 103 GB."""
+    """(S, L) for K6's table walk (every other accumulation sorts): the
+    point stream is cut into S segments of L points (padded with zero
+    scalars at the (0, 0) sentinel), one accumulation thread per (window,
+    segment). ``table_rows`` (the rows of one segment's tables: W x rows,
+    times the lanes of a batch) caps S so that the partial tables stay under
+    TABLE_BYTES."""
     nseg = max(1, min(SEG_MAX, math.ceil(n / SEG_MIN)))
     if table_rows:
         nseg = max(1, min(nseg, TABLE_BYTES // (table_rows * ROW_BYTES)))
@@ -164,22 +166,20 @@ def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | N
     c = _auto_c(n, c)
     points_affine = points_affine.contiguous()
     scalars = scalars.contiguous()
-    if signed and c in K.IN_KERNEL_C:
-        return K.tail(KS.accumulate(points_affine, scalars, c)[:, 0].contiguous(), c)
-    w = K.windows(c)
-    nseg, seg_len = segments(n, w * K.rows(c, signed))
+    if c in K.IN_KERNEL_C:
+        buckets = KS.accumulate(points_affine, scalars, c, signed=signed)
+        return K.tail(buckets[:, 0].contiguous(), c)
+    digits = (window_digits_signed if signed else window_digits)(scalars, c).to(torch.int32)
+    if KB.launch_key(c, signed) == "K10":
+        buckets = KS.accumulate_digits(points_affine, digits[:, None].contiguous(), c, signed)
+        return K.tail(buckets[:, 0].contiguous(), c)
+    nseg, seg_len = segments(n, K.windows(c) * K.rows(c, signed))
     pad = nseg * seg_len - n
     if pad:
         points_affine = torch.nn.functional.pad(points_affine, (0, 0, 0, 0, 0, pad))
-        scalars = torch.nn.functional.pad(scalars, (0, 0, 0, pad))
-    if c in K.IN_KERNEL_C:
-        table = K.accumulate(points_affine, scalars, nseg, seg_len, c)
-    else:
-        digits = (window_digits_signed if signed else window_digits)(scalars, c)
-        digits = digits.to(torch.int32)[:, None].contiguous()  # (W, 1 lane, N)
-        table = KB.accumulate(points_affine, digits, nseg, seg_len, c, signed)[:, 0]
-    buckets = fold_reduce_lanes(table, dim=1)[:, 0].contiguous()
-    return K.tail(buckets, c)
+        digits = torch.nn.functional.pad(digits, (0, pad))
+    table = KB.accumulate(points_affine, digits[:, None].contiguous(), nseg, seg_len, c, signed)[:, 0]
+    return K.tail(fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), c)
 
 
 def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None, lanes: int = 128):
@@ -223,9 +223,15 @@ def _msm_lanewise(points_affine: torch.Tensor, scalars: torch.Tensor, c: int) ->
     point stream is cut into segments (zero digits and (0, 0) points pad
     it), K6 fills one bucket table per (window, lane, segment), K2 folds
     the segments and K7 runs the tails. The segments are capped so that
-    the B lanes' tables stay under TABLE_BYTES, as a single MSM's are."""
+    the B lanes' tables stay under TABLE_BYTES, as a single MSM's are. A
+    given c of more than 128 rows a window sorts instead: K10 with the B
+    lanes as its lanes (a shared basis repeated per lane), no fold."""
     digits = window_digits_signed(scalars, c).to(torch.int32)
     w, b, n = digits.shape
+    if KB.launch_key(c) == "K10":
+        pts = points_affine.expand(b, n, 2, F.WORDS) if points_affine.dim() == 3 else points_affine
+        buckets = KS.accumulate_digits(pts.reshape(b * n, 2, F.WORDS).contiguous(), digits.contiguous(), c)
+        return KB.tail(buckets, c)
     nseg, seg_len = segments(n, w * b * KB.rows(c))
     pad = nseg * seg_len - n
     if pad:

@@ -19,21 +19,22 @@ carries JAX's arrays across):
     ``batched_bucket_tail`` (B, 3, 8), reduced.
 
 Routing. ``wgroup`` takes K13 (``cuda_msm_group``), G windows a thread,
-with the pipelined row loads when ``fused``. Without it the digit tensor
-goes to K6/K10 (``cuda_msm_batched.accumulate``, counted by its
-``launch_key``) with the stream transposed to its per-lane layout and one
-segment of S points a lane. The signed ``_from_scalars`` functions take
-the bucket-sorted K3/K9 (``cuda_msm_sorted.accumulate``) with the caller's
-carry words, B lanes for the lane buckets and one for
-``msm_single_fused_sc_signed``, whose points need no lanes; the unsigned
-ones take K8 (``cuda_msm.accumulate``), each lane a segment. The other
-``msm_single_fused*`` fold the lanes' tables with K2
-(``ops/msm.py::fold_reduce_lanes``); every one runs the tail K4, and
-``batched_bucket_tail`` is K7. Each bucket row holds the same group element
-as JAX's; the projective words differ (the TPU kernels run their identity
-adds through the complete formulas, the sorted sums add a bucket's chunks in
-a tree, and the port's tails add in another order), so only group elements
-are contract.
+with the pipelined row loads when ``fused``. Without it a digit tensor of
+up to 128 rows a window goes to K6's table walk
+(``cuda_msm_batched.accumulate``) with the stream transposed to its
+per-lane layout and one segment of S points a lane, and a wider one to the
+bucket-sorted K10 (``cuda_msm_sorted.accumulate_digits``). The
+``_from_scalars`` functions take the bucket-sorted K3/K9 (signed, with the
+caller's carry words) or K8 (unsigned; ``cuda_msm_sorted.accumulate``).
+The sorted kernels take the B lanes as their lanes for the lane buckets,
+and one lane for the single MSMs, whose points need no lanes, so that no
+K2 fold follows; the single MSMs on K6 or K13 fold the lanes' tables with
+K2 (``ops/msm.py::fold_reduce_lanes``). Every single MSM runs the tail
+K4, and ``batched_bucket_tail`` is K7. Each bucket row holds the same group
+element as JAX's; the projective words differ (the TPU kernels run their
+identity adds through the complete formulas, the sorted sums add a
+bucket's chunks in a tree, and the port's tails add in another order), so
+only group elements are contract.
 
 ``chunk`` and ``wpair`` are accepted and have no effect: they sized the
 TPU's VMEM blocks and paired its windows. ``msm_single_fused*`` raise for a
@@ -69,9 +70,11 @@ def _digit_tables(pts_stream, digits, c: int, signed: bool, wgroup, fused: bool)
     if wgroup is not None:
         return KG.accumulate(pts_stream.contiguous(), digits.to(torch.int32).contiguous(), c, signed,
                              wgroup, fused)
-    s = pts_stream.shape[0]
+    s, b = pts_stream.shape[:2]
     lanes = pts_stream.transpose(0, 1).contiguous()
     per_lane = digits.to(torch.int32).permute(0, 2, 1).contiguous()
+    if KB.launch_key(c, signed) == "K10":
+        return KS.accumulate_digits(lanes.reshape(b * s, 2, 8), per_lane, c, signed)
     return KB.accumulate(lanes, per_lane, 1, s, c, signed)[:, :, 0]
 
 
@@ -82,10 +85,8 @@ def _scalar_tables(pts_stream, sc_stream, masks, c: int, signed: bool) -> torch.
     s, b = pts_stream.shape[:2]
     pts = pts_stream.transpose(0, 1).reshape(b * s, 2, 8).contiguous()
     sc = sc_stream.transpose(0, 1).reshape(b * s, 8).contiguous()
-    if signed:
-        m = masks.transpose(0, 1).reshape(b * s, -1).contiguous()
-        return KS.accumulate(pts, sc, c, b, m)
-    return K.accumulate(pts, sc, b, s, c)
+    m = None if masks is None else masks.transpose(0, 1).reshape(b * s, -1).contiguous()
+    return KS.accumulate(pts, sc, c, b, m, signed)
 
 
 def _jax_rows(tables: torch.Tensor, signed: bool) -> torch.Tensor:
@@ -99,7 +100,7 @@ def _jax_rows(tables: torch.Tensor, signed: bool) -> torch.Tensor:
 
 
 def _single(tables: torch.Tensor, c: int) -> torch.Tensor:
-    """Fold the lanes' tables with K2, then the tail K4 -> (3, 8)."""
+    """Fold the lanes' tables (K6's, K13's) with K2, then the tail K4 -> (3, 8)."""
     return K.tail(fold_reduce_lanes(tables, dim=1)[:, 0].contiguous(), c)
 
 
@@ -122,17 +123,28 @@ def bucket_accumulate_from_scalars_signed(pts_stream, sc_stream, masks, c: int, 
     return _jax_rows(_scalar_tables(pts_stream, sc_stream, masks, c, True), True)
 
 
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """A lane stream (S, B, ...) as one lane of S B steps, in stream order."""
+    return x.reshape(-1, *x.shape[2:]).contiguous()
+
+
 def msm_single_fused(pts_stream, digits, c: int, chunk: int = 64, signed: bool = False,
                      wgroup: int | None = None, fused: bool = False) -> torch.Tensor:
-    """The single MSM of the whole stream from its digit tensor -> (3, 8)."""
+    """The single MSM of the whole stream from its digit tensor -> (3, 8);
+    on K10 the whole stream as one lane, so no K2 fold."""
     _check_lanes(digits.shape[2])
+    if wgroup is None and KB.launch_key(c, signed) == "K10":
+        one = digits.to(torch.int32).reshape(digits.shape[0], 1, -1).contiguous()
+        return K.tail(KS.accumulate_digits(_flat(pts_stream), one, c, signed)[:, 0].contiguous(), c)
     return _single(_digit_tables(pts_stream, digits, c, signed, wgroup, fused), c)
 
 
 def msm_single_fused_sc(pts_stream, sc_stream, c: int, chunk: int = 64) -> torch.Tensor:
-    """The single MSM with unsigned digits from the scalar words -> (3, 8)."""
+    """The single MSM with unsigned digits from the scalar words -> (3, 8):
+    the whole stream as one lane, so no K2 fold."""
     _check_lanes(pts_stream.shape[1])
-    return _single(_scalar_tables(pts_stream, sc_stream, None, c, False), c)
+    buckets = KS.accumulate(_flat(pts_stream), _flat(sc_stream), c, 1, None, False)
+    return K.tail(buckets[:, 0].contiguous(), c)
 
 
 def msm_single_fused_sc_signed(pts_stream, sc_stream, masks, c: int, chunk: int = 64,
@@ -140,8 +152,8 @@ def msm_single_fused_sc_signed(pts_stream, sc_stream, masks, c: int, chunk: int 
     """The single MSM with signed digits from the scalar and carry words ->
     (3, 8): the whole stream as one lane, so no K2 fold."""
     _check_lanes(pts_stream.shape[1])
-    flat = lambda x: x.reshape(-1, *x.shape[2:]).contiguous()  # noqa: E731
-    return K.tail(KS.accumulate(flat(pts_stream), flat(sc_stream), c, 1, flat(masks))[:, 0].contiguous(), c)
+    buckets = KS.accumulate(_flat(pts_stream), _flat(sc_stream), c, 1, _flat(masks))
+    return K.tail(buckets[:, 0].contiguous(), c)
 
 
 def batched_bucket_tail(buckets, c: int, nbuckets: int | None = None, shifted: bool = False) -> torch.Tensor:

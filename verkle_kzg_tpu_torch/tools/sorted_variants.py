@@ -1,5 +1,6 @@
-"""Time variant builds of ``csrc/msm_sorted.cu`` (K3/K9) on the card, to see
-what bounds its sums and its combine.
+"""Time variant builds of ``csrc/msm_sorted.cu`` (K3/K9; K8 and K10 share
+its sums and combine) on the card, to see what bounds its sums and its
+combine.
 
     python -m verkle_kzg_tpu_torch.tools.sorted_variants
 
@@ -114,14 +115,14 @@ def stages(lib, pts, sc, c: int, target: int, ref, reps: int = 3) -> dict:
     the median sums and combine ms of ``reps`` event-timed calls."""
     n, w = pts.shape[0], KS.windows(c)
     words, issued = ctypes.c_int64(), ctypes.c_int64()
-    cuda_lib.check(lib.vkzg_msm_sorted_plan(n, 1, c, w, target, ctypes.byref(words)), "plan")
+    cuda_lib.check(lib.vkzg_msm_sorted_plan(n, 1, c, 1, 1, w, target, ctypes.byref(words)), "plan")
     work = torch.empty(words.value, dtype=torch.int32, device=pts.device)
     out = torch.empty_like(ref)
     ms = (ctypes.c_float * len(KS.STAGES))()
 
     def run(timed):
-        cuda_lib.check(lib.vkzg_msm_sorted(pts.data_ptr(), sc.data_ptr(), 0, out.data_ptr(), work.data_ptr(),
-                                           work.numel(), n, 1, c, 0, w, target, KS.L_MIN,
+        cuda_lib.check(lib.vkzg_msm_sorted(pts.data_ptr(), sc.data_ptr(), 0, 0, out.data_ptr(), work.data_ptr(),
+                                           work.numel(), n, 1, c, 1, 0, w, target, KS.L_MIN,
                                            ctypes.addressof(ms) if timed else None, ctypes.byref(issued),
                                            cuda_lib.stream(pts)), "vkzg_msm_sorted")
         return dict(zip(KS.STAGES, ms)) if timed else None
