@@ -25,8 +25,11 @@ and no JAX. Phases, each of which raises on failure:
      timed apart; each call of the bucket-sorted accumulation (K3 at 257
      points, c = 8, at 2^16, c = 1 and 4, and at 2^12, c = 8, with all
      scalars equal; K9 at 2^12; K8, unsigned, at 2^16, c = 8, and 2^12,
-     c = 16; K10, a digit tensor, at 2^12, c = 12 signed, and 2^16, c = 9
-     unsigned) with its CUDA launches as its C entry point counted them,
+     c = 16; from a digit tensor K10 at 2^12, c = 12 signed, and 2^16,
+     c = 9 unsigned, K6 at 2^16, c = 5 unsigned, and over the width-256
+     basis shared by 40 lanes at c = 5 and by 3 lanes of 64 at c = 1, with
+     K7 on those lanes, and K13 over a lane stream of 2^12 points in 128
+     lanes) with its CUDA launches as its C entry point counted them,
      live entries, chunk length and the times of its four stages (digits,
      sort, sums, combine) from CUDA events recorded between them in one
      call;
@@ -55,8 +58,9 @@ and no JAX. Phases, each of which raises on failure:
      and one G1 NTT with each stage timed by CUDA events;
   9. benchmarks/tune_group.py's default grid on the port: the signed
      single MSM of 2^20 points in 128 lanes through the lane-stream entry
-     point msm_stream.msm_single_fused with wgroup/fused (K13), against the
-     c = 8 msm_pippenger (K3), each run exact; then every other entry point
+     point msm_stream.msm_single_fused with wgroup/fused (K13, the sorted
+     accumulation, and K4), against the c = 8 msm_pippenger (K3), each run
+     exact, with K13 alone and its stages; then every other entry point
      of msm_stream once at 2^12 points against the native oracle, with
      their launches (K3, K4, K6, K7, K8 and K10 among them).
 
@@ -440,8 +444,9 @@ def _tail_record(key: str, bk, c: int, plain_out_ms: tuple, reps: int) -> dict:
 
 
 def sorted_stages(pa, sc, c: int, reps: int, signed: bool = True, digits=None) -> dict:
-    """Milliseconds of each stage of a K3/K9/K8/K10 call (one window group,
-    the digits from ``sc`` or, for K10, from ``digits``): digits, sort,
+    """Milliseconds of each stage of a sorted accumulation's call (one
+    window group, the digits from ``sc`` or from the (W, B, S) ``digits``
+    with their (B S, 2, 8) points or (B, S, 2, 8) view): digits, sort,
     sums, combine, from CUDA events the call records between its stages;
     the median of ``reps`` calls after a warm-up, and each stage's least and
     greatest."""
@@ -449,8 +454,10 @@ def sorted_stages(pa, sc, c: int, reps: int, signed: bool = True, digits=None) -
 
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 
-    (w0, wg), = KS.window_groups(pa.shape[0], c, 1, signed)
-    out = torch.empty((KS.windows(c), 1, KS.rows(c, signed), 3, 8), dtype=torch.int32, device=pa.device)
+    lanes = 1 if digits is None else digits.shape[1]
+    n = pa.shape[0] if digits is None else digits.shape[1] * digits.shape[2]
+    (w0, wg), = KS.window_groups(n, c, lanes, signed)
+    out = torch.empty((KS.windows(c), lanes, KS.rows(c, signed), 3, 8), dtype=torch.int32, device=pa.device)
     src = (None, digits) if digits is not None else (sc, None)
     KS.launch(pa, *src, None, out, c, signed, w0, wg)
     runs = [KS.launch(pa, *src, None, out, c, signed, w0, wg, timed=True)[1] for _ in range(reps)]
@@ -459,44 +466,52 @@ def sorted_stages(pa, sc, c: int, reps: int, signed: bool = True, digits=None) -
     return rec
 
 
-def sorted_run(pa, sc, c: int, signed: bool = True, digits=None):
+def sorted_run(pa, sc, c: int, signed: bool = True, digits=None, key=None):
     """One call of the sorted accumulation through its wrapper: K3/K9/K8
-    from the scalar words, K10 from ``digits``."""
+    from the scalar words, K6/K10 (or ``key``, K13) from ``digits``."""
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 
     if digits is not None:
-        return KS.accumulate_digits(pa, digits, c, signed)
+        return KS.accumulate_digits(pa, digits, c, signed, key=key)
     return KS.accumulate(pa, sc, c, signed=signed)
 
 
-def sorted_cuda_launches(pa, sc, c: int, signed: bool = True, digits=None) -> int:
-    """The CUDA launches of one K3/K9/K8/K10 call, as its C entry point
-    counted them."""
+def sorted_cuda_launches(pa, sc, c: int, signed: bool = True, digits=None, key=None) -> int:
+    """The CUDA launches of one sorted accumulation's call, as its C entry
+    point counted them."""
     from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 
-    key = KS.launch_key(c, signed, digits is not None)
+    key = key or KS.launch_key(c, signed, digits is not None)
     before = cuda_lib.cuda_launches[key]
-    sorted_run(pa, sc, c, signed, digits)
+    sorted_run(pa, sc, c, signed, digits, key)
     return cuda_lib.cuda_launches[key] - before
 
 
-def _sorted_record(pa, sc, c: int, table, plain_ms: float, reps: int, signed: bool = True, digits=None) -> dict:
-    """Time and bound of one K3/K9/K8/K10 call on (n, 2, 8) points, its
-    CUDA launches, live entries and chunk length, and its stages' times.
-    Bound: the points, scalars (or digits) and buckets once, and a lazy
-    mixed add (11 products) a live entry."""
+def point_words(pa) -> int:
+    """The int32 words of distinct points in (n, 2, 8) points or a (B, S,
+    2, 8) view of them: a basis every lane shares (lane stride 0) once."""
+    return pa[0].numel() if pa.dim() == 4 and pa.shape[0] > 1 and pa.stride(0) == 0 else pa.numel()
+
+
+def _sorted_record(pa, sc, c: int, table, plain_ms: float, reps: int, signed: bool = True, digits=None,
+                   key=None) -> dict:
+    """Time and bound of one sorted accumulation's call (K3/K9/K8 from the
+    scalar words, K6/K10/K13 from a digit tensor), its CUDA launches, live
+    entries and chunk length, and its stages' times. Bound: the points
+    (a shared basis once), scalars (or digits) and buckets once, and a
+    lazy mixed add (11 products) a live entry."""
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 
     if digits is not None:
-        live, inputs = KS.live_tensor_entries(pa, digits), pa.numel() + digits.numel()
+        live, inputs = KS.live_tensor_entries(pa, digits), point_words(pa) + digits.numel()
     else:
         live, inputs = KS.live_entries(pa, sc, c, signed=signed), pa.numel() + sc.numel()
     return {
-        "ms": cuda_ms(lambda: sorted_run(pa, sc, c, signed, digits), reps),
+        "ms": cuda_ms(lambda: sorted_run(pa, sc, c, signed, digits, key), reps),
         "plain_ms": plain_ms,
         "library_ms": None,
-        "cuda_launches": sorted_cuda_launches(pa, sc, c, signed, digits),
+        "cuda_launches": sorted_cuda_launches(pa, sc, c, signed, digits, key),
         "entries": live,
         "chunk_len": KS.chunk_len(live),
         "stages_ms": sorted_stages(pa, sc, c, reps, signed, digits),
@@ -520,9 +535,9 @@ def timed_once(fn) -> tuple:
 def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) -> dict:
     """The single MSM's other modes (zero scalars, r - 1, ties, (0, 0)
     points), exact against their plain versions: the bucket-sorted K3 at
-    c = 1 and 4, K8 (unsigned digits from the scalar words) at c = 8, K10
-    (a digit tensor) unsigned at c = 9 and K6's table walk unsigned at c = 5
-    on ``n`` points, phase 7's smallest size; K9 (c = 16), K8 at c = 16 and
+    c = 1 and 4, K8 (unsigned digits from the scalar words) at c = 8, and a
+    digit tensor unsigned at c = 9 (K10) and c = 5 (K6) on ``n`` points,
+    phase 7's smallest size; K9 (c = 16), K8 at c = 16 and
     K10 at c = 12 signed on ``n_wide`` points; and K3 at c = 8 on ``n_wide``
     points whose scalars are all equal (one bucket a window, over every
     chunk). Each sorted call with its CUDA launches, live entries, chunk
@@ -534,7 +549,6 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
-    from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
     from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
@@ -561,49 +575,21 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
             sc = sc_all[4:5].expand(m, 8).contiguous()
             want[name] = native.g1_msm(pts[:m], [ks[4]] * m)
         expect = want[name if name in want else m]
-        if source == "words" or KB.launch_key(c, signed) == "K10":
-            digits = None
-            if source == "words":
-                table = KS.accumulate(pa, sc, c, signed=signed)
-                plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate(pa, sc, c, signed=signed))
-            else:
-                digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
-                digits = digits.to(torch.int32)[:, None].contiguous()  # (W, 1 lane, m)
-                table = KS.accumulate_digits(pa, digits, c, signed)
-                plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate_digits(pa, digits, c, signed))
-            err = max_abs_err(table, plain_table)
-            assert err == 0, name
-            rec[name] = {"max_abs_err": err, **_sorted_record(pa, sc, c, table, plain_ms, 5, signed, digits),
-                         "shape": f"{m} points, c = {c}, {sign}{', all scalars equal' if name in want else ''}"}
-            buckets[name] = (table[:, 0].contiguous(), c, signed, expect)
-            del table, plain_table
-            continue
-        # K6: the table walk over point segments, then the K2 fold
-        nseg, seg_len = M.segments(m, K.windows(c) * K.rows(c, signed))
-        pad = nseg * seg_len - m
-        pa = torch.nn.functional.pad(pa, (0, 0, 0, 0, 0, pad)).contiguous()
-        sc = torch.nn.functional.pad(sc, (0, 0, 0, pad)).contiguous()
-        dead = C.affine_is_infinity(pa)
-        digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
-        digits = digits.to(torch.int32)[:, None].contiguous()
-        args = (pa, digits, nseg, seg_len, c, signed)
-        run, plain = (lambda a=args: KB.accumulate(*a)), (lambda a=args: KB.plain_accumulate(*a))
-        live = int(((digits[:, 0] != 0) & ~dead[None, :]).sum())
-        table = run().reshape(K.windows(c), nseg, K.rows(c, signed), 3, 8)
-        plain_table, plain_ms = timed_once(plain)
-        err = max_abs_err(table, plain_table.reshape(table.shape))
+        digits = None
+        if source == "words":
+            table = KS.accumulate(pa, sc, c, signed=signed)
+            plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate(pa, sc, c, signed=signed))
+        else:
+            digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
+            digits = digits.to(torch.int32)[:, None].contiguous()  # (W, 1 lane, m)
+            table = KS.accumulate_digits(pa, digits, c, signed)
+            plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate_digits(pa, digits, c, signed))
+        err = max_abs_err(table, plain_table)
         assert err == 0, name
-        del plain_table
-        rec[name] = {
-            "max_abs_err": err,
-            "ms": cuda_ms(run, 5),
-            "plain_ms": plain_ms,
-            "library_ms": None,
-            "shape": f"{m} points, c = {c}, {sign}, {nseg} segments of {seg_len}",
-            **bound(4 * (pa.numel() + digits.numel() + table.numel()), live * MIXED_FMULS),
-        }
-        buckets[name] = (M.fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), c, signed, expect)
-        del table
+        rec[name] = {"max_abs_err": err, **_sorted_record(pa, sc, c, table, plain_ms, 5, signed, digits),
+                     "shape": f"{m} points, c = {c}, {sign}{', all scalars equal' if name in want else ''}"}
+        buckets[name] = (table[:, 0].contiguous(), c, signed, expect)
+        del table, plain_table
 
     for name, (bk, c, signed, expect) in buckets.items():
         out = K.tail(bk, c)
@@ -636,12 +622,14 @@ def _k5_work(pa, ks) -> float:
 def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     """K5 on 2^12 edge-case lanes and at the shape of the verkle commit's
     c1/c2 launch (40,000 lanes over the basis, half of them zero-scalar pad
-    lanes, 128-bit leaf halves in the others); K6 and K7 at the dense
-    verkle level (width 256, c = 5, 40 lanes) and at width 64 (c = 4)."""
+    lanes, 128-bit leaf halves in the others); K6 (the sorted accumulation,
+    one basis shared by the lanes) and K7 at the dense verkle level (width
+    256, c = 5, 40 lanes), at width 64 (c = 4) and at c = 1."""
     import torch
 
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
     from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
@@ -684,39 +672,49 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     }
     rec.update(_kernels_k5_few(dev, basis, random.Random(5)))
 
-    # K6 and K7: 40 lanes over the basis, lane 0 all zero, ties in lane 1
+    # K6 and K7: 40 lanes over the basis, shared (read at lane stride 0,
+    # never copied per lane), lane 0 all zero, ties in lane 1; then both at
+    # c = 1 over the width-64 lanes (256 windows of one row)
     k6_err = k7_err = 0
     b = batch
+    from verkle_kzg_tpu_torch import native
+
     for width in (64, 256):
         c = M._auto_c_batched(width)
         ks = [[rng.randrange(R) for _ in range(width)] for _ in range(b)]
         ks[0] = [0] * width
         ks[1][0] = (1 << (c - 1)) | (1 << (c - 1)) << c
         scalars = F.ints_to_words([x for k in ks for x in k], dev).reshape(b, width, 8)
+        if width == 64:
+            narrow = (scalars[:3].contiguous(), ks[:3])
         digits = M.window_digits_signed(scalars, c).to(torch.int32).contiguous()
-        nseg, seg_len = M.segments(width)
-        pts = basis[:width].contiguous()
-        table = KB.accumulate(pts, digits, nseg, seg_len, c)
-        k6_err = max(k6_err, max_abs_err(table, KB.plain_accumulate(pts, digits, nseg, seg_len, c)))
-        buckets = M.fold_reduce_lanes(table, dim=2)[:, :, 0].contiguous()
-        out = KB.tail(buckets, c)
-        k7_plain = timed_once(lambda: KB.plain_tail(buckets, c))
+        pts = basis[:width].contiguous().expand(b, width, 2, 8)
+        table = KS.accumulate_digits(pts, digits, c)
+        plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate_digits(pts, digits, c))
+        k6_err = max(k6_err, max_abs_err(table, plain_table))
+        out = KB.tail(table, c)
+        k7_plain = timed_once(lambda: KB.plain_tail(table, c))
         k7_err = max(k7_err, max_abs_err(out, k7_plain[0]))
         assert k6_err == 0 and k7_err == 0, width
-        from verkle_kzg_tpu_torch import native
-
         got = C.projective_to_host_points(out[:3])
         assert got == [native.g1_msm(crs.g_host[:width], k) for k in ks[:3]], "K6 + K7 != native oracle"
-    live = int((digits != 0).sum())
-    rec["K6"] = {
-        "max_abs_err": k6_err,
-        "ms": cuda_ms(lambda: KB.accumulate(pts, digits, nseg, seg_len, c), 20),
-        "plain_ms": cuda_ms(lambda: KB.plain_accumulate(pts, digits, nseg, seg_len, c), 1),
-        "shape": f"width 256, c = 5, {b} lanes, {nseg} segments",
-        **bound(4 * (digits.numel() + pts.numel() + table.numel()), live * MIXED_FMULS),
-    }
-    rec["K7"] = {**_tail_record("K7", buckets, c, k7_plain, 20), "shape": f"width 256, c = 5, {b} lanes"}
+    rec["K6"] = {"max_abs_err": k6_err, **_sorted_record(pts, None, c, table, plain_ms, 20, True, digits),
+                 "shape": f"width 256, c = 5, {b} lanes, one basis shared"}
+    rec["K7"] = {**_tail_record("K7", table, c, k7_plain, 20), "shape": f"width 256, c = 5, {b} lanes"}
     rec["K7"]["max_abs_err"] = max(k7_err, rec["K7"]["max_abs_err"])
+
+    scalars, ks = narrow
+    pts, digits = basis[:64].contiguous().expand(3, 64, 2, 8), M.window_digits_signed(scalars, 1).to(torch.int32)
+    table = KS.accumulate_digits(pts, digits, 1)
+    plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate_digits(pts, digits, 1))
+    rec["K6@c1"] = {"max_abs_err": max_abs_err(table, plain_table),
+                    **_sorted_record(pts, None, 1, table, plain_ms, 5, True, digits),
+                    "shape": "width 64, c = 1, 3 lanes, one basis shared"}
+    rec["K7@c1"] = {**_tail_record("K7", table, 1, timed_once(lambda: KB.plain_tail(table, 1)), 5),
+                    "shape": "width 64, c = 1, 3 lanes (256 windows of one row)"}
+    assert rec["K6@c1"]["max_abs_err"] == 0 and rec["K7@c1"]["max_abs_err"] == 0
+    got = C.projective_to_host_points(M.msm_fixed_base(basis[:64].contiguous(), scalars, c=1))
+    assert got == [native.g1_msm(crs.g_host[:64], k) for k in ks], "msm_fixed_base at c = 1 != native oracle"
     return rec
 
 
@@ -799,12 +797,17 @@ def _k13_stream(pts, sc, lanes: int, c: int, signed: bool) -> tuple:
 
 
 def _kernels_k13(dev, base, rng, n: int = 1 << 12, lanes: int = 128) -> dict:
-    """K13 against its plain version on ``n`` points in ``lanes`` lanes
-    (zero scalars, r - 1, a (0, 0) point) at each (c, G, fused, sign) of
-    K13_CASES; the first case's single MSM also against the native oracle."""
+    """K13, the sorted accumulation of a lane stream's (W, S, B) digits read
+    in place (``msm_stream.bucket_accumulate`` with ``wgroup``), against its
+    plain version on ``n`` points in ``lanes`` lanes (zero scalars, r - 1,
+    a (0, 0) point) at each (c, G, fused, sign) of K13_CASES (G and fused
+    change no word); the lane buckets of msm_stream equal to it, and the
+    first case's single MSM also against the native oracle."""
+    import torch
+
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.params import R
-    from verkle_kzg_tpu_torch.ops import cuda_msm_group as KG
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import msm_stream as MS
@@ -814,27 +817,24 @@ def _kernels_k13(dev, base, rng, n: int = 1 << 12, lanes: int = 128) -> dict:
     ks = [rng.randrange(R) for _ in range(n)]
     ks[0], ks[2], ks[3] = 0, R - 1, 0
     pa, sc = C.host_points_to_affine(pts, dev), F.ints_to_words(ks, dev)
-    dead = C.affine_is_infinity(pa)
     rec = {}
     for name, c, g, fused, signed in K13_CASES:
         stream, digits = _k13_stream(pa, sc, lanes, c, signed)
-        run = lambda: KG.accumulate(stream, digits, c, signed, g, fused)  # noqa: E731
-        table = run()
-        plain_table, plain_ms = timed_once(lambda: KG.plain_accumulate(stream, digits, c, signed))
+        view, dview = stream.transpose(0, 1), digits.permute(0, 2, 1)  # (B, S) views, read in place
+        table = KS.accumulate_digits(view, dview, c, signed, key="K13")
+        plain_table, plain_ms = timed_once(lambda: KS.plain_accumulate_digits(view, dview, c, signed))
         err = max_abs_err(table, plain_table)
         assert err == 0, name
+        rows = MS.bucket_accumulate(stream, digits, c, signed=signed, wgroup=g, fused=fused)
+        assert torch.equal(rows[:, 0 if signed else 1:], table.permute(0, 2, 1, 3, 4)), name
         if name == "K13":
             got = MS.msm_single_fused(stream, digits, c, signed=signed, wgroup=g, fused=fused)
             assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)], "K13 MSM != native oracle"
-        live = int(((digits != 0) & ~dead.reshape(digits.shape[1:])[None]).sum())
         rec[name] = {
             "max_abs_err": err,
-            "ms": cuda_ms(run, 5),
-            "plain_ms": plain_ms,
-            "library_ms": None,
+            **_sorted_record(view, None, c, table, plain_ms, 5, signed, dview, key="K13"),
             "shape": f"{n} points, {lanes} lanes, c = {c}, G = {g}, {'fused' if fused else 'unfused'}, "
                      f"{'signed' if signed else 'unsigned'}",
-            **bound(4 * (stream.numel() + digits.numel() + table.numel()), live * MIXED_FMULS),
         }
     return rec
 
@@ -1267,8 +1267,9 @@ def phase_sweep(dev, card: str, sizes=(1 << 16, 1 << 18, 1 << 20, 1 << 22), extr
             line["recode_ms"] = _median_ms(lambda: recode(sc, c).to(torch.int32))[0]
         runs.append(line)
         print("phase 7 msm sweep:", json.dumps(line), f"[{card}]", flush=True)
-    for k in ("K2", "K3", "K4", "K6", "K8", "K9", "K10"):
+    for k in ("K3", "K4", "K6", "K8", "K9", "K10"):
         assert path_launches[k] > 0, (k, path_launches)
+    assert path_launches["K2"] == 0, path_launches  # no MSM of 64 points or more folds with K2
     return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches,
             "path_cuda_launches": path_cuda_launches}
 
@@ -1279,22 +1280,24 @@ GROUP_GRID = ((6, 2, False), (6, 2, True), (6, 4, True), (8, 2, False), (8, 2, T
 def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_GRID, small: int = 1 << 12) -> dict:
     """``benchmarks/tune_group.py``'s default grid on the port: the signed
     single MSM of ``n`` points in ``lanes`` lanes through
-    ``msm_stream.msm_single_fused`` with ``wgroup``/``fused`` (K13, K2
-    fold, K4; chunk 32 is accepted and has no effect), digits included, as
-    tune_group times it; its baseline is ``msm_pippenger`` at c = 8 (K3,
-    tune_group's ``prod_sc_pair_c8``). Phase 4's points k G, uniform
-    scalars; every run exact against (sum k_i s_i) G. Each run prints the
-    median of 3 CUDA-event reps after the checked call, points/s, the
-    launches of the checked call, whose counts start from 0, and one call
-    of K13 alone. Then each other entry point of ``msm_stream`` once, on
-    ``small`` points, against the native oracle."""
+    ``msm_stream.msm_single_fused`` with ``wgroup``/``fused`` (K13: the
+    sorted accumulation over the whole stream as one lane, then K4, no K2
+    fold; chunk 32, G and fused are accepted and have no effect), digits
+    included, as tune_group times it; its baseline is ``msm_pippenger`` at
+    c = 8 (K3, tune_group's ``prod_sc_pair_c8``). Phase 4's points k G,
+    uniform scalars; every run exact against (sum k_i s_i) G. Each run
+    prints the median of 3 CUDA-event reps after the checked call,
+    points/s, the launches of the checked call, whose counts start from 0,
+    and one call of K13 alone with its bound, CUDA launches and (once a c)
+    its four stages' times. Then each other entry point of ``msm_stream``
+    once, on ``small`` points, against the native oracle."""
     import torch
 
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.hostmath.curve import g1_generator, g1_mul
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_lib
-    from verkle_kzg_tpu_torch.ops import cuda_msm_group as KG
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import msm as M
@@ -1313,7 +1316,8 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
         cuda_lib.reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        line = {"kind": kind, "n": n, **line, "launches": {k: v for k, v in cuda_lib.launches.items() if v}}
+        line = {"kind": kind, "n": n, **line, "launches": {k: v for k, v in cuda_lib.launches.items() if v},
+                "cuda_launches": {k: v for k, v in cuda_lib.cuda_launches.items() if v}}
         assert C.projective_to_host_points(out) == [want], f"{kind}: != (sum k_i s_i) G"
         line["median_ms"], line["reps_ms"] = _median_ms(fn)
         line["points_per_s"] = n / (line["median_ms"] / 1e3)
@@ -1322,6 +1326,8 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
     runs = [checked("prod_sc_pair_c8", lambda: M.msm_pippenger(pts, sc, c=8))]
     print("phase 9 group grid:", json.dumps(runs[0]), f"[{card}]", flush=True)
     path_launches = dict.fromkeys(cuda_lib.launches, 0)
+    path_cuda_launches = dict.fromkeys(cuda_lib.cuda_launches, 0)
+    staged = set()
     for c, g, fused in grid:
         def run(c=c, g=g, fused=fused):
             stream, digits = _k13_stream(pts, sc, lanes, c, True)
@@ -1330,16 +1336,25 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
         line = checked(f"group_c{c}_g{g}_f{int(fused)}", run, lanes=lanes)
         for k, v in line["launches"].items():
             path_launches[k] += v
+        for k, v in line["cuda_launches"].items():
+            path_cuda_launches[k] += v
+        # K13 alone, as msm_single_fused calls it: the stream as one lane
         stream, digits = _k13_stream(pts, sc, lanes, c, True)
-        line["k13_ms"] = _median_ms(lambda: KG.accumulate(stream, digits, c, True, g, fused), 1)[0]
-        # K13's bound, as phase 2 counts it: the stream, digits and tables
+        flat, one = stream.reshape(n, 2, 8), digits.reshape(digits.shape[0], 1, n)
+        line["k13_ms"] = _median_ms(lambda: KS.accumulate_digits(flat, one, c, True, key="K13"), 1)[0]
+        # K13's bound, as phase 2 counts it: the stream, digits and buckets
         # once, a mixed add a live digit (phase 4's points have no (0, 0))
         rows = 1 << (c - 1)
-        line["k13_bound"] = bound(4 * (stream.numel() + digits.numel() + digits.shape[0] * lanes * rows * 24),
+        line["k13_bound"] = bound(4 * (stream.numel() + digits.numel() + digits.shape[0] * rows * 24),
                                   int((digits != 0).sum()) * MIXED_FMULS)
+        if c not in staged:
+            staged.add(c)
+            line["k13_entries"] = KS.live_tensor_entries(flat, one)
+            line["k13_stages_ms"] = sorted_stages(flat, None, c, 3, True, one)
+        del stream, digits, flat, one
         runs.append(line)
         print("phase 9 group grid:", json.dumps(line), f"[{card}]", flush=True)
-    assert path_launches["K13"] > 0, path_launches
+    assert path_launches["K13"] > 0 and path_launches["K2"] == 0, path_launches
 
     # every other entry point once, on the first `small` points, 128 lanes
     pa, sm = pts[:small].contiguous(), sc[:small].contiguous()
@@ -1373,7 +1388,8 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
         assert C.projective_to_host_points(got) == expect, f"{name} != native oracle"
     for k in ("K3", "K4", "K6", "K7", "K8", "K10"):
         assert entry_launches.get(k, 0) > 0, (k, entry_launches)
-    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches, "entry_points_checked": list(checks),
+    return {"setup_s": setup_s, "runs": runs, "path_launches": path_launches,
+            "path_cuda_launches": path_cuda_launches, "entry_points_checked": list(checks),
             "entry_point_launches": entry_launches}
 
 
@@ -1839,9 +1855,9 @@ def main() -> int:
           f"[{card}]", flush=True)
 
     sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K2": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
-               "K5": "scalar_mul.cu", "K6": "msm_batched.cu", "K7": "msm_tail.cuh",
+               "K5": "scalar_mul.cu", "K6": "msm_sorted.cu", "K7": "msm_tail.cuh",
                "K8": "msm_sorted.cu", "K9": "msm_sorted.cu", "K10": "msm_sorted.cu",
-               "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_group.cu",
+               "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_sorted.cu",
                "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
@@ -1879,8 +1895,9 @@ def main() -> int:
         **dict.fromkeys(("G1SMUL", "G1BFLY"), ("phase 8", kzg["path_launches"])),
         "K13": ("phase 9", group["path_launches"]),
     }
-    cuda_path = {"K3": verkle["path_cuda_launches"]["K3"],
-                 **{k: sweep["path_cuda_launches"][k] for k in ("K8", "K9", "K10")}}
+    cuda_path = {**{k: verkle["path_cuda_launches"][k] for k in ("K3", "K6")},
+                 **{k: sweep["path_cuda_launches"][k] for k in ("K8", "K9", "K10")},
+                 "K13": group["path_cuda_launches"]["K13"]}
     chains = {"G1SMUL": "verkle_kzg_tpu/ops/curve.py:239", "G1BFLY": "verkle_kzg_tpu/ops/curve.py:239",
               "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342"}
     kernels = []
@@ -1901,8 +1918,9 @@ def main() -> int:
             "bound_by": first["bound_by"],
             "library_ms": None,
             **({"chain_ms": first["chain_ms"], "replaces_chain": chains[k]} if k in chains else {}),
-            # K3/K9/K8/K10: the main path's CUDA launches and one call's, as
-            # the C entry point counted them, and the first record's stage times
+            # the sorted accumulations (K3/K9/K8/K10/K6/K13): the main path's
+            # CUDA launches and one call's, as the C entry point counted
+            # them, and the first record's stage times
             **({"cuda_launches": cuda_path[k], "cuda_launches_per_call": first["cuda_launches"],
                 "stages_ms": first["stages_ms"]} if k in cuda_path else {}),
         })

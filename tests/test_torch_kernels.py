@@ -70,16 +70,17 @@ def test_kernels_match_plain_on_card(cuda):
     assert torch.equal(C.to_affine(p), C.host_points_to_affine(pts, cuda))
     # K5 on the same lanes, (0, 0) and zero scalars among them
     assert torch.equal(cuda_scalar_mul.scalar_mul_affine(pa, a), cuda_scalar_mul.plain(pa, a))
-    # K6 and K7 at c = 4 and 5 over a 64-point basis, three lanes
+    # K6 (the sorted accumulation, the basis shared at lane stride 0) and
+    # K7 at c = 1, 4 and 5 over a 64-point basis, three lanes
     basis = pa[:64].contiguous()
     scalars = torch.stack([a[:64], a[64:128], a[128:192]])
-    for c in (4, 5):
+    for c in (1, 4, 5):
         digits = M.window_digits_signed(scalars, c).to(torch.int32).contiguous()
-        nseg, seg_len = M.segments(64)
-        table = KB.accumulate(basis, digits, nseg, seg_len, c)
-        assert torch.equal(table, KB.plain_accumulate(basis, digits, nseg, seg_len, c))
-        buckets = M.fold_reduce_lanes(table, dim=2)[:, :, 0].contiguous()
-        assert torch.equal(KB.tail(buckets, c), KB.plain_tail(buckets, c))
+        shared = basis.expand(3, 64, 2, 8)
+        table = KS.accumulate_digits(shared, digits, c)
+        assert torch.equal(table, KS.plain_accumulate_digits(shared, digits, c))
+        assert torch.equal(table, KS.accumulate_digits(basis.repeat(3, 1, 1), digits, c))
+        assert torch.equal(KB.tail(table, c), KB.plain_tail(table, c))
         got = C.projective_to_host_points(M.msm_fixed_base(basis, scalars, c=c))
         assert got == [native.g1_msm(pts[:64], ks[64 * i : 64 * i + 64]) for i in range(3)]
     torch.cuda.synchronize()
@@ -89,12 +90,13 @@ def test_kernels_match_plain_on_card(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "c,signed,key",
-    [(16, False, "K8"), (4, False, "K8"), (16, True, "K9"), (12, True, "K10"), (9, False, "K10"), (5, False, "K6")],
+    [(16, False, "K8"), (4, False, "K8"), (16, True, "K9"), (12, True, "K10"), (9, False, "K10"), (5, False, "K6"),
+     (3, True, "K6"), (7, True, "K6")],
 )
 def test_window_modes_match_plain_on_card(cuda, c, signed, key):
     """The single MSM's other widths and signs: the accumulation (K8, K9
-    and K10 sorted, K6's table walk unsigned) and K4 on its buckets (K6's
-    folded tables), against their plain versions, and the whole MSM against
+    and K10 sorted, K6 the same kernels up to 128 rows a window) and K4 on
+    its buckets, against their plain versions, and the whole MSM against
     the native oracle, with its launches: the sorted routes one count and no
     K2 fold."""
     n = 300
@@ -104,21 +106,11 @@ def test_window_modes_match_plain_on_card(cuda, c, signed, key):
     if c in K.IN_KERNEL_C:
         table = KS.accumulate(pa, sc, c, signed=signed)
         assert torch.equal(table, KS.plain_accumulate(pa, sc, c, signed=signed))
-        buckets = table[:, 0].contiguous()
-    elif key == "K10":
+    else:
         digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)[:, None].contiguous()
         table = KS.accumulate_digits(pa, digits, c, signed)
         assert torch.equal(table, KS.plain_accumulate_digits(pa, digits, c, signed))
-        buckets = table[:, 0].contiguous()
-    else:
-        nseg, seg_len = M.segments(n, K.windows(c) * K.rows(c, signed))
-        pad = nseg * seg_len - n
-        pp = torch.nn.functional.pad(pa, (0, 0, 0, 0, 0, pad)).contiguous()
-        sp = torch.nn.functional.pad(sc, (0, 0, 0, pad)).contiguous()
-        digits = (M.window_digits_signed if signed else M.window_digits)(sp, c).to(torch.int32)[:, None].contiguous()
-        table = KB.accumulate(pp, digits, nseg, seg_len, c, signed)
-        assert torch.equal(table, KB.plain_accumulate(pp, digits, nseg, seg_len, c, signed))
-        buckets = M.fold_reduce_lanes(table[:, 0], dim=1)[:, 0].contiguous()
+    buckets = table[:, 0].contiguous()
     assert cuda_lib.launches[key] == 1
     out = K.tail(buckets, c)
     assert torch.equal(out, K.plain_tail(buckets, c))
@@ -126,9 +118,8 @@ def test_window_modes_match_plain_on_card(cuda, c, signed, key):
     cuda_lib.reset_launches()
     got = M.msm_pippenger(pa, sc, c=c, signed=signed)
     assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
-    if key != "K6":
-        assert {k: v for k, v in cuda_lib.launches.items() if v} == {key: 1, "K4": 1}
-        assert cuda_lib.cuda_launches[key] >= 5  # digits, scan, scatter, sums, combine at least
+    assert {k: v for k, v in cuda_lib.launches.items() if v} == {key: 1, "K4": 1}
+    assert cuda_lib.cuda_launches[key] >= 5  # digits, scan, scatter, sums, combine at least
 
 
 @pytest.mark.gpu
@@ -368,11 +359,12 @@ def test_ntt_and_kzg_on_card_match_cpu(cuda):
 @pytest.mark.parametrize("c,group,fused,signed", [(6, 2, False, True), (6, 2, True, True), (8, 4, True, True),
                                                   (4, 3, True, False), (5, 6, True, True)])
 def test_group_kernel_matches_plain_on_card(cuda, c, group, fused, signed):
-    """K13 against its plain version over 1,024 points in 32 lanes (a G that
-    pads a window, a G above 4, unsigned), one launch each; its single MSM
-    through msm_stream against the native oracle, and its rows equal to
-    the K6/K10 branch's."""
-    from verkle_kzg_tpu_torch.ops import cuda_msm_group as KG
+    """K13, the sorted accumulation over a lane stream read in place (its
+    (W, S, B) digits and (S, B) points at their strides), against its plain
+    version over 1,024 points in 32 lanes, one count each (G and fused
+    change nothing: a G that padded a window, a G above 4, unsigned); its
+    single MSM through msm_stream against the native oracle, and its rows
+    equal to the K6/K10 branch's."""
     from verkle_kzg_tpu_torch.ops import msm_stream as MS
 
     n, lanes = 1024, 32
@@ -380,10 +372,12 @@ def test_group_kernel_matches_plain_on_card(cuda, c, group, fused, signed):
     pa, sc = C.host_points_to_affine(pts, cuda), F.ints_to_words(ks, cuda)
     digits = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)
     stream, digits = pa.reshape(n // lanes, lanes, 2, 8), digits.reshape(-1, n // lanes, lanes).contiguous()
+    view, dview = stream.transpose(0, 1), digits.permute(0, 2, 1)
     cuda_lib.reset_launches()
-    table = KG.accumulate(stream, digits, c, signed, group, fused)
-    assert cuda_lib.launches["K13"] == 1
-    assert torch.equal(table, KG.plain_accumulate(stream, digits, c, signed))
+    table = KS.accumulate_digits(view, dview, c, signed, key="K13")
+    assert cuda_lib.launches["K13"] == 1 and cuda_lib.cuda_launches["K13"] >= 5
+    assert torch.equal(table, KS.plain_accumulate_digits(view, dview, c, signed))
+    assert torch.equal(table, KS.accumulate_digits(view.contiguous(), dview.contiguous(), c, signed))
     got = MS.msm_single_fused(stream, digits, c, signed=signed, wgroup=group, fused=fused)
     assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
     assert torch.equal(MS.bucket_accumulate(stream, digits, c, signed=signed, wgroup=group, fused=fused),

@@ -89,11 +89,9 @@ def test_msm_matches_pallas_interpret():
 
 def test_plain_kernels_agree_with_oracle():
     """K3's buckets: row i of window w is the sum of the points whose
-    window-w digit is +-(i + 1), signed; K4 turns them into the MSM. (The
-    table-per-thread kernels still cut 40 points into 3 segments of 14.)"""
+    window-w digit is +-(i + 1), signed; K4 turns them into the MSM."""
     n = 40
     pts, ks = _points(n, 70), _scalars(n, 71)
-    assert M.segments(n) == (3, 14)
     pa, sc = C.host_points_to_affine(pts, "cpu"), F.ints_to_words(ks, "cpu")
     buckets = KS.accumulate(pa, sc, 8)[:, 0]
     assert buckets.shape == (32, 128, 3, 8)

@@ -1,10 +1,11 @@
 """The port's lane-batched MSMs (verkle_kzg_tpu_torch.ops.msm: msm_fixed_base
-and msm_batched over the plain versions of K6, K2 and K7 on the CPU)
-against verkle_kzg_tpu.ops.msm on the same seeded lanes, and against the
-native C++ oracle for every window width the kernels take. Only the group
-element is contract: the two packages' tails add in different orders, and
-at a tie digit the LSB carry chain may recode differently from the single
-MSM's carry mask."""
+and msm_batched over the plain versions of the sorted K6 and of K7 on the
+CPU) against verkle_kzg_tpu.ops.msm on the same seeded lanes, and against
+the native C++ oracle for every window width the kernels take; the sorted
+accumulation's scratch bound (its window groups) at the verkle commit's
+shape and at a patched bound. Only the group element is contract: the two
+packages' tails add in different orders, and at a tie digit the LSB carry
+chain may recode differently from the single MSM's carry mask."""
 
 import random
 
@@ -20,6 +21,7 @@ from verkle_kzg_tpu.ops.limbs import ints_to_limbs
 from verkle_kzg_tpu.params import R
 from verkle_kzg_tpu_torch import native
 from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
+from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
 from verkle_kzg_tpu_torch.ops import msm as M
@@ -98,66 +100,74 @@ def test_every_window_width_matches_oracle(c):
 
 
 def test_plain_tables_hold_signed_buckets():
-    """K6's rows: row i of window w, lane b, is the sum of the points whose
-    window-w digit is +-(i + 1), negated for a negative digit; K7 turns the
-    folded tables into each lane's MSM."""
+    """The sorted accumulation's rows at 8 rows a window (K6's width), the
+    basis shared by the lanes: row i of window w, lane b, is the sum of
+    the points whose window-w digit is +-(i + 1), negated for a negative
+    digit; K7 turns the tables into each lane's MSM."""
     n, c = 64, 4
     basis, ks = _case(n, 95)
     scalars = _port_scalars(ks)
     digits = M.window_digits_signed(scalars, c).to(torch.int32)  # (W, B, n)
-    nseg, seg_len = M.segments(n)
-    table = KB.accumulate(C.host_points_to_affine(basis, "cpu"), digits, nseg, seg_len, c)
-    assert table.shape == (64, B, nseg, 8, 3, 8)
-    folded = M.fold_reduce_lanes(table, dim=2)[:, :, 0]
-    for w, b, row in ((0, 2, 7), (1, 1, 0), (63, 1, 0)):
+    assert KS.launch_key(c, True, tensor=True) == "K6"
+    pts = C.host_points_to_affine(basis, "cpu")
+    table = KS.accumulate_digits(pts.expand(B, n, 2, 8), digits, c)
+    assert table.shape == (64, B, 8, 3, 8)
+    for w, b, row in ((0, 2, 7), (1, 1, 0), (63, 1, 0), (5, 0, 3)):
         want = None
         for pt, d in zip(basis, digits[w, b].tolist()):
             if abs(d) == row + 1:
                 want = hc.g1_add(want, pt if d > 0 else hc.g1_neg(pt))
-        assert C.projective_to_host_points(folded[w, b, row]) == [want]
-    out = KB.tail(folded.contiguous(), c)
+        assert C.projective_to_host_points(table[w, b, row]) == [want]
+    out = KB.tail(table, c)
     assert C.projective_to_host_points(out) == [native.g1_msm(basis, k) for k in ks]
 
 
-class _StopAfterSegments(Exception):
+class _StopBeforeAccumulating(Exception):
     pass
 
 
 def test_tree_chunk_tables_stay_under_cap(monkeypatch):
     """The dense verkle commit's chunk (COMMIT_CHUNK lanes over the
-    width-256 basis, c = 5): the segment count the batched MSM hands K6
-    keeps its W x B x S x rows tables at TABLE_BYTES or less (16 segments
-    would take 2.6 GB). K6 is stopped before it runs."""
+    width-256 basis, c = 5): the sorted accumulation gets the basis as an
+    expand (lane stride 0) and the (W, B, 256) digits, and its window
+    groups keep the scratch under SCRATCH_BYTES: one group of 52 windows,
+    52 x 2048 x 256 entries of 16 bytes (about 436 MB). The kernel is
+    stopped before it runs."""
     from verkle_kzg_tpu_torch.verkle.tree import VerkleTree
 
     b, n = VerkleTree.COMMIT_CHUNK, 256
     seen = {}
 
-    def spy(points, digits, nseg, seg_len, c, *rest):
-        seen.update(nseg=nseg, seg_len=seg_len, c=c, digits=tuple(digits.shape))
-        raise _StopAfterSegments
+    def spy(points, digits, c, signed=True, key=None):
+        seen.update(c=c, digits=tuple(digits.shape), stride=points.stride()[:2], key=key)
+        raise _StopBeforeAccumulating
 
-    monkeypatch.setattr(KB, "accumulate", spy)
+    monkeypatch.setattr(KS, "accumulate_digits", spy)
     basis = torch.zeros((n, 2, F.WORDS), dtype=torch.int32)
-    with pytest.raises(_StopAfterSegments):
+    with pytest.raises(_StopBeforeAccumulating):
         M.msm_fixed_base(basis, torch.zeros((b, n, F.WORDS), dtype=torch.int32))
-    assert seen["c"] == 5 and seen["digits"][:2] == (KB.windows(5), b)
-    assert seen["nseg"] * seen["seg_len"] >= n
-    assert KB.windows(5) * b * seen["nseg"] * KB.rows(5) * M.ROW_BYTES <= M.TABLE_BYTES == 1 << 30
+    assert seen == {"c": 5, "digits": (KS.windows(5), b, n), "stride": (0, 16), "key": None}
+    assert KS.launch_key(5, True, tensor=True) == "K6"
+    groups = KS.window_groups(b * n, 5, b)
+    assert groups == [(0, KS.windows(5))]
+    scratch = KS.entry_bytes(5) * KS.windows(5) * b * n
+    assert scratch <= KS.SCRATCH_BYTES and scratch == 436_207_616
+    assert KS.windows(5) * b * KS.rows(5) * 96 == 163_577_856  # the buckets
 
 
 def test_table_cap_cuts_batched_segments(monkeypatch):
-    """A TABLE_BYTES that bites at a small shape: the batched MSMs take
-    fewer segments and still equal the native oracle and the JAX values."""
+    """A SCRATCH_BYTES that bites at a small shape: the windows of a
+    batched MSM go in groups of 10, and the result still equals the native
+    oracle and the JAX values."""
     n, c = 64, 4
     basis, ks = _case(n, 97)
-    per_segment = KB.windows(c) * B * KB.rows(c) * M.ROW_BYTES
-    assert M.segments(n)[0] == 4
-    monkeypatch.setattr(M, "TABLE_BYTES", 2 * per_segment)
+    monkeypatch.setattr(KS, "SCRATCH_BYTES", KS.entry_bytes(c) * B * n * 10)
+    groups = KS.window_groups(B * n, c, B)
+    assert len(groups) == 7 and groups[0] == (0, 10) and groups[-1] == (60, 4)
     seen = []
-    run = KB.accumulate
-    monkeypatch.setattr(KB, "accumulate", lambda *a: seen.append(a[2]) or run(*a))
+    run = KS._sums
+    monkeypatch.setattr(KS, "_sums", lambda out, *a: seen.append(out.shape[0]) or run(out, *a))
     got = C.projective_to_host_points(M.msm_fixed_base(C.host_points_to_affine(basis, "cpu"), _port_scalars(ks), c=c))
-    assert seen == [2]
+    assert seen == [10 * B * KS.rows(c)] * 6 + [4 * B * KS.rows(c)]
     want = JC.projective_to_host_points(JM.msm_fixed_base(JC.host_points_to_affine(basis), _jax_scalars(ks), c=c))
     assert got == want == [native.g1_msm(basis, k) for k in ks]

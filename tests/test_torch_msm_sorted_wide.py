@@ -4,7 +4,7 @@ plain version on the CPU): every bucket against the host sum of its points
 (zero scalars, r - 1, a tie, (0, 0) sentinels, a point twice in a bucket,
 P and -P in one), in one lane and in four, at windows of 15 to 65,535 rows;
 and the single MSM at unsigned c = 16 and signed c = 12 against the native
-oracle, without segments or a K2 fold on its path. The digits are
+oracle, without a K2 fold on its path. The digits are
 recomputed here from the integers; the JAX package's digit recodings are
 held against the port's in tests/test_torch_msm_windows.py. No JAX
 compile."""
@@ -17,7 +17,6 @@ import torch
 from verkle_kzg_tpu.hostmath import curve as hc
 from verkle_kzg_tpu.params import R
 from verkle_kzg_tpu_torch import native
-from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
 from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
@@ -97,7 +96,7 @@ def test_digit_tensor_buckets_are_host_sums(c, signed, lanes):
     window_digits, more than 128 rows a window, two sort passes above 256."""
     pts, ks = _case(64, c, 900 + c + signed)
     pa, sc = _port(pts, ks)
-    assert KB.launch_key(c, signed) == "K10"
+    assert KS.launch_key(c, signed, tensor=True) == "K10"
     digits = [_digits(k, c, signed) for k in ks]
     tensor = (M.window_digits_signed if signed else M.window_digits)(sc, c).to(torch.int32)
     assert tensor.T.tolist() == digits
@@ -112,7 +111,7 @@ def test_wide_msm_needs_no_segments_and_no_fold(monkeypatch, c, signed):
     def refuse(*_args, **_kw):
         raise AssertionError("not on the sorted path")
 
-    monkeypatch.setattr(M, "segments", refuse)
+    assert not hasattr(M, "segments")
     monkeypatch.setattr(C, "add", refuse)
     pts, ks = _case(66, c, 1000 + c)
     got = M.msm_pippenger(*_port(pts, ks), c=c, signed=signed)
@@ -121,12 +120,11 @@ def test_wide_msm_needs_no_segments_and_no_fold(monkeypatch, c, signed):
 
 def test_batched_msm_at_a_wide_c_sorts(monkeypatch):
     """A fixed-base batch given c = 9 (256 rows a window) runs K10 with the
-    batch's lanes as its lanes, the basis repeated per lane, then K7: no K6
-    table walk, no K2 fold."""
+    batch's lanes as its lanes, the basis shared at lane stride 0, then K7:
+    no K2 fold."""
     def refuse(*_args, **_kw):
         raise AssertionError("not on the sorted path")
 
-    monkeypatch.setattr(KB, "accumulate", refuse)
     monkeypatch.setattr(C, "add", refuse)
     b, n, c = 2, 64, 9
     pts, ks = _case(b * n, c, 1100)

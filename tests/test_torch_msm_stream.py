@@ -1,7 +1,8 @@
 """The port's lane-stream MSM entry points (verkle_kzg_tpu_torch.ops.msm_stream
-over the plain versions of K13, K6, K3/K8/K9/K10, K2, K4 and K7 on the CPU)
-against the host sums of each bucket, the native C++ oracle and, in
-interpret mode, the TPU kernel K13 replaces (pallas_msm._accum_kernel_group).
+over the plain versions of the sorted K13, K6, K3/K8/K9/K10, and of K4 and
+K7 on the CPU) against the host sums of each bucket, the native C++ oracle
+and, in interpret mode, the TPU kernel K13 replaces
+(pallas_msm._accum_kernel_group).
 Both packages take the same streams, made from a seed; exact on group
 elements (canonical affine).
 
@@ -29,7 +30,6 @@ from verkle_kzg_tpu.params import R
 from verkle_kzg_tpu_torch import convert as V
 from verkle_kzg_tpu_torch import native
 from verkle_kzg_tpu_torch.ops import cuda_msm as K
-from verkle_kzg_tpu_torch.ops import cuda_msm_group as KG
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import msm_stream as MS
 
@@ -89,7 +89,7 @@ def _jax_msm(c, signed):
     return JC.projective_to_host_points(fn(jp, js))
 
 
-#: (wgroup, fused): the K6/K10 branch, then K13 at every G and fused
+#: (wgroup, fused): the K6/K10 count, then K13's at every G and fused
 ROUTES = [(None, False)] + [(g, f) for g in (1, 2, 3, 4) for f in (False, True)]
 ROUTE_IDS = ["K6-K10"] + [f"G{g}-{'fused' if f else 'unfused'}" for g, f in ROUTES[1:]]
 
@@ -115,15 +115,11 @@ def _masks(js, c):
 def check_scalar_stream(c, signed):
     """The in-kernel-digit single MSM (K3 signed, with the carry masks
     converted from JAX's; K8 unsigned) against the native oracle and JAX
-    msm_pippenger at the same c and sign; its buckets equal
-    bucket_accumulate's on the digits the kernel derives (signed: the carry
-    rule of signed_carries, which may differ from window_digits_signed at a
-    tie) as group elements. Words cannot match: the sorted sums (K3 and K8
-    alike) add a bucket that spans chunks as a tree of projective partials,
-    where the K13 walk adds its points in one chain, and at these sizes
-    every bucket of 3 or more entries spans chunks. The sorted kernels are
-    held word for word against their own plain version instead
-    (test_torch_msm_sorted*.py, and on the card)."""
+    msm_pippenger at the same c and sign; its buckets equal, word for word,
+    bucket_accumulate's (K13) on the digits the kernel derives (signed: the
+    carry rule of the given masks, which may differ from
+    window_digits_signed at a tie): one sorted design takes both digit
+    sources, so the same entries give the same chunks and the same words."""
     _, _, (_, js, _, _), (pts_stream, sc_stream), want = _data()
     if signed:
         masks = _masks(js, c)
@@ -136,8 +132,8 @@ def check_scalar_stream(c, signed):
         buckets = MS.bucket_accumulate_from_scalars(pts_stream, sc_stream, c)
         _, digits = _digits(js, c, False, LANES)
     assert _host(got) == [want] == _jax_msm(c, signed)
-    walked = MS.bucket_accumulate(pts_stream, digits, c, signed=signed, wgroup=2, fused=True)
-    assert _host(buckets) == _host(walked)  # the sorted sums add a bucket's chunks in a tree
+    from_tensor = MS.bucket_accumulate(pts_stream, digits, c, signed=signed, wgroup=2, fused=True)
+    assert torch.equal(buckets, from_tensor)
 
 
 def _row_sums(pts, digits, c, signed, lanes):
@@ -159,8 +155,8 @@ def _row_sums(pts, digits, c, signed, lanes):
 def check_bucket_rows(c, signed):
     """Each row of bucket_accumulate(wgroup=G, fused=f) is the host sum of
     its points, and the rows are word for word equal across every (G,
-    fused), a G above 4 (run as groups of at most 4) and the K6/K10
-    branch. Unsigned row 0 (the TPU's trash bucket) is the identity."""
+    fused), a G above 4 and the K6/K10 branch. Unsigned row 0 (the TPU's
+    trash bucket) is the identity."""
     pts, _, (_, js, _, _), (pts_stream, _), _ = _data()
     _, digits = _digits(js, c, signed, LANES)
     ref = MS.bucket_accumulate(pts_stream, digits, c, signed=signed)
@@ -194,9 +190,25 @@ def check_batched_tail(signed):
 
 
 def test_group_width():
-    assert [KG.group_width(g) for g in range(1, 10)] == [1, 2, 3, 4, 3, 3, 4, 4, 3]
-    with pytest.raises(ValueError):
-        KG.group_width(0)
+    """``wgroup`` and ``fused`` change no word: the single MSM and the lane
+    buckets at every G from 1 to 9, fused or not, equal the K6 branch's;
+    a G below 1 raises, as the TPU grid's did."""
+    _, _, (_, js, _, _), (pts_stream, _), want = _data()
+    c = 5
+    _, digits = _digits(js, c, True, LANES)
+    ref_one = MS.msm_single_fused(pts_stream, digits, c, signed=True)
+    ref_rows = MS.bucket_accumulate(pts_stream, digits, c, signed=True)
+    assert _host(ref_one) == [want]
+    for group in range(1, 10):
+        for fused in (False, True):
+            got = MS.msm_single_fused(pts_stream, digits, c, signed=True, wgroup=group, fused=fused)
+            assert torch.equal(got, ref_one), (group, fused)
+    for group, fused in ((1, False), (5, True), (9, False)):
+        got = MS.bucket_accumulate(pts_stream, digits, c, signed=True, wgroup=group, fused=fused)
+        assert torch.equal(got, ref_rows), (group, fused)
+    for call in (MS.msm_single_fused, MS.bucket_accumulate):
+        with pytest.raises(ValueError, match="wgroup"):
+            call(pts_stream, digits, c, signed=True, wgroup=0)
 
 
 def test_lane_count_must_be_a_power_of_two():

@@ -114,9 +114,7 @@ def test_batched_tail_matches_jax_and_oracle(case):
     basis = C.host_points_to_affine(pts, "cpu").reshape(B, N, 2, 8)
     scalars = F.ints_to_words(ks, "cpu").reshape(B, N, 8)
     digits = M.window_digits_signed(scalars, c).to(torch.int32)
-    nseg, seg_len = M.segments(N)
-    table = KB.accumulate(basis, digits, nseg, seg_len, c)
-    buckets = M.fold_reduce_lanes(table, dim=2)[:, :, 0].contiguous()
+    buckets = KS.accumulate_digits(basis, digits, c)  # the sorted K6, B lanes
     assert buckets.shape == (52, B, 16, 3, 8)
     assert torch.equal(buckets[:, 0], C.infinity((52, 16), "cpu"))
     got = C.projective_to_host_points(KB.tail(buckets, c))

@@ -1,6 +1,6 @@
 """The port's single MSM at every window width c in [1, 16] and either digit
 sign (verkle_kzg_tpu_torch.ops.msm.msm_pippenger over the plain versions of
-K3, K8, K9, K6, K10, K2 and K4 on the CPU) against the native C++ oracle
+K3, K8, K9, K6, K10 and K4 on the CPU) against the native C++ oracle
 and against verkle_kzg_tpu.ops.msm on the same inputs; the digit recodings
 against the JAX arrays. Only the group element is contract."""
 
@@ -19,7 +19,6 @@ from verkle_kzg_tpu.ops.limbs import ints_to_limbs
 from verkle_kzg_tpu.params import R
 from verkle_kzg_tpu_torch import native
 from verkle_kzg_tpu_torch.ops import cuda_msm as K
-from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
 from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
 from verkle_kzg_tpu_torch.ops import curve as C
 from verkle_kzg_tpu_torch.ops import field as F
@@ -58,10 +57,9 @@ def _jax(pts, ks):
 @pytest.mark.parametrize("signed", [True, False])
 @pytest.mark.parametrize("c", WIDTHS)
 def test_every_width_and_sign_matches_oracle(c, signed):
-    """n = 66 pads the last point segment (5 segments of 14)."""
+    """n = 66: two points past a power of two, a ragged last sort tile."""
     n = 66
     pts, ks = _case(n, c, 100 + c)
-    assert M.segments(n, K.windows(c) * K.rows(c, signed)) == (5, 14)
     got = M.msm_pippenger(*_port(pts, ks), c=c, lanes=128, signed=signed)
     assert C.projective_to_host_points(got) == [native.g1_msm(pts, ks)]
 
@@ -84,12 +82,14 @@ def test_matches_jax_pippenger(n, c, lanes, signed):
     assert C.projective_to_host_points(got) == want == [native.g1_msm(pts, ks)]
 
 
-@pytest.mark.parametrize("c,signed,key", [(4, False, "K8"), (9, True, "K10"), (9, False, "K10")])
+@pytest.mark.parametrize("c,signed,key", [(4, False, "K8"), (9, True, "K10"), (9, False, "K10"),
+                                          (5, False, "K6"), (7, True, "K6")])
 def test_plain_tables_hold_buckets(c, signed, key):
     """Row i of window w is the sum of the points whose window-w digit is
     +-(i + 1), negated for a negative digit, in the buckets of the sorted
-    accumulation (K8 from the scalar words, K10 from the digit tensor); K4
-    turns them into the MSM."""
+    accumulation (K8 from the scalar words, K6 and K10 from the digit
+    tensor, at most and more than 128 rows a window); K4 turns them into
+    the MSM."""
     n = 40
     pts, ks = _case(n, c, 300 + c)
     pa, sc = _port(pts, ks)
@@ -98,7 +98,7 @@ def test_plain_tables_hold_buckets(c, signed, key):
         digits = K.scalar_digits(sc, None, c, False).T  # (W, n)
         buckets = KS.accumulate(pa, sc, c, signed=False)
     else:
-        assert KB.launch_key(c, signed) == key
+        assert KS.launch_key(c, signed, tensor=True) == key
         digits = (M.window_digits_signed if signed else M.window_digits)(sc, c)
         buckets = KS.accumulate_digits(pa, digits.to(torch.int32)[:, None], c, signed)
     assert buckets.shape == (K.windows(c), 1, K.rows(c, signed), 3, 8)

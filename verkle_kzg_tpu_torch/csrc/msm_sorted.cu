@@ -1,20 +1,23 @@
-// K3, K9, K8 and K10: the single-MSM bucket accumulations, as one
-// bucket-sorted Pippenger fed by three digit sources. It replaces the TPU
+// K3, K9, K8, K10, K6 and K13: every bucket accumulation of the MSMs, as
+// one bucket-sorted Pippenger fed by two digit sources. It replaces the TPU
 // kernels of verkle_kzg_tpu/ops/pallas_msm.py launched at line 700
 // (_accum_kernel_sc_signed_pair: signed digits from the scalar words, c in
 // {1, 2, 4, 8}, K3), at line 719 (_accum_kernel_sc_signed: the same at
 // c = 16, K9), at line 330 (_accum_kernel_sc: unsigned digits from the
-// scalar words, c in {1, 2, 4, 8, 16}, K8) and at line 883 (_accum_kernel:
-// digits from a digit tensor, any c in [1, 16] whose window has more than
-// 128 rows, K10; up to 128 rows the digit tensor takes K6's table walk,
-// msm_batched.cu). For each of B point streams ("lanes", point p in lane
-// p / S), window w and row i, bucket (w, b, i) is the sum of the lane's
-// points whose window-w digit is +-(i + 1), y negated for a negative digit;
-// digit 0 and the (0, 0) sentinel add nothing. A window has 2^(c-1) rows
-// for balanced signed digits and 2^c - 1 for unsigned ones, W = ceil(256 /
-// c) windows. Output (W, B, rows, 3, 8) projective, reduced, the identity in
-// empty rows. ops/cuda_msm_sorted.py has the wrapper and the plain version,
-// which follows these kernels' order of additions step for step.
+// scalar words, c in {1, 2, 4, 8, 16}, K8), and the three that took a digit
+// tensor: line 883 (_accum_kernel, more than 128 rows a window, K10), line
+// 853 (_accum_kernel_pair, up to 128 rows, K6) and line 807
+// (_accum_kernel_group, the window-grouped lane streams, K13). The TPU chose
+// among those three by VMEM table size; here they are one kernel over any
+// c in [1, 16] and any layout of the digit tensor. For each of B point
+// streams ("lanes", lane b's points at steps s < S), window w and row i,
+// bucket (w, b, i) is the sum of the lane's points whose window-w digit is
+// +-(i + 1), y negated for a negative digit; digit 0 and the (0, 0)
+// sentinel add nothing. A window has 2^(c-1) rows for balanced signed
+// digits and 2^c - 1 for unsigned ones, W = ceil(256 / c) windows. Output
+// (W, B, rows, 3, 8) projective, reduced, the identity in empty rows.
+// ops/cuda_msm_sorted.py has the wrapper and the plain version, which
+// follows these kernels' order of additions step for step.
 //
 // What bounds it: 11 Montgomery products a live entry (the lazy mixed add),
 // 264 32-bit multiplies each, against 132 SMs x 64 multiplies a clock x 1.98
@@ -36,11 +39,14 @@
 //     digits (C divides 16) and, signed, balances them in registers with
 //     the carry rule of ops/msm.py::signed_carries (or reads the caller's
 //     carry words); unsigned, the raw digit is the digit. From a digit
-//     tensor (W, B, S), one thread a point reads its W digits as given.
-//     Each (window, point) gets key = (window, lane, |d| - 1), or -1 when
-//     dead, and value = point index with the sign in bit 31, dense in
-//     (window, point) order; a block counts its tile's keys by bin for the
-//     sort.
+//     tensor, one thread a (lane, step) reads its W digits as given, at
+//     the strides the caller's layout has (a (W, B, S) tensor, or a lane
+//     stream's (W, S, B) read in place), and its point at a lane stride
+//     (0 for a basis every lane shares: it is never copied per lane) and a
+//     step stride. Each (window, lane, step) gets key = (window, lane,
+//     |d| - 1), or -1 when dead, and value = the point's index in the
+//     point array with the sign in bit 31, dense in (window, lane, step)
+//     order; a block counts its tile's keys by bin for the sort.
 //  2. sort: a stable counting sort of each (window, lane) segment by the
 //     row, over tiles of points: per-tile histograms, an exclusive scan over
 //     (segment, bin, tile), and a scatter that ranks equal bins within a
@@ -50,7 +56,7 @@
 //     first key, so unsigned windows of 2^c - 1 rows bin as signed ones):
 //     one pass up to 256 rows, two above (c >= 10 signed, c >= 9
 //     unsigned; 8 + 8 bits at c = 16 unsigned), the second over the
-//     first's segments. Each bucket's entries then come in ascending point
+//     first's segments. Each bucket's entries then come in ascending step
 //     order: deterministic.
 //  3. sums: the E sorted entries are cut into chunks of L = chunk_len(E)
 //     (at most `target` chunks). A thread walks its chunk with the
@@ -176,17 +182,18 @@ __device__ bool digits_begin(int* cnt, int ncnt, uint32_t* buckets, int64_t fill
   return blockIdx.x < tiles;
 }
 
-// Entry (wl, p) of segment seg = wl * lanes + b with digit d: its key and
-// value, and its count in the block's histogram of (window, bin). Every
-// lane of the warp calls it together; `in` is false past the tile's end.
+// Entry (wl, p) of segment seg = wl * lanes + b with digit d, p the dense
+// (lane, step) index and at the index of its point: its key and value, and
+// its count in the block's histogram of (window, bin). Every lane of the
+// warp calls it together; `in` is false past the tile's end.
 __device__ __forceinline__ void put_entry(int32_t* __restrict__ keys, int32_t* __restrict__ vals,
-                                          int* cnt, int64_t n, int64_t p, bool in, bool live, int d,
-                                          int wl, int64_t seg, int rows, int bins) {
+                                          int* cnt, int64_t n, int64_t p, int64_t at, bool in, bool live,
+                                          int d, int wl, int64_t seg, int rows, int bins) {
   const bool on = live && d != 0;
   const int row = (d < 0 ? -d : d) - 1;
   if (in) {
     keys[wl * n + p] = on ? (int32_t)(seg * rows + row) : -1;
-    vals[wl * n + p] = (int32_t)((uint32_t)p | (d < 0 ? 0x80000000u : 0u));
+    vals[wl * n + p] = (int32_t)((uint32_t)at | (d < 0 ? 0x80000000u : 0u));
   }
   const int slot = on ? wl * bins + (row & (bins - 1)) : -1;
   const unsigned peers = __match_any_sync(FULL, slot);
@@ -276,20 +283,28 @@ __global__ void __launch_bounds__(THREADS) sorted_digits_kernel(
         }
         const int wl = w - w0;
         if (wl < 0 || wl >= wg) continue;  // uniform over the block
-        put_entry(keys, vals, cnt, n, p, in, live, d, wl, (int64_t)wl * nlanes + b, ROWS, BINS);
+        put_entry(keys, vals, cnt, n, p, p, in, live, d, wl, (int64_t)wl * nlanes + b, ROWS, BINS);
       }
     }
   }
   digits_end(cnt, wg, BINS, nlanes, b, t, tps, hist);
 }
 
-// Digits from a digit tensor (K10): digits (W, B, S) int32, window w of
-// point p at w n + p, signed or unsigned as the caller recoded them (|d| at
-// most the rows of a window). Block (b, t) takes points [b S + t tile, ...)
-// of lane b, 256 at a time, a thread a point, and reads each window's digit
-// as the whole warp does: 128 contiguous bytes a window.
+// Where a digit tensor's digits and points lie: digit (w, b, s) at
+// digits[w dig_win + b dig_lane + s dig_step], the point of (b, s) at point
+// index b pt_lane + s pt_step (pt_lane = 0: one basis for every lane).
+struct TensorLayout {
+  int64_t pt_lane, pt_step, dig_win, dig_lane, dig_step;
+};
+
+// Digits from a digit tensor (K10, K6, K13), signed or unsigned as the
+// caller recoded them (|d| at most the rows of a window). Block (b, t)
+// takes steps [t tile, ...) of lane b, 256 at a time, a thread a step. A
+// (W, B, S) tensor reads 128 contiguous bytes a window and warp; a lane
+// stream's (W, S, B) reads them B apart, from sectors the neighbouring
+// lanes' blocks read too.
 __global__ void __launch_bounds__(THREADS) sorted_tensor_digits_kernel(
-    const uint32_t* __restrict__ pts, const int32_t* __restrict__ digits,
+    const uint32_t* __restrict__ pts, const int32_t* __restrict__ digits, TensorLayout lay,
     int32_t* __restrict__ keys, int32_t* __restrict__ vals, int32_t* __restrict__ hist,
     uint32_t* __restrict__ buckets, int64_t lane_len, int nlanes, int w0, int wg, int rows,
     int bins, int tile, int64_t tps) {
@@ -298,21 +313,24 @@ __global__ void __launch_bounds__(THREADS) sorted_tensor_digits_kernel(
 
   const int64_t b = blockIdx.x / tps, t = blockIdx.x % tps;
   const int64_t n = lane_len * nlanes;
-  const int64_t lo = b * lane_len + t * tile;
-  const int64_t hi = min(lo + tile, (b + 1) * lane_len);
+  const int64_t lo = t * tile;
+  const int64_t hi = min(lo + tile, lane_len);
+  const int32_t* lane_digits = digits + (int64_t)w0 * lay.dig_win + b * lay.dig_lane;
   for (int64_t first = lo; first < hi; first += THREADS) {
-    const int64_t p = first + threadIdx.x;
-    const bool in = p < hi;
+    const int64_t s = first + threadIdx.x;
+    const bool in = s < hi;
+    const int64_t at = b * lay.pt_lane + s * lay.pt_step;
     bool live = false;
     if (in) {
       uint32_t ax[8], ay[8];
-      load8(ax, pts + 16 * p);
-      load8(ay, pts + 16 * p + 8);
+      load8(ax, pts + 16 * at);
+      load8(ay, pts + 16 * at + 8);
       live = !(is_zero(ax) && is_zero(ay));
     }
     for (int wl = 0; wl < wg; ++wl) {
-      const int d = in ? digits[(int64_t)(w0 + wl) * n + p] : 0;
-      put_entry(keys, vals, cnt, n, p, in, live, d, wl, (int64_t)wl * nlanes + b, rows, bins);
+      const int d = in ? lane_digits[wl * lay.dig_win + s * lay.dig_step] : 0;
+      put_entry(keys, vals, cnt, n, b * lane_len + s, at, in, live, d, wl, (int64_t)wl * nlanes + b, rows,
+                bins);
     }
   }
   digits_end(cnt, wg, bins, nlanes, b, t, tps, hist);
@@ -809,8 +827,8 @@ DigitsKernel word_digits_for(int c, bool sgn) {
 // or null) or from the digit tensor (digits), then the sort's one or two
 // passes, the sums and the combine.
 int launch_sorted(const Plan& pl, const uint32_t* pts, const uint32_t* sc, const uint32_t* masks,
-                  const int32_t* digits, uint32_t* buckets, int32_t* work, int w0, int lmin,
-                  StageEvents& evs, cudaStream_t st, int64_t& count) {
+                  const int32_t* digits, const TensorLayout& lay, uint32_t* buckets, int32_t* work, int w0,
+                  int lmin, StageEvents& evs, cudaStream_t st, int64_t& count) {
   int32_t* const ka = work + pl.keys[0];
   int32_t* const va = work + pl.vals[0];
   int32_t* const kb = work + pl.keys[1];
@@ -831,8 +849,8 @@ int launch_sorted(const Plan& pl, const uint32_t* pts, const uint32_t* sc, const
   int err = 0;
   evs.mark(0, st);
   if (digits) {
-    sorted_tensor_digits_kernel<<<dblocks, THREADS, 0, st>>>(pts, digits, ka, va, work + pl.h_a, buckets,
-                                                             pl.lane_len, nl, w0, pl.wg, pl.rows,
+    sorted_tensor_digits_kernel<<<dblocks, THREADS, 0, st>>>(pts, digits, lay, ka, va, work + pl.h_a,
+                                                             buckets, pl.lane_len, nl, w0, pl.wg, pl.rows,
                                                              pl.bins_a, pl.tile, pl.tps);
   } else {
     word_digits<<<dblocks, THREADS, 0, st>>>(pts, sc, masks, ka, va, work + pl.h_a, buckets, pl.lane_len,
@@ -886,11 +904,14 @@ extern "C" int vkzg_msm_sorted_plan(int64_t npoints, int64_t nlanes, int c, int 
   return 0;
 }
 
-// pts (N, 2, 8) affine, N = lanes x S, lane b's points [b S, (b + 1) S).
-// The digits: from sc (N, 8) standard scalars, signed (sgn) with masks
-// (N, W / 32 + 1) carry words or null (the carries are then computed), or
-// unsigned (masks null); or, with sc null, from digits (W, B, S) int32,
-// balanced signed or unsigned as sgn says. buckets: the first row of window
+// npoints = lanes x S entries a window. The digits: from sc (N, 8) standard
+// scalars, signed (sgn) with masks (N, W / 32 + 1) carry words or null (the
+// carries are then computed), or unsigned (masks null), pts (N, 2, 8)
+// affine with lane b's points [b S, (b + 1) S); or, with sc null, from
+// digits int32, balanced signed or unsigned as sgn says, laid out as
+// layout[5] = {point lane, point step, digit window, digit lane, digit
+// step} strides say (TensorLayout; in points for pts, in elements for
+// digits; every point index below 2^31). buckets: the first row of window
 // w0 in the (W, B, rows, 3, 8) output; work: the plan's words. Adds each
 // CUDA launch it issues to *launches. stage_ms: null on the path; else the
 // call records an event at each stage boundary, waits for the last, and
@@ -898,11 +919,20 @@ extern "C" int vkzg_msm_sorted_plan(int64_t npoints, int64_t nlanes, int c, int 
 extern "C" int vkzg_msm_sorted(const void* pts, const void* sc, const void* masks, const void* digits,
                                void* buckets, void* work, int64_t work_words, int64_t npoints,
                                int64_t nlanes, int c, int sgn, int w0, int wg, int target, int lmin,
-                               float* stage_ms, int64_t* launches, void* stream) {
+                               const int64_t* layout, float* stage_ms, int64_t* launches, void* stream) {
   const Plan pl(npoints, nlanes, c, sgn != 0, digits == nullptr, wg, target);
   if (!pl.ok || work_words < pl.words || lmin < 1 || w0 < 0 || w0 + wg > pl.nwin || !launches ||
-      (sc == nullptr) == (digits == nullptr) || (masks && (!sgn || digits))) {
+      (sc == nullptr) == (digits == nullptr) || (masks && (!sgn || digits)) ||
+      (digits != nullptr) != (layout != nullptr)) {
     return (int)cudaErrorInvalidValue;
+  }
+  TensorLayout lay{};
+  if (layout) {
+    lay = {layout[0], layout[1], layout[2], layout[3], layout[4]};
+    if (lay.pt_lane < 0 || lay.pt_step < 0 ||
+        (pl.lanes - 1) * lay.pt_lane + (pl.lane_len - 1) * lay.pt_step >= (int64_t(1) << 31)) {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   const cudaStream_t st = (cudaStream_t)stream;
   StageEvents evs;
@@ -910,8 +940,8 @@ extern "C" int vkzg_msm_sorted(const void* pts, const void* sc, const void* mask
     if (int err = evs.make()) return err;
   }
   int err = launch_sorted(pl, (const uint32_t*)pts, (const uint32_t*)sc, (const uint32_t*)masks,
-                          (const int32_t*)digits, (uint32_t*)buckets, (int32_t*)work, w0, lmin, evs, st,
-                          *launches);
+                          (const int32_t*)digits, lay, (uint32_t*)buckets, (int32_t*)work, w0, lmin, evs,
+                          st, *launches);
   if (!err && stage_ms) err = evs.read(stage_ms);
   return err;
 }

@@ -30,11 +30,11 @@ BUILD = _PKG / "_build"
 
 #: Launches per kernel since the last :func:`reset_launches`. Each wrapper
 #: adds one where it launches its kernel, and nowhere else. There is one
-#: key per TPU counterpart: K3, K9, K8 and K10 count one a call of the
-#: sorted accumulation, whatever its CUDA launches (``cuda_msm_sorted.py``:
-#: signed and unsigned digits from the scalar words, digits from a tensor
-#: above 128 rows a window); K6 is the table walk of a digit tensor up to
-#: 128 rows (``cuda_msm_batched.py``). K4 and K7
+#: key per TPU counterpart: K3, K9, K8, K10, K6 and K13 count one a call of
+#: the sorted accumulation, whatever its CUDA launches (``cuda_msm_sorted.py``:
+#: signed and unsigned digits from the scalar words; digits from a tensor,
+#: K6 up to 128 rows a window, K10 above, K13 for the lane-stream callers
+#: that pass ``wgroup``). K4 and K7
 #: count one per tail: one CUDA launch up to 1,024 bucket rows a window,
 #: three or four above (``cuda_msm.tail_launches``).
 #: G1SMUL and G1BFLY fuse the K11 + K2 chain of ``curve.scalar_mul``
@@ -43,9 +43,9 @@ BUILD = _PKG / "_build"
 launches = {**{f"K{i}": 0 for i in range(1, 14)}, "K1INV": 0, "G1SMUL": 0, "G1BFLY": 0}
 
 #: CUDA launches since the last :func:`reset_launches` of the kernels whose
-#: one count above stands for several: K3, K9, K8 and K10, whose C entry
-#: point counts each ``<<<>>>`` it issues.
-cuda_launches = {"K3": 0, "K9": 0, "K8": 0, "K10": 0}
+#: one count above stands for several: the sorted accumulation's, whose C
+#: entry point counts each ``<<<>>>`` it issues.
+cuda_launches = {"K3": 0, "K9": 0, "K8": 0, "K10": 0, "K6": 0, "K13": 0}
 
 _lib = None
 _P = ctypes.c_void_p
@@ -60,16 +60,13 @@ _SIGNATURES = {
     "vkzg_msm_sorted_plan": [_I, _I, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              _P],
     "vkzg_msm_sorted": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "vkzg_msm_tail": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P],
     "vkzg_scalar_mul": [_P, _P, _P, _P, _I, _P],
     "vkzg_field_batch_inv": [ctypes.c_int, _P, _P, _I, _I, _P],
-    "vkzg_msm_batched_accumulate": [_P, _I, _P, _P, ctypes.c_int, _I, _I, _I, ctypes.c_int, _P],
     "vkzg_msm_batched_tail": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, _P],
-    "vkzg_msm_group_accumulate": [_P, _P, _P, ctypes.c_int, _I, _I, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, _P],
     "vkzg_g1_scalar_mul": [_P, _P, _P, _I, ctypes.c_int, _P],
     "vkzg_g1_butterfly": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P],
 }

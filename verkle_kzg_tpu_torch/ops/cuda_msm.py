@@ -1,16 +1,14 @@
 """Kernel K4, the single-MSM tail at any window width, and what the
-single-MSM accumulations share: the window count and rows of a width, the
-digits of the scalar words, and the table walk's plain version.
+single-MSM accumulations share: the window count and rows of a width and
+the digits of the scalar words.
 
-The accumulations are elsewhere. K3, K9 and K8 (signed and unsigned
-digits from the scalar words, c dividing 16) and K10 (a digit tensor of
-more than 128 rows a window) are one bucket-sorted design
-(``cuda_msm_sorted.py``); K6, the table walk of a digit tensor of up to
-128 rows, is ``cuda_msm_batched.py``, and :func:`plain_tables` is its plain
-version (and K13's). A window of width c has 2^(c-1) bucket rows for
-balanced signed digits and 2^c - 1 for unsigned ones, row i the bucket of
-digit +-(i + 1), so the tail reads one layout for both. (The TPU's
-unsigned kernel kept 2^c rows with a trash row 0.)
+The accumulations are elsewhere: K3, K9 and K8 (signed and unsigned
+digits from the scalar words, c dividing 16) and K6, K10 and K13 (a digit
+tensor) are one bucket-sorted design (``cuda_msm_sorted.py``). A window of
+width c has 2^(c-1) bucket rows for balanced signed digits and 2^c - 1 for
+unsigned ones, row i the bucket of digit +-(i + 1), so the tail reads one
+layout for both. (The TPU's unsigned kernel kept 2^c rows with a trash row
+0.)
 
 K4 replaces ``pallas_msm._single_tail``'s second launch (line 1041), with
 bodies ``_suffix_horner_kernel`` and ``_window_sum``: per window the
@@ -92,41 +90,6 @@ def scalar_digits(sc, masks, c: int, signed: bool) -> torch.Tensor:
     mv = masks.to(torch.int64) & 0xFFFFFFFF
     bits = ((mv[..., None] >> torch.arange(32, device=dev)) & 1).reshape(raw.shape[0], -1)
     return raw + bits[:, :w] - (bits[:, 1 : w + 1] << c)
-
-
-def plain_tables(pts, digits, base, nrows: int) -> torch.Tensor:
-    """The accumulation of the table-walk kernels (K6, and K13 whose
-    chains add in the same order), as its plain version: table thread t walks the points base[t] + i, i < L,
-    of the (P, 2, 8) affine stream, adding point base[t] + i into row
-    |digits[t, i]| - 1 with the lazy mixed add, y negated for a negative
-    digit; digit 0 and the (0, 0) sentinel add nothing. (T, L) int64
-    digits -> (T, nrows, 3, 8) reduced tables.
-
-    The tables stay in the kernel's int32 word layout and a step widens
-    only the rows it touches, and only the touched rows are reduced at the
-    end (an untouched row holds the identity, already reduced): a table is
-    up to 2^16 rows, and the plain versions run on the CPU."""
-    dev = pts.device
-    t, seg_len = digits.shape
-    table = C.infinity((t, nrows), dev)
-    touched = torch.zeros((t, nrows), dtype=torch.bool, device=dev)
-    live_pt = ~C.affine_is_infinity(pts)
-    for i in range(seg_len):
-        pidx = base + i
-        d = digits[:, i]
-        idx = ((d != 0) & live_pt[pidx]).nonzero().flatten()
-        if not idx.numel():
-            continue
-        di, p = d[idx], F.to_limbs(pts[pidx[idx]])
-        neg_y = F.sub16(torch.zeros_like(p[:, 1]), p[:, 1], "fq")
-        q = torch.stack([p[:, 0], torch.where((di < 0)[:, None], neg_y, p[:, 1])], dim=-2)
-        row = di.abs() - 1
-        new = C.mixed_add16(F.to_limbs(table[idx, row]), q, lazy=True)
-        table[idx, row] = F.from_limbs(new)
-        touched[idx, row] = True
-    ti, ri = touched.nonzero(as_tuple=True)
-    table[ti, ri] = F.from_limbs(C.reduce16(F.to_limbs(table[ti, ri])))
-    return table
 
 
 def run_len(nrows: int) -> int:

@@ -1,7 +1,7 @@
-"""Kernels K3, K9, K8 and K10: the single-MSM bucket accumulations, as one
-bucket-sorted Pippenger fed by three digit sources (``csrc/msm_sorted.cu``).
+"""Kernels K3, K9, K8, K10, K6 and K13: every MSM bucket accumulation, as one
+bucket-sorted Pippenger fed by two digit sources (``csrc/msm_sorted.cu``).
 
-They replace four TPU kernels of ``verkle_kzg_tpu/ops/pallas_msm.py``:
+They replace six TPU kernels of ``verkle_kzg_tpu/ops/pallas_msm.py``:
 
   * K3: signed digits from the scalar words, c in {1, 2, 4, 8}, the launch
     at line 700 (``_accum_kernel_sc_signed_pair``; c = 8 is the default
@@ -10,22 +10,29 @@ They replace four TPU kernels of ``verkle_kzg_tpu/ops/pallas_msm.py``:
     (``_accum_kernel_sc_signed``);
   * K8: unsigned digits from the scalar words, c in {1, 2, 4, 8, 16}, the
     launch at line 330 (``_accum_kernel_sc``);
-  * K10: digits from a (W, B, S) digit tensor as the caller recoded them
+  * K6, K10 and K13: digits from a digit tensor as the caller recoded them
     (``ops/msm.py::window_digits_signed`` or ``window_digits``), any c in
-    [1, 16] whose window has more than 128 rows, the launch at line 883
-    (``_accum_kernel``). Up to 128 rows a digit tensor takes K6's table
-    walk (``cuda_msm_batched``), as the JAX package chose between its two
-    kernels by table size.
+    [1, 16]. The JAX package chose among three kernels by VMEM table size:
+    ``_accum_kernel_pair`` (line 853, K6) up to 128 rows a window,
+    ``_accum_kernel`` (line 883, K10) above, and ``_accum_kernel_group``
+    (line 807, K13) when a lane-stream caller passes ``wgroup``
+    (``ops/msm_stream.py``). Here one kernel takes them all;
+    :func:`launch_key` names the count a call adds to (K6 or K10 by the
+    rows, K13 when the caller says so).
 
-For each of B point streams ("lanes": point p of the (B S, 2, 8) stream is
-in lane p // S), window w and row i, bucket (w, b, i) is the sum of the
-lane's points whose window-w digit is +-(i + 1), y negated for a negative
-digit; digit 0 and the (0, 0) sentinel add nothing. A window has 2^(c-1)
-rows for balanced signed digits and 2^c - 1 for unsigned ones (row d - 1
-holds digit d; the TPU's unsigned kernel kept 2^c rows with a trash row
-0). Output (W, B, rows, 3, 8), W = ceil(256 / c), reduced, the identity in
-empty rows: the layout K4 (``cuda_msm.tail``), K7 and the lane-stream
-functions take.
+For each of B point streams ("lanes"), window w and row i, bucket (w, b, i)
+is the sum of the lane's points whose window-w digit is +-(i + 1), y
+negated for a negative digit; digit 0 and the (0, 0) sentinel add nothing.
+A window has 2^(c-1) rows for balanced signed digits and 2^c - 1 for
+unsigned ones (row d - 1 holds digit d; the TPU's unsigned kernel kept 2^c
+rows with a trash row 0). Output (W, B, rows, 3, 8), W = ceil(256 / c),
+reduced, the identity in empty rows: the layout K4 (``cuda_msm.tail``), K7
+and the lane-stream functions take. From the scalar words the points are
+(B S, 2, 8), lane b's at [b S, (b + 1) S). A digit tensor is any (W, B, S)
+view and its points any (B, S, 2, 8) view: the kernel reads both at their
+strides, so a basis every lane shares (``msm_fixed_base``) is an
+``expand`` with lane stride 0, never copied per lane, and a lane stream
+(S, B, ...) is read in place through its transpose.
 
 The TPU has no scatter, so its kernels ran every step as a masked gather and
 scatter of a lane's whole bucket column. Hopper scatters freely, so the
@@ -36,11 +43,12 @@ each a hand-written kernel (the source's note has the details):
      and, signed, balances them with the carry rule of
      ``ops/msm.py::signed_carries`` computed in registers
      (:func:`carry_digits`), or with the caller's carry words; or a thread
-     a point reads its digits from the digit tensor. Each live (window,
-     point) becomes key (window, lane, |d| - 1), value p and sign;
+     a (lane, step) reads its digits from the digit tensor. Each live
+     (window, lane, step) becomes key (window, lane, |d| - 1), value the
+     index of its point and sign;
   2. sort: a stable counting sort by key over tiles of points, in LSD
      passes of at most 8 bits of the row (:func:`bins`): one pass up to 256
-     rows, two above; each bucket's entries then come in ascending point
+     rows, two above; each bucket's entries then come in ascending step
      order;
   3. sums: the E entries in :func:`chunk_len` chunks, a thread a chunk, one
      lazy mixed add an entry from the identity; a run inside its chunk is a
@@ -51,8 +59,8 @@ Only the digits stage and the sort's bins depend on the source and the
 width; the sums and the combine see keys. The plain version below follows
 the same digits, the same stable order, the same chunks and the same tree,
 so kernel and plain version agree word for word. Words differ from a
-sequential bucket walk (the JAX kernels', K6's, K13's) wherever a bucket
-spans chunks: only the group element is contract.
+sequential bucket walk (the JAX kernels') wherever a bucket spans chunks:
+only the group element is contract.
 
 What bounds the kernels: 11 Montgomery products a live entry, 264 32-bit
 multiplies each (5.8 ms at 2^20 points, c = 8, on 132 SMs x 64 a clock x
@@ -63,15 +71,16 @@ their occupancy, chunk count or prefetch (``tools/sorted_variants.py``);
 that the product's integer instructions set the pace is a hypothesis no
 profiler reading has tested.
 
-One call counts one launch of K3, K9, K8 or K10 (:func:`launch_key`) in
-``cuda_lib.launches``; the C entry point counts each CUDA launch it issues
+One call counts one launch of K3, K9, K8, K10, K6 or K13 (:func:`launch_key`)
+in ``cuda_lib.launches``; the C entry point counts each CUDA launch it issues
 (5-7 a window group with one sort pass, 8-12 with two), which the wrapper
 adds to ``cuda_lib.cuda_launches``. :func:`launch` can also return the four
 stages' times, from CUDA events the call records between them. The windows
 run in groups (:func:`window_groups`) above SCRATCH_BYTES of key/value
 scratch or MAX_COUNTS histogram slots: the order within a bucket stays the
 same, and each group's entries are cut into chunks of their own, in the
-plain version alike.
+plain version alike. That bound is the accumulation's whole memory cap:
+no point segments, no per-thread tables.
 """
 
 from __future__ import annotations
@@ -101,10 +110,11 @@ def rows(c: int, signed: bool = True) -> int:
 
 
 def launch_key(c: int, signed: bool = True, tensor: bool = False) -> str:
-    """K10 for a digit tensor; from the scalar words K8 unsigned, K9 signed
-    at c = 16, else K3."""
+    """A digit tensor: K6 up to 128 rows a window, K10 above (the TPU's
+    paired and unpaired kernels, ``pallas_msm.py:834-840``); from the
+    scalar words K8 unsigned, K9 signed at c = 16, else K3."""
     if tensor:
-        return "K10"
+        return "K6" if rows(c, signed) <= 128 else "K10"
     if not signed:
         return "K8"
     return "K9" if c == 16 else "K3"
@@ -115,10 +125,35 @@ def _check_words(c: int) -> None:
         raise ValueError(f"digits from the scalar words need c dividing 16, got {c}")
 
 
-def _check_tensor(c: int, signed: bool) -> None:
-    if not 1 <= c <= 16 or rows(c, signed) <= 128:
-        raise ValueError(f"K10 takes c in [1, 16] with more than 128 rows a window, got c = {c}"
-                         f" ({rows(c, signed) if 1 <= c <= 16 else 0} rows): K6 takes the others")
+def _check_tensor(c: int) -> None:
+    if not 1 <= c <= 16:
+        raise ValueError(f"the digit-tensor accumulation takes c in [1, 16], got {c}")
+
+
+def _stride(t: torch.Tensor, i: int) -> int:
+    """Dimension i's stride, 0 for a dimension of one (it is never stepped)."""
+    return 0 if t.shape[i] == 1 else t.stride(i)
+
+
+def point_lanes(pts: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """(B S, 2, 8) points, or any (B, S, 2, 8) view of them, as a (B, S, 2,
+    8) view the digits kernel can address: whole points at strides that are
+    multiples of a point (any other view is copied)."""
+    if pts.dim() == 3:
+        if pts.shape[0] != b * s:
+            raise ValueError(f"msm accumulate: {pts.shape[0]} points for {b} lanes of {s}")
+        pts = pts.reshape(b, s, 2, 8)
+    if pts.stride()[2:] != (8, 1) or _stride(pts, 0) % 16 or _stride(pts, 1) % 16:
+        pts = pts.contiguous()
+    return pts
+
+
+def tensor_layout(pts: torch.Tensor, digits: torch.Tensor) -> tuple:
+    """The digits kernel's strides for a :func:`point_lanes` view and (W, B,
+    S) digits: a point's lane and step strides in points (lane 0: a basis
+    every lane shares), a digit's window, lane and step strides in
+    elements."""
+    return _stride(pts, 0) // 16, _stride(pts, 1) // 16, _stride(digits, 0), _stride(digits, 1), _stride(digits, 2)
 
 
 def bins(c: int, signed: bool = True) -> tuple:
@@ -295,11 +330,14 @@ def plain_accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int
 
 
 def plain_accumulate_digits(pts: torch.Tensor, digits: torch.Tensor, c: int, signed: bool = True) -> torch.Tensor:
-    """The plain version of K10: (B S, 2, 8) affine x (W, B, S) int32 digits
-    (balanced signed, or unsigned in [0, 2^c)) -> (W, B, rows, 3, 8)."""
-    _check_tensor(c, signed)
+    """The plain version of K6, K10 and K13: (B S, 2, 8) or (B, S, 2, 8)
+    affine x (W, B, S) int32 digits (balanced signed, or unsigned in
+    [0, 2^c)) -> (W, B, rows, 3, 8); lane b's entries in step order, as
+    the kernel takes them whatever the views' strides."""
+    _check_tensor(c)
     w, b, s = digits.shape
-    return _plain(pts, digits.reshape(w, b * s).to(torch.int64), c, b, signed)
+    flat = point_lanes(pts, b, s).reshape(b * s, 2, 8)
+    return _plain(flat, digits.reshape(w, b * s).to(torch.int64), c, b, signed)
 
 
 def workspace_words(n: int, c: int, lanes: int, wg: int, signed: bool = True, from_words: bool = True) -> int:
@@ -317,12 +355,20 @@ def _ptr(t) -> int:
 
 def launch(pts, sc, digits, masks, out, c: int, signed: bool, w0: int, wg: int, timed: bool = False) -> tuple:
     """Windows [w0, w0 + wg) into ``out`` (W, B, rows, 3, 8), with the
-    digits from ``sc`` (and ``masks``) or from ``digits`` (the other None):
+    digits from ``sc`` (and ``masks``) or from ``digits`` (the other None;
+    ``pts`` then (B S, 2, 8) or a (B, S, 2, 8) view, read at its strides):
     -> (the CUDA launches the call issued, as the C entry point counted
     them, and, when ``timed``, {stage: ms} from events between the stages,
     else None; a timed call waits for its last stage). Counts nothing:
     :func:`accumulate` and :func:`accumulate_digits` do."""
-    n, lanes = pts.shape[0], out.shape[1]
+    lanes = out.shape[1]
+    layout = None
+    if digits is None:
+        n = pts.shape[0]
+    else:
+        b, s = digits.shape[1:]
+        pts = point_lanes(pts, b, s)
+        n, layout = b * s, (ctypes.c_int64 * 5)(*tensor_layout(pts, digits))
     words = workspace_words(n, c, lanes, wg, signed, digits is None)
     work = torch.empty(words, dtype=torch.int32, device=pts.device)
     group = out[w0 : w0 + wg]
@@ -330,19 +376,19 @@ def launch(pts, sc, digits, masks, out, c: int, signed: bool, w0: int, wg: int, 
     ms = (ctypes.c_float * len(STAGES))() if timed else None
     err = cuda_lib.lib().vkzg_msm_sorted(
         pts.data_ptr(), _ptr(sc), _ptr(masks), _ptr(digits), group.data_ptr(), work.data_ptr(), work.numel(),
-        n, lanes, c, int(signed), w0, wg, TARGET, L_MIN, ctypes.addressof(ms) if timed else None,
+        n, lanes, c, int(signed), w0, wg, TARGET, L_MIN, layout, ctypes.addressof(ms) if timed else None,
         ctypes.addressof(issued), cuda_lib.stream(pts),
     )
     cuda_lib.check(err, "vkzg_msm_sorted")
     return issued.value, (dict(zip(STAGES, ms)) if timed else None)
 
 
-def _run(pts, sc, digits, masks, c: int, lanes: int, signed: bool) -> torch.Tensor:
-    """Every window group on the card, counted as one launch of its key."""
+def _run(pts, sc, digits, masks, c: int, lanes: int, signed: bool, key: str) -> torch.Tensor:
+    """Every window group on the card, counted as one launch of ``key``."""
     out = torch.empty((windows(c), lanes, rows(c, signed), 3, 8), dtype=torch.int32, device=pts.device)
-    groups = window_groups(pts.shape[0], c, lanes, signed)
+    n = pts.shape[0] if digits is None else digits.shape[1] * digits.shape[2]
+    groups = window_groups(n, c, lanes, signed)
     issued = sum(launch(pts, sc, digits, masks, out, c, signed, w0, wg)[0] for w0, wg in groups)
-    key = launch_key(c, signed, digits is not None)
     cuda_lib.launches[key] += 1
     cuda_lib.cuda_launches[key] += issued
     return out
@@ -366,31 +412,40 @@ def accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
     cuda_lib.require_cuda("msm.accumulate_sorted", pts, sc, *(() if masks is None else (masks,)))
     if n == 0:
         return C.infinity((windows(c), lanes, rows(c, signed)), pts.device)
-    return _run(pts, sc, None, masks, c, lanes, signed)
+    return _run(pts, sc, None, masks, c, lanes, signed, launch_key(c, signed))
 
 
-def accumulate_digits(pts: torch.Tensor, digits: torch.Tensor, c: int, signed: bool = True) -> torch.Tensor:
-    """K10: (B S, 2, 8) affine x (W, B, S) int32 digits, |d| at most the
-    window's rows (as ``ops/msm.py::window_digits_signed`` and
-    ``window_digits`` give them) -> (W, B, rows, 3, 8) reduced buckets. The
-    plain version on the CPU; on a card the kernels or an error."""
+def accumulate_digits(pts: torch.Tensor, digits: torch.Tensor, c: int, signed: bool = True,
+                      key: str | None = None) -> torch.Tensor:
+    """K6 / K10 (:func:`launch_key`), or K13 when ``key`` says so: (B S, 2,
+    8) affine points or any (B, S, 2, 8) view of them x any (W, B, S) view
+    of int32 digits, |d| at most the window's rows (as
+    ``ops/msm.py::window_digits_signed`` and ``window_digits`` give them)
+    -> (W, B, rows, 3, 8) reduced buckets. The plain version on the CPU; on
+    a card the kernels or an error."""
     if pts.device.type == "cpu":
         return plain_accumulate_digits(pts, digits, c, signed)
-    _check_tensor(c, signed)
+    _check_tensor(c)
     w, b, s = digits.shape
-    if w != windows(c) or b < 1 or pts.shape != (b * s, 2, 8):
-        raise ValueError("msm accumulate: (B S, 2, 8) points and (ceil(256 / c), B, S) digits")
-    cuda_lib.require_cuda("msm.accumulate_digits", pts, digits)
+    pts = point_lanes(pts, b, s)
+    if w != windows(c) or b < 1 or pts.shape != (b, s, 2, 8):
+        raise ValueError("msm accumulate: (B, S, 2, 8) points and (ceil(256 / c), B, S) digits")
+    for t in (pts, digits):  # views at any strides: the kernel reads them so
+        if t.device.type != "cuda" or t.device != pts.device or t.dtype != torch.int32:
+            raise ValueError("msm accumulate_digits: int32 points and digits on one CUDA device")
+    if pts.data_ptr() % 16:
+        raise ValueError("msm accumulate_digits: points must be 16-byte aligned (loaded four words at a time)")
     if s == 0:
         return C.infinity((w, b, rows(c, signed)), pts.device)
-    return _run(pts, None, digits, None, c, b, signed)
+    return _run(pts, None, digits, None, c, b, signed, key or launch_key(c, signed, True))
 
 
 def live_tensor_entries(pts: torch.Tensor, digits: torch.Tensor) -> int:
-    """Live (window, point) entries of (n, 2, 8) points and their (W, n) or
-    (W, B, S) digits: nonzero digit, not the (0, 0) sentinel."""
+    """Live (window, point) entries of (n, 2, 8) points (or a (B, S, 2, 8)
+    view) and their (W, n) or (W, B, S) digits: nonzero digit, not the
+    (0, 0) sentinel."""
     on = digits.reshape(digits.shape[0], -1) != 0
-    return int((on & ~C.affine_is_infinity(pts)[None, :]).sum())
+    return int((on & ~C.affine_is_infinity(pts.reshape(-1, 2, 8))[None, :]).sum())
 
 
 def live_entries(pts: torch.Tensor, sc: torch.Tensor, c: int, masks=None, signed: bool = True) -> int:

@@ -4,22 +4,17 @@ lane-batched, and double-and-add for small N.
 The counterpart of ``verkle_kzg_tpu/ops/msm.py``. A single MSM of N >= 64
 (affine point, standard scalar) pairs -> one projective point ``(3, 8)``
 with reduced coordinates, at any window width c in [1, 16] and either
-digit sign (default c = 8, signed), in three steps:
+digit sign (default c = 8, signed), in two steps:
 
   1. the bucket accumulation, bucket |d| in row |d| - 1 of a window's
-     table, (W, rows) buckets. With c dividing 16 the bucket-sorted
-     accumulation (``cuda_msm_sorted.accumulate``: K3, K9 at c = 16, K8
-     unsigned) takes the points and scalars as they are: its kernels
-     derive the digits (and, signed, the carries), sort the entries by
-     bucket and sum them. At any other c the scalars are recoded first
-     (:func:`window_digits_signed` or :func:`window_digits`); a window of
-     more than 128 rows (c >= 9) takes the same sorted design over that
-     digit tensor (``cuda_msm_sorted.accumulate_digits``: K10). Neither
-     pads, cuts segments or folds. The rest (c in {3, 5, 6, 7}) cut the point stream
-     into S segments (:func:`segments`), fill (W, S, rows) partial tables
-     with one lane of K6's table walk (``cuda_msm_batched.accumulate``),
-     and fold the S segments with K2 (``curve.add``,
-     :func:`fold_reduce_lanes`);
+     table, (W, rows) buckets, by the bucket-sorted kernels of
+     ``cuda_msm_sorted``. With c dividing 16 they take the points and
+     scalars as they are (``accumulate``: K3, K9 at c = 16, K8 unsigned):
+     the kernels derive the digits (and, signed, the carries). At any other
+     c the scalars are recoded first (:func:`window_digits_signed` or
+     :func:`window_digits`) and the same kernels take that digit tensor
+     (``accumulate_digits``: K6 up to 128 rows a window, K10 above). None
+     pads, cuts point segments or folds;
   2. K4 (``cuda_msm.tail``): the weighted bucket sums and Horner.
 
 Below 64 points ``msm_auto`` multiplies each point by its scalar with K5
@@ -29,11 +24,11 @@ whatever N is.
 
 A batch of B independent MSMs (``msm_fixed_base``: one basis for every
 lane, the dense verkle node commits; ``msm_batched``: points per lane)
-takes K6 (``cuda_msm_batched.accumulate``) over LSB-carry signed digits
-(:func:`window_digits_signed`) with c from :func:`_auto_c_batched`, the K2
-fold of the point segments, and K7 (``cuda_msm_batched.tail``); a given c
-of more than 128 rows takes K10 with the batch's lanes as its lanes, and
-K7; below 64 points per lane, K5 and a K2 fold. Only the group element is
+takes LSB-carry signed digits (:func:`window_digits_signed`) with c from
+:func:`_auto_c_batched` or as given, in [1, 16], the same digit-tensor
+accumulation with the batch's lanes as its lanes (a shared basis read by
+every lane through a lane stride of 0), and K7 (``cuda_msm_batched.tail``);
+below 64 points per lane, K5 and a K2 fold. Only the group element is
 contract; the JAX package's own paths return other projective
 representatives.
 """
@@ -52,10 +47,6 @@ from . import curve as C
 from . import field as F
 
 TOTAL_BITS = 256
-SEG_MIN = 16  # points per segment at least
-SEG_MAX = 1024  # segments at most: 32 x 1024 table threads fill 132 SMs
-TABLE_BYTES = 1 << 30  # partial bucket tables of a segmented MSM (K6) at most
-ROW_BYTES = 96  # one projective bucket, 3 x 8 words
 
 
 def window_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
@@ -125,19 +116,6 @@ def _auto_c(n: int, c: int | None) -> int:
     return c
 
 
-def segments(n: int, table_rows: int = 0) -> tuple:
-    """(S, L) for K6's table walk (every other accumulation sorts): the
-    point stream is cut into S segments of L points (padded with zero
-    scalars at the (0, 0) sentinel), one accumulation thread per (window,
-    segment). ``table_rows`` (the rows of one segment's tables: W x rows,
-    times the lanes of a batch) caps S so that the partial tables stay under
-    TABLE_BYTES."""
-    nseg = max(1, min(SEG_MAX, math.ceil(n / SEG_MIN)))
-    if table_rows:
-        nseg = max(1, min(nseg, TABLE_BYTES // (table_rows * ROW_BYTES)))
-    return nseg, math.ceil(n / nseg)
-
-
 def fold_reduce_lanes(p: torch.Tensor, dim: int = -3) -> torch.Tensor:
     """Tree-reduce points over ``dim`` (size -> 1) by halving, with K2."""
     dim = dim % p.dim()
@@ -159,27 +137,17 @@ def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | N
     ``c``: window bits in [1, 16], default 8. ``signed``: balanced signed
     digits (2^(c-1) bucket rows a window) or unsigned ones (2^c - 1 rows).
     ``lanes`` is accepted for parity with the JAX package and has no
-    effect: the sorted entries' chunks (or the point segments of
-    :func:`segments`) take the place of the TPU's lanes, and only the
-    group element is contract."""
-    n = points_affine.shape[0]
-    c = _auto_c(n, c)
+    effect: the sorted entries' chunks take the place of the TPU's lanes,
+    and only the group element is contract."""
+    c = _auto_c(points_affine.shape[0], c)
     points_affine = points_affine.contiguous()
     scalars = scalars.contiguous()
     if c in K.IN_KERNEL_C:
         buckets = KS.accumulate(points_affine, scalars, c, signed=signed)
-        return K.tail(buckets[:, 0].contiguous(), c)
-    digits = (window_digits_signed if signed else window_digits)(scalars, c).to(torch.int32)
-    if KB.launch_key(c, signed) == "K10":
-        buckets = KS.accumulate_digits(points_affine, digits[:, None].contiguous(), c, signed)
-        return K.tail(buckets[:, 0].contiguous(), c)
-    nseg, seg_len = segments(n, K.windows(c) * K.rows(c, signed))
-    pad = nseg * seg_len - n
-    if pad:
-        points_affine = torch.nn.functional.pad(points_affine, (0, 0, 0, 0, 0, pad))
-        digits = torch.nn.functional.pad(digits, (0, pad))
-    table = KB.accumulate(points_affine, digits[:, None].contiguous(), nseg, seg_len, c, signed)[:, 0]
-    return K.tail(fold_reduce_lanes(table, dim=1)[:, 0].contiguous(), c)
+    else:
+        digits = (window_digits_signed if signed else window_digits)(scalars, c).to(torch.int32).contiguous()
+        buckets = KS.accumulate_digits(points_affine, digits[:, None], c, signed)
+    return K.tail(buckets[:, 0].contiguous(), c)
 
 
 def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None, lanes: int = 128):
@@ -219,27 +187,16 @@ def _batched_naive_affine(points_affine: torch.Tensor, scalars: torch.Tensor) ->
 def _msm_lanewise(points_affine: torch.Tensor, scalars: torch.Tensor, c: int) -> torch.Tensor:
     """Core batched Pippenger (``ops/msm.py::_msm_lanewise``): (N, 2, 8)
     shared or (B, N, 2, 8) per-lane points x (B, N, 8) standard scalars ->
-    (B, 3, 8). The scalars become (W, B, N) LSB-carry signed digits, the
-    point stream is cut into segments (zero digits and (0, 0) points pad
-    it), K6 fills one bucket table per (window, lane, segment), K2 folds
-    the segments and K7 runs the tails. The segments are capped so that
-    the B lanes' tables stay under TABLE_BYTES, as a single MSM's are. A
-    given c of more than 128 rows a window sorts instead: K10 with the B
-    lanes as its lanes (a shared basis repeated per lane), no fold."""
+    (B, 3, 8). The scalars become (W, B, N) LSB-carry signed digits; the
+    sorted accumulation takes the B lanes as its lanes (K6 up to 128 rows a
+    window, K10 above; a shared basis is an ``expand`` that the kernel
+    reads at lane stride 0, never a copy per lane), and K7 runs the tails.
+    Its scratch is bounded by ``cuda_msm_sorted.SCRATCH_BYTES``: the
+    windows go in groups above it."""
     digits = window_digits_signed(scalars, c).to(torch.int32)
     w, b, n = digits.shape
-    if KB.launch_key(c) == "K10":
-        pts = points_affine.expand(b, n, 2, F.WORDS) if points_affine.dim() == 3 else points_affine
-        buckets = KS.accumulate_digits(pts.reshape(b * n, 2, F.WORDS).contiguous(), digits.contiguous(), c)
-        return KB.tail(buckets, c)
-    nseg, seg_len = segments(n, w * b * KB.rows(c))
-    pad = nseg * seg_len - n
-    if pad:
-        digits = torch.nn.functional.pad(digits, (0, pad))
-        points_affine = torch.nn.functional.pad(points_affine, (0, 0, 0, 0, 0, pad))  # N is dim -3
-    table = KB.accumulate(points_affine.contiguous(), digits.contiguous(), nseg, seg_len, c)
-    buckets = fold_reduce_lanes(table, dim=2)[:, :, 0].contiguous()
-    return KB.tail(buckets, c)
+    pts = points_affine.expand(b, n, 2, F.WORDS) if points_affine.dim() == 3 else points_affine
+    return KB.tail(KS.accumulate_digits(pts, digits, c), c)
 
 
 def msm_batched(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:

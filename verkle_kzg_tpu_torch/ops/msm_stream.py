@@ -18,27 +18,28 @@ carries JAX's arrays across):
   * ``msm_single_fused*`` return one (3, 8) projective point,
     ``batched_bucket_tail`` (B, 3, 8), reduced.
 
-Routing. ``wgroup`` takes K13 (``cuda_msm_group``), G windows a thread,
-with the pipelined row loads when ``fused``. Without it a digit tensor of
-up to 128 rows a window goes to K6's table walk
-(``cuda_msm_batched.accumulate``) with the stream transposed to its
-per-lane layout and one segment of S points a lane, and a wider one to the
-bucket-sorted K10 (``cuda_msm_sorted.accumulate_digits``). The
-``_from_scalars`` functions take the bucket-sorted K3/K9 (signed, with the
-caller's carry words) or K8 (unsigned; ``cuda_msm_sorted.accumulate``).
-The sorted kernels take the B lanes as their lanes for the lane buckets,
-and one lane for the single MSMs, whose points need no lanes, so that no
-K2 fold follows; the single MSMs on K6 or K13 fold the lanes' tables with
-K2 (``ops/msm.py::fold_reduce_lanes``). Every single MSM runs the tail
-K4, and ``batched_bucket_tail`` is K7. Each bucket row holds the same group
-element as JAX's; the projective words differ (the TPU kernels run their
-identity adds through the complete formulas, the sorted sums add a
-bucket's chunks in a tree, and the port's tails add in another order), so
-only group elements are contract.
+Routing. Every accumulation is the bucket-sorted kernel of
+``cuda_msm_sorted``. A digit tensor goes to ``accumulate_digits``, which
+reads the stream in place at its strides (lane b's points B apart): it
+counts as K13 when the caller passes ``wgroup`` (the TPU's
+``_accum_kernel_group``), else as K6 up to 128 rows a window and K10
+above. The ``_from_scalars`` functions take K3/K9 (signed, with the
+caller's carry words) or K8 (unsigned; ``accumulate``). The lane buckets
+take the B lanes as the kernel's lanes; the single MSMs take the whole
+stream as one lane, since their points need no lanes, so that no K2 fold
+follows, then the tail K4. ``batched_bucket_tail`` is K7, at any c in
+[1, 16]. Each bucket row holds the same group element as JAX's; the
+projective words differ (the TPU kernels run their identity adds through
+the complete formulas, the sorted sums add a bucket's chunks in a tree,
+and the port's tails add in another order), so only group elements are
+contract.
 
-``chunk`` and ``wpair`` are accepted and have no effect: they sized the
-TPU's VMEM blocks and paired its windows. ``msm_single_fused*`` raise for a
-lane count that is not a power of two, as JAX asserts. Not ported, by
+``chunk``, ``wpair``, ``wgroup`` and ``fused`` are accepted and have no
+effect on any bucket's value: they sized the TPU's VMEM blocks, paired its
+windows, grouped G windows a grid cell and pipelined its table passes. A
+``wgroup`` below 1 raises, as it did for the TPU kernel's grid.
+``msm_single_fused*`` raise for a lane count that is not a power of two,
+as JAX asserts. Not ported, by
 decision: ``interpret`` (there is no Pallas; the plain versions run on the
 CPU) and the ``_donated`` twins (buffer donation is a ``jit`` notion).
 """
@@ -49,10 +50,8 @@ import torch
 
 from . import cuda_msm as K
 from . import cuda_msm_batched as KB
-from . import cuda_msm_group as KG
 from . import cuda_msm_sorted as KS
 from . import curve as C
-from .msm import fold_reduce_lanes
 
 
 def signed_table_size(c: int) -> int:
@@ -65,17 +64,21 @@ def _check_lanes(b: int) -> None:
         raise ValueError(f"lane count must be a power of two, got {b}")
 
 
-def _digit_tables(pts_stream, digits, c: int, signed: bool, wgroup, fused: bool) -> torch.Tensor:
-    """(S, B, 2, 8) x (W, S, B) -> (W, B, rows, 3, 8) tables, row |d| - 1."""
-    if wgroup is not None:
-        return KG.accumulate(pts_stream.contiguous(), digits.to(torch.int32).contiguous(), c, signed,
-                             wgroup, fused)
-    s, b = pts_stream.shape[:2]
-    lanes = pts_stream.transpose(0, 1).contiguous()
-    per_lane = digits.to(torch.int32).permute(0, 2, 1).contiguous()
-    if KB.launch_key(c, signed) == "K10":
-        return KS.accumulate_digits(lanes.reshape(b * s, 2, 8), per_lane, c, signed)
-    return KB.accumulate(lanes, per_lane, 1, s, c, signed)[:, :, 0]
+def _group_key(wgroup) -> str | None:
+    """The count a digit-tensor accumulation adds to: K13 for a caller that
+    passes ``wgroup`` (at least 1), else the kernel's own (K6 or K10)."""
+    if wgroup is None:
+        return None
+    if wgroup < 1:
+        raise ValueError(f"wgroup must be at least 1, got {wgroup}")
+    return "K13"
+
+
+def _digit_tables(pts_stream, digits, c: int, signed: bool, wgroup) -> torch.Tensor:
+    """(S, B, 2, 8) x (W, S, B) -> (W, B, rows, 3, 8) tables, row |d| - 1,
+    the stream and its digits read in place through (B, S) views."""
+    return KS.accumulate_digits(pts_stream.transpose(0, 1), digits.to(torch.int32).permute(0, 2, 1), c, signed,
+                                key=_group_key(wgroup))
 
 
 def _scalar_tables(pts_stream, sc_stream, masks, c: int, signed: bool) -> torch.Tensor:
@@ -99,15 +102,10 @@ def _jax_rows(tables: torch.Tensor, signed: bool) -> torch.Tensor:
     return out.contiguous()
 
 
-def _single(tables: torch.Tensor, c: int) -> torch.Tensor:
-    """Fold the lanes' tables (K6's, K13's) with K2, then the tail K4 -> (3, 8)."""
-    return K.tail(fold_reduce_lanes(tables, dim=1)[:, 0].contiguous(), c)
-
-
 def bucket_accumulate(pts_stream, digits, c: int, chunk: int = 64, signed: bool = False,
                       wpair: bool = True, wgroup: int | None = None, fused: bool = False) -> torch.Tensor:
     """(S, B, 2, 8) points x (W, S, B) digits -> (W, rows, B, 3, 8) buckets."""
-    return _jax_rows(_digit_tables(pts_stream, digits, c, signed, wgroup, fused), signed)
+    return _jax_rows(_digit_tables(pts_stream, digits, c, signed, wgroup), signed)
 
 
 def bucket_accumulate_from_scalars(pts_stream, sc_stream, c: int, chunk: int = 32) -> torch.Tensor:
@@ -130,13 +128,12 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 
 def msm_single_fused(pts_stream, digits, c: int, chunk: int = 64, signed: bool = False,
                      wgroup: int | None = None, fused: bool = False) -> torch.Tensor:
-    """The single MSM of the whole stream from its digit tensor -> (3, 8);
-    on K10 the whole stream as one lane, so no K2 fold."""
+    """The single MSM of the whole stream from its digit tensor -> (3, 8):
+    the whole stream as one lane, so no K2 fold."""
     _check_lanes(digits.shape[2])
-    if wgroup is None and KB.launch_key(c, signed) == "K10":
-        one = digits.to(torch.int32).reshape(digits.shape[0], 1, -1).contiguous()
-        return K.tail(KS.accumulate_digits(_flat(pts_stream), one, c, signed)[:, 0].contiguous(), c)
-    return _single(_digit_tables(pts_stream, digits, c, signed, wgroup, fused), c)
+    one = digits.to(torch.int32).reshape(digits.shape[0], 1, -1)
+    buckets = KS.accumulate_digits(_flat(pts_stream), one, c, signed, key=_group_key(wgroup))
+    return K.tail(buckets[:, 0].contiguous(), c)
 
 
 def msm_single_fused_sc(pts_stream, sc_stream, c: int, chunk: int = 64) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""Run phases 2, 4 and 7 of the ``chip_smoke.py`` of a checkout on the card:
-the kernels against their plain versions, the 2^20 MSM with its stages,
-and the config-5 MSM sweep. It times a parent commit beside a change on
-one card in one call:
+"""Run phases 2, 4, 7 and 9 of the ``chip_smoke.py`` of a checkout on the
+card: the kernels against their plain versions, the 2^20 MSM with its
+stages, the config-5 MSM sweep and the lane-stream grid. It times a parent
+commit beside a change on one card in one call:
 
     mkdir -p _archive/parent && git archive <parent> | tar -x -C _archive/parent
     python3 verkle_kzg_tpu_torch/tools/smoke_phases.py _archive/parent parent
@@ -50,6 +50,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sweep = S.phase_sweep(dev, card)
     print(tag, f"phase 7 ({time.perf_counter() - t0:.1f} s): launches", json.dumps(sweep["path_launches"]),
+          f"[{card}]", flush=True)
+    t0 = time.perf_counter()
+    group = S.phase_group(dev, card)
+    print(tag, f"phase 9 ({time.perf_counter() - t0:.1f} s): launches", json.dumps(group["path_launches"]),
           f"[{card}]", flush=True)
     return 0
 

@@ -122,7 +122,7 @@ def stages(lib, pts, sc, c: int, target: int, ref, reps: int = 3) -> dict:
 
     def run(timed):
         cuda_lib.check(lib.vkzg_msm_sorted(pts.data_ptr(), sc.data_ptr(), 0, 0, out.data_ptr(), work.data_ptr(),
-                                           work.numel(), n, 1, c, 1, 0, w, target, KS.L_MIN,
+                                           work.numel(), n, 1, c, 1, 0, w, target, KS.L_MIN, None,
                                            ctypes.addressof(ms) if timed else None, ctypes.byref(issued),
                                            cuda_lib.stream(pts)), "vkzg_msm_sorted")
         return dict(zip(KS.STAGES, ms)) if timed else None

@@ -224,10 +224,12 @@ class VerkleTree:
             for child in node.children.values():
                 self._collect_dirty(child, depth + 1, dirty_ext, dirty_internal)
 
-    # Dense node vectors per msm_fixed_base call: bounds the bucket tables
-    # (W x B x segments x 2^(c-1) rows x 96 bytes). At width 256 (c = 5,
-    # W = 52, 16 rows) 16 segments would take 2.6 GB; ops/msm.py::segments
-    # caps them at 1 GiB, which leaves 6 segments (0.98 GB).
+    # Dense node vectors per msm_fixed_base call, as the JAX tree batches
+    # them. At width 256 (c = 5, W = 52, 16 rows) the sorted accumulation
+    # takes 52 x 2048 x 256 entries of 16 bytes of scratch (about 436 MB,
+    # one window group under cuda_msm_sorted.SCRATCH_BYTES) and 52 x 2048 x
+    # 16 buckets of 96 bytes (about 164 MB); the basis is shared, not
+    # copied per lane.
     COMMIT_CHUNK = 2048
 
     # Sparse node vectors per K5 launch: a lane is a point and a scalar
