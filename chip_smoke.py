@@ -9,11 +9,14 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K13, K1INV, G1SMUL, G1BFLY) against its plain PyTorch
-     version on the card, at the shapes the main paths give it, exact, with
-     its time and the least time the card could take for the same work;
-     K1INV also against the K1 chain it replaces, timed in the same run,
-     with its dependent chain (products and the inverse's loop steps); K5
+  2. each kernel (K1-K13, K1INV, K1IPA, K2FOLD, G1SMUL, G1BFLY) against its
+     plain PyTorch version on the card, at the shapes the main paths give
+     it, exact, with its time and the least time the card could take for
+     the same work; K1INV, K1IPA and K2FOLD also against the K1 or K2 chain
+     each replaces, timed in the same run (K1INV with its dependent chain:
+     products and the inverse's loop steps; K1IPA a round at 8, 256 and
+     1,024 elements with and without b, and <a, b> at 256; K2FOLD at 1 x 51,
+     1 x 63 points and the sparse commits' 20,002 x 2 and 10,001 x 4); K5
      in both regimes, with ptxas's registers and spills for each: many
      lanes (2^12 edge lanes, the commit's 40,000) and few (1, 19, 32 and
      51 lanes), and at the regime switch +- 1 both regimes timed, each
@@ -34,7 +37,8 @@ and no JAX. Phases, each of which raises on failure:
      sort, sums, combine) from CUDA events recorded between them in one
      call;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
-     checks, launch counts and timings, the prove's 16 K4 tails timed by
+     checks, launch counts (the prove: 10 K1IPA, no K1) and timings, the
+     prove's 16 K4 tails timed by
      CUDA events in one more prove, and a proof at domain 32 on the card
      against the CPU plain path;
   4. one MSM of 2^20 points through msm_auto, against an exact oracle, and
@@ -66,7 +70,8 @@ and no JAX. Phases, each of which raises on failure:
 
 Each of phases 2, 3, 5, 6 and 8, and each run of phases 7 and 9, sets the
 launch counts to 0 just before its path and reads them just after; phases
-5, 6 and 8 print K1's and K1INV's launches stage by stage, and phases 5
+5, 6 and 8 print K1's, K1INV's and K1IPA's launches stage by stage, phases
+5 and 6 assert that no K2 ran (K2FOLD sums the folds), and phases 5
 and 6 the launches of each K5 regime and the lanes of each K5 call. The
 last two
 lines of standard output are the card's name and power limit and a JSON
@@ -111,6 +116,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of kernel time on the card per call over ``reps``
+    calls after one warm-up, from a torch.profiler trace (the union of the
+    calls' kernel intervals): what the kernel takes when the host's cost
+    of a call, which back-to-back CUDA-event timing includes, is set apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _device_busy_ms(prof)[0] / reps
 
 
 def max_abs_err(a, b) -> int:
@@ -262,6 +284,8 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_windows(dev, base, rng))
     rec.update(_kernels_k13(dev, base, rng))
     rec.update(_kernels_g1_chain(dev, pz, rng))
+    rec.update(_kernels_k1ipa(dev, random.Random(12)))  # own seeds: the draws above stay as they were
+    rec.update(_kernels_k2fold(dev, pz, random.Random(13)))
     return rec
 
 
@@ -356,6 +380,167 @@ def _kernels_k1inv(dev, rng) -> dict:
             **bound(2 * a.numel() * 4, rows * 3 * (n - 1)),
         }
         print("phase 2 k1inv:", name, json.dumps(rec[name]), flush=True)
+    return rec
+
+
+K1IPA_CASES = ((256, True), (256, False), (8, True), (8, False), (1024, True), (1024, False))  # n, with b
+
+
+def ipa_round_work(n: int, half: int, ln: int, with_b: bool) -> tuple:
+    """(bytes, products) one K1IPA round needs: each input read once, each
+    output written once; the fold's products (a and b at ``half`` slots, the
+    weights at n / 2 when the round goes on), and with ``ln`` the n gammas,
+    the n + 1 scalars' standard form and, with b, the 2 (ln / 2) inner
+    products and their two products by w."""
+    vectors = 1 + with_b
+    fmuls = half * vectors + (n // 2 if half and ln else 0)
+    nbytes = 32 * n * (2 * vectors + (2 if ln else 0))
+    if ln:
+        fmuls += 2 * n + ((ln // 2) * 2 + 4 if with_b else 0)
+        nbytes += 32 * 2 * (n + with_b)
+    return nbytes, fmuls
+
+
+def _words_err(outs, refs) -> int:
+    """max_abs_err over the tensors of two output tuples (None beside None)."""
+    assert [o is None for o in outs] == [r is None for r in refs]
+    return max(max_abs_err(o, r) for o, r in zip(outs, refs) if o is not None)
+
+
+def _kernels_k1ipa(dev, rng) -> dict:
+    """K1IPA against its plain version and against the K1 chain it replaced
+    (the plain version with each product and add a K1 launch), exact: a
+    round with a fold at n / 2 and scalars for a round of n / 2 at each of
+    K1IPA_CASES, from random a, b, wts, x and w with 0 and r - 1 in each
+    vector, and the first round and final fold at the same n (exact, not
+    timed); then the inner product at 256. Each record: ms, the plain
+    version's and the chain's ms and K1 launches, the kernel's own time
+    (``device_ms``), K1IPA launches a call, the bound (bytes and products
+    of :func:`ipa_round_work`)."""
+    from verkle_kzg_tpu_torch.ops import cuda_ipa as KI
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.params import R
+
+    def vec(n):
+        vals = [rng.randrange(R) for _ in range(n)]
+        vals[rng.randrange(n)], vals[rng.randrange(n)] = 0, R - 1
+        return F.ints_to_mont(vals, "fr", dev)
+
+    def record(name, fn, plain_fn, args, shape, work):
+        before = dict(cuda_lib.launches)
+        out = fn(*args)
+        launched = cuda_lib.launches["K1IPA"] - before["K1IPA"]
+        plain_out, plain_ms = timed_once(lambda: plain_fn(*args))
+        before = cuda_lib.launches["K1"]
+        chain_out, _ = timed_once(lambda: _k1_chain(plain_fn, *args))
+        chain_launches = cuda_lib.launches["K1"] - before
+        pair = (out, plain_out, chain_out) if isinstance(out, tuple) else ((out,), (plain_out,), (chain_out,))
+        err = max(_words_err(pair[0], pair[1]), _words_err(pair[0], pair[2]))
+        assert err == 0 and launched == 1, (name, err, launched)
+        return {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: fn(*args), 50),
+            "device_ms": device_ms(lambda: fn(*args), 20),
+            "plain_ms": plain_ms,
+            "chain_ms": cuda_ms(lambda: _k1_chain(plain_fn, *args), 3),
+            "chain_k1_launches": chain_launches,
+            "launches_per_call": launched,
+            "library_ms": None,
+            "shape": shape,
+            "products": work[1],
+            **bound(*work),
+        }
+
+    rec = {}
+    for n, with_b in K1IPA_CASES:
+        a, b, wts = vec(n), (vec(n) if with_b else None), vec(n)
+        x, w = rng.randrange(R), rng.randrange(R)
+        half = ln = n // 2
+        name = "K1IPA" if (n, with_b) == (256, True) else f"K1IPA@{n}" + ("" if with_b else "-nob")
+        rec[name] = record(name, KI.halving_round, KI.plain_round, (a, b, wts, x, w, half, ln),
+                           f"n = {n}, fold at {half}, round of {ln}" + (", with b" if with_b else ", no b"),
+                           ipa_round_work(n, half, ln, with_b))
+        for stage in ((a, b, None, None, w, 0, n), (a, None, None, x, None, 1, 0)):  # first round, final fold
+            err = _words_err(KI.halving_round(*stage), KI.plain_round(*stage))
+            assert err == 0, (name, stage[-2:])
+        print("phase 2 k1ipa:", name, json.dumps(rec[name]), flush=True)
+    a, b = vec(256), vec(256)
+    rec["K1IPA@inner256"] = record("K1IPA@inner256", KI.inner, KI.plain_inner, (a, b), "<a, b> at n = 256",
+                                   (2 * 256 * 32 + 32, 256))
+    print("phase 2 k1ipa:", "K1IPA@inner256", json.dumps(rec["K1IPA@inner256"]), flush=True)
+    return rec
+
+
+def _k2_chain(fn, *args):
+    """``fn`` (K2FOLD's plain version) with each level a K2 launch: the
+    chain that K2FOLD replaced, the same-run yardstick."""
+    from verkle_kzg_tpu_torch.ops import cuda_curve
+
+    plain = cuda_curve.plain
+    cuda_curve.plain = cuda_curve.add
+    try:
+        return fn(*args)
+    finally:
+        cuda_curve.plain = plain
+
+
+K2FOLD_CASES = (  # record, rows, points a row
+    ("K2FOLD", 1, 51),  # msm_auto under 64 points: the verkle verify's 51 commitments
+    ("K2FOLD@1x63", 1, 63),  # msm_auto's widest
+    ("K2FOLD@20002x2", 20002, 2),  # the 10k-leaf tree's sparse commits: the c1/c2 vectors
+    ("K2FOLD@10001x4", 10001, 4),  # and the extensions' own vectors
+)
+
+
+def _kernels_k2fold(dev, pz, rng) -> dict:
+    """K2FOLD against its plain version and against the K2 chain it
+    replaced, exact, at K2FOLD_CASES: rows of the K2 sums ``pz`` (Z != 1,
+    the identity at slot 3; row 0 adds the identity to itself and, from
+    n = 4, a point to itself in its first level), and the one-row cases
+    against the host sum. Each record: ms, the plain version's and the
+    chain's ms and K2 launches, the kernel's own time (``device_ms``), the
+    bound (the bytes, and n - 1 adds a row)."""
+    import torch
+
+    from verkle_kzg_tpu_torch.hostmath import curve as hc
+    from verkle_kzg_tpu_torch.ops import cuda_curve, cuda_lib
+    from verkle_kzg_tpu_torch.ops import curve as C
+
+    rec = {}
+    for name, rows, n in K2FOLD_CASES:
+        idx = [rng.randrange(pz.shape[0]) for _ in range(rows * n)]
+        idx[0] = idx[n // 2] = 3  # identity + identity in the first level
+        if n >= 4:
+            idx[1 + n // 2] = idx[1]  # P + P
+        p = pz[torch.tensor(idx, device=dev)].reshape(rows, n, 3, 8).contiguous()
+        before = dict(cuda_lib.launches)
+        out = cuda_curve.fold(p)
+        launched = cuda_lib.launches["K2FOLD"] - before["K2FOLD"]
+        plain_out, plain_ms = timed_once(lambda: cuda_curve.plain_fold(p))
+        before = cuda_lib.launches["K2"]
+        chain_out, _ = timed_once(lambda: _k2_chain(cuda_curve.plain_fold, p))
+        chain_launches = cuda_lib.launches["K2"] - before
+        err = max(max_abs_err(out, plain_out), max_abs_err(out, chain_out))
+        assert err == 0 and launched == 1, (name, err, launched)
+        if rows == 1:
+            acc = None
+            for v in C.projective_to_host_points(p):
+                acc = hc.g1_add(acc, v)
+            assert C.projective_to_host_points(out) == [acc], name
+        rec[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: cuda_curve.fold(p), 50),
+            "device_ms": device_ms(lambda: cuda_curve.fold(p), 20),
+            "plain_ms": plain_ms,
+            "chain_ms": cuda_ms(lambda: _k2_chain(cuda_curve.plain_fold, p), 5),
+            "chain_k2_launches": chain_launches,
+            "launches_per_call": launched,
+            "library_ms": None,
+            "shape": f"{rows} x {n} points",
+            **bound((p.numel() + out.numel()) * 4, rows * (n - 1) * ADD_FMULS),
+        }
+        print("phase 2 k2fold:", name, json.dumps(rec[name]), flush=True)
     return rec
 
 
@@ -1025,9 +1210,11 @@ def phase_ipa(dev, crs, small: int = 32):
     assert counts["commit"]["K3"] == 1 and counts["commit"]["K4"] == 1
     assert counts["prove"]["K3"] == 16 and counts["prove"]["K4"] == 16
     assert counts["verify"]["K3"] == 1 and counts["verify"]["K4"] == 1
+    # the prove's vector math is K1IPA: <a, b>, 8 rounds and the last fold
+    assert counts["prove"]["K1IPA"] == 10 and counts["prove"]["K1"] == 0, counts["prove"]
     # (K2 is not among them: its launches here were the folds of K3's point
-    # segments, which the sorted K3 has no more)
-    assert min(main_path_launches[k] for k in ("K1", "K3", "K4")) > 0, main_path_launches
+    # segments, which the sorted K3 has no more; K1 is the commit's from_mont)
+    assert min(main_path_launches[k] for k in ("K1", "K1IPA", "K3", "K4")) > 0, main_path_launches
 
     # the same proof from the plain path on this machine's CPU, at domain
     # `small` (the setup ipa_setup(small) makes: the first small + 1 of the
@@ -1525,7 +1712,9 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     assert not tree.verify_keys(prove_keys, bad, proof), "a wrong claimed value was accepted"
     assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
     assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
-    assert min(path_launches[f"K{i}"] for i in range(1, 8)) > 0, path_launches
+    # K2FOLD sums the sparse commits and the verify's 51 commitments, so no K2
+    assert min(path_launches[k] for k in ("K1", "K1IPA", "K2FOLD", "K3", "K4", "K5", "K6", "K7")) > 0, path_launches
+    assert path_launches["K2"] == 0, path_launches
     assert counts["prove"]["K1INV"] > 0 and regimes["many"] > 0 and regimes["few"] > 0, (counts["prove"], regimes)
 
     # sampled commitments against the native C++ Pippenger
@@ -1611,7 +1800,8 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     bad = [q.to_verifier_query() for q in queries]
     bad[m // 2].y = (bad[m // 2].y + 1) % R
     assert not verify_multiproof(IPA, crs, bad, proof), "a wrong y was accepted"
-    assert min(path_launches[k] for k in ("K1", "K1INV", "K3", "K4", "K5")) > 0, path_launches  # K2: see phase 3
+    assert min(path_launches[k] for k in ("K1", "K1INV", "K1IPA", "K3", "K4", "K5")) > 0, path_launches
+    assert path_launches["K2"] == 0, path_launches  # E's one lane is no fold
     assert counts["verify"]["K5"] == regimes["few"] == 1, (counts["verify"], regimes)  # E's one lane
     return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
             "k5_regime_launches": regimes, "k5_lanes": k5_lanes}
@@ -1777,8 +1967,8 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
 
 
 def k1_counts(phase: dict) -> dict:
-    """K1's and K1INV's launches in each stage of a phase's record."""
-    return {stage: {k: c[k] for k in ("K1", "K1INV")} for stage, c in phase["launches_per_stage"].items()}
+    """K1's, K1INV's and K1IPA's launches in each stage of a phase's record."""
+    return {stage: {k: c[k] for k in ("K1", "K1INV", "K1IPA")} for stage, c in phase["launches_per_stage"].items()}
 
 
 def main() -> int:
@@ -1826,14 +2016,14 @@ def main() -> int:
     verkle = phase_verkle(dev, crs)
     print(f"phase 5 verkle, 10k leaves, Ethereum geometry ({time.perf_counter() - t0:.1f} s):", json.dumps(verkle),
           f"[{card}]", flush=True)
-    print("phase 5 K1 and K1INV launches per stage:", json.dumps(k1_counts(verkle)), flush=True)
+    print("phase 5 K1, K1INV and K1IPA launches per stage:", json.dumps(k1_counts(verkle)), flush=True)
     print("phase 5 K5 lanes of each call per stage:", json.dumps(verkle["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
     mp = phase_multiproof(dev, crs, ipa_data)
     print(f"phase 6 multiproof, 1024 queries at 256 ({time.perf_counter() - t0:.1f} s):", json.dumps(mp),
           f"[{card}]", flush=True)
-    print("phase 6 K1 and K1INV launches per stage:", json.dumps(k1_counts(mp)), flush=True)
+    print("phase 6 K1, K1INV and K1IPA launches per stage:", json.dumps(k1_counts(mp)), flush=True)
     print("phase 6 K5 lanes of each call per stage:", json.dumps(mp["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
@@ -1845,7 +2035,7 @@ def main() -> int:
     kzg = phase_kzg(dev, card)
     print(f"phase 8 kzg@256, fk, kzg multiproof ({time.perf_counter() - t0:.1f} s):", json.dumps(kzg),
           f"[{card}]", flush=True)
-    print("phase 8 K1 and K1INV launches per stage:", json.dumps(k1_counts(kzg)),
+    print("phase 8 K1, K1INV and K1IPA launches per stage:", json.dumps(k1_counts(kzg)),
           "path:", json.dumps({k: kzg["path_launches"][k] for k in ("K1", "K1INV")}), flush=True)
 
     t0 = time.perf_counter()
@@ -1854,7 +2044,8 @@ def main() -> int:
           json.dumps(group["path_launches"]), "entry points' launches", json.dumps(group["entry_point_launches"]),
           f"[{card}]", flush=True)
 
-    sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K2": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
+    sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K1IPA": "ipa_round.cu", "K2": "curve.cu",
+               "K2FOLD": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
                "K5": "scalar_mul.cu", "K6": "msm_sorted.cu", "K7": "msm_tail.cuh",
                "K8": "msm_sorted.cu", "K9": "msm_sorted.cu", "K10": "msm_sorted.cu",
                "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_sorted.cu",
@@ -1863,7 +2054,11 @@ def main() -> int:
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         # the K1 chain of verkle_kzg_tpu/ops/field.py:327's scan and :342's batch inversion
         "K1INV": "verkle_kzg_tpu/ops/pallas_field.py:298",
+        # the K1 chain of verkle_kzg_tpu/schemes/ipa.py:214's round_body
+        "K1IPA": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
+        # the K2 chain of verkle_kzg_tpu/ops/msm.py:67's fold_reduce_lanes
+        "K2FOLD": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         "K3": "verkle_kzg_tpu/ops/pallas_msm.py:700",
         "K4": "verkle_kzg_tpu/ops/pallas_msm.py:1041",
         "K5": "verkle_kzg_tpu/ops/pallas_curve.py:432",
@@ -1879,16 +2074,18 @@ def main() -> int:
         "G1SMUL": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         "G1BFLY": "verkle_kzg_tpu/ops/pallas_curve.py:328",
     }
-    # launches: K1-K7 and K1INV from the verkle path of phase 5 (commit,
-    # prove, verify), which runs all eight; K8-K10 from the sweep of phase 7;
-    # G1SMUL and G1BFLY from the KZG path of phase 8; K11 and K12 from
-    # phase 2, since no path calls the standalone double (the scalar
-    # multiplication it served is G1SMUL's) or mixed add; K13 from the
-    # tune_group grid of phase 9.
+    # launches: K1, K1INV, K1IPA, K2FOLD and K3-K7 from the verkle path of
+    # phase 5 (commit, prove, verify), which runs all of them; K8-K10 from the
+    # sweep of phase 7; G1SMUL and G1BFLY from the KZG path of phase 8; K2,
+    # K11 and K12 from phase 2, since no path calls the standalone add (its
+    # folds are K2FOLD's), double (the scalar multiplication it served is
+    # G1SMUL's) or mixed add; K13 from the tune_group grid of phase 9.
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
-        **dict.fromkeys(("K1", "K1INV", "K2", "K3", "K4", "K5", "K6", "K7"), ("phase 5", verkle["path_launches"])),
+        **dict.fromkeys(("K1", "K1INV", "K1IPA", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
+                        ("phase 5", verkle["path_launches"])),
+        "K2": ("phase 2 only: no path calls curve.add since K2FOLD", phase2_launches),
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
         "K11": ("phase 2 only: no path calls curve.double since G1SMUL", phase2_launches),
         "K12": ("phase 2 only: no path of either package calls it", phase2_launches),
@@ -1899,7 +2096,8 @@ def main() -> int:
                  **{k: sweep["path_cuda_launches"][k] for k in ("K8", "K9", "K10")},
                  "K13": group["path_cuda_launches"]["K13"]}
     chains = {"G1SMUL": "verkle_kzg_tpu/ops/curve.py:239", "G1BFLY": "verkle_kzg_tpu/ops/curve.py:239",
-              "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342"}
+              "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342",
+              "K1IPA": "verkle_kzg_tpu/schemes/ipa.py:214", "K2FOLD": "verkle_kzg_tpu/ops/msm.py:67"}
     kernels = []
     for k in sources:
         first = kern[k] if k in kern else kern[min(r for r in kern if r.startswith(k + "@"))]

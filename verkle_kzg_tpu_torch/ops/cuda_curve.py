@@ -1,12 +1,11 @@
-"""Kernels K2, K11 and K12: element-wise complete projective group law.
+"""Kernels K2, K11 and K12: element-wise complete projective group law; K2FOLD.
 
 Replaces ``verkle_kzg_tpu/ops/pallas_curve.py``: the launch ``_point_call``
 (line 328) behind ``add`` (K2, body ``k_point_add``), ``double`` (K11,
 line 350, body ``k_point_double``) and ``mixed_add`` (K12, line 358, body
-``k_point_mixed_add``), all in the reduced domain. On the single-MSM path K2
-folds the per-segment partial bucket tables of K3
-(``ops/msm.py::fold_reduce_lanes``), as ``pallas_curve.add`` folds the lanes
-in ``pallas_msm._single_tail``. K11 runs ``curve.double``. Their device
+``k_point_mixed_add``), all in the reduced domain. K2 runs ``curve.add``;
+no path of the port calls it since K2FOLD took its last callers. K11 runs
+``curve.double``. Their device
 functions are also every bit of ``curve.scalar_mul`` and of the G1 NTT's
 butterflies, which run as one launch a call (G1SMUL, G1BFLY in
 ``cuda_g1_chain.py``), no longer as a K11 and a K2 launch a bit. K12 has no
@@ -25,6 +24,21 @@ prints their registers and spills. Each runs the same sequence of field
 operations as its Pallas body, so kernel, plain version and the JAX package
 agree bit for bit. K12's (0, 0) sentinel lanes keep p, as the Pallas
 kernel's final select does.
+
+Kernel K2FOLD (:func:`fold`): ``ops/msm.py::fold_reduce_lanes``, the sum of
+each row of points by a halving tree, which ran as one K2 launch a level
+(``plain_fold``; the JAX package's ``verkle_kzg_tpu/ops/msm.py:67``
+``fold_reduce_lanes`` on ``pallas_curve.add``): the K5 products of the MSMs
+under 64 points (``msm_auto``, ``_batched_naive_affine``) and of the sparse
+verkle commits (``verkle/tree.py``, 8 terms a node). Six launches of 25-34 us
+for the 51 points of a verkle verify, three for the sparse commits. What
+bounds it is the tree's dependent point adds (one a level, about 6 us on
+one thread), not bytes. The design is one launch for the whole tree:
+``group`` threads share a row (a power of two up to 32, enough for the
+first level's pairs), a block of 128 threads holds 128 / group rows, and
+the levels step together on ``__syncthreads()``, in place in a scratch
+buffer after the first. Pairs and the odd tail point take the plain
+version's slots, so the projective words are its words.
 """
 
 from __future__ import annotations
@@ -51,6 +65,38 @@ def plain_double(p: torch.Tensor) -> torch.Tensor:
 def plain_mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
     """K12's plain version: (..., 3, 8) projective + (..., 2, 8) affine."""
     return F.from_limbs(C.mixed_add16(F.to_limbs(p), F.to_limbs(q_aff)))
+
+
+def plain_fold(p: torch.Tensor) -> torch.Tensor:
+    """K2FOLD's plain version: (rows, n, 3, 8) -> (rows, 1, 3, 8) by halving,
+    pair (i, i + half) into slot i and the odd point carried to the end of
+    the level, each level one K2 plain version."""
+    while p.shape[1] > 1:
+        n = p.shape[1]
+        half = n // 2
+        folded = plain(p[:, :half], p[:, half : 2 * half])
+        p = torch.cat([folded, p[:, 2 * half :]], dim=1) if n % 2 else folded
+    return p
+
+
+def fold(p: torch.Tensor) -> torch.Tensor:
+    """Kernel K2FOLD: the sum of each row of (rows, n, 3, 8) projective
+    points -> (rows, 1, 3, 8), in one launch (none when n is 1)."""
+    if p.device.type == "cpu":
+        return plain_fold(p)
+    if p.dim() != 4 or p.shape[2:] != (3, F.WORDS):
+        raise ValueError(f"curve.fold: points must be (rows, n, 3, 8), got {tuple(p.shape)}")
+    rows, n = p.shape[:2]
+    p = p.contiguous()
+    cuda_lib.require_cuda("curve.fold", p)
+    if n == 1:
+        return p
+    work = torch.empty((rows, (n + 1) // 2, 3, F.WORDS), dtype=p.dtype, device=p.device)
+    if rows:
+        err = cuda_lib.lib().vkzg_point_fold(p.data_ptr(), work.data_ptr(), rows, n, cuda_lib.stream(p))
+        cuda_lib.check(err, "vkzg_point_fold")
+        cuda_lib.launches["K2FOLD"] += 1
+    return work[:, :1]
 
 
 def _launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor) -> torch.Tensor:

@@ -9,10 +9,11 @@ in ``csrc/bn254_field.cuh`` too, which every other kernel includes.
 On the card: one element per thread, eight 32-bit words. The Montgomery
 product is CIOS with 32x32->64-bit products, about 140 integer
 multiply-adds per element, so K1 is bound by integer throughput when
-its batch is large and by launch latency at the IPA's widths (256
-elements). The TPU needed 16-bit limbs because it has no widening multiply;
-Hopper has one, so the design halves the limb count and keeps each
-element in registers from load to store.
+its batch is large and by launch latency at the paths' vector widths
+(256 elements; the IPA prove's rounds are K1IPA, ``cuda_ipa.py``). The
+TPU needed 16-bit limbs because it has no widening multiply; Hopper has
+one, so the design halves the limb count and keeps each element in
+registers from load to store.
 
 The plain version below is what the wrapper runs for CPU tensors; for a
 CUDA tensor the wrapper launches the kernel or raises.

@@ -1,5 +1,5 @@
-"""Build and load the port's CUDA kernels (K1-K13, K1INV, G1SMUL, G1BFLY) and count
-their launches.
+"""Build and load the port's CUDA kernels (K1-K13, K1INV, K1IPA, K2FOLD, G1SMUL,
+G1BFLY) and count their launches.
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and the objects are
@@ -39,8 +39,10 @@ BUILD = _PKG / "_build"
 #: three or four above (``cuda_msm.tail_launches``).
 #: G1SMUL and G1BFLY fuse the K11 + K2 chain of ``curve.scalar_mul``
 #: (``cuda_g1_chain.py``), K1INV the K1 chain of a batched inversion
-#: (``cuda_field.py``).
-launches = {**{f"K{i}": 0 for i in range(1, 14)}, "K1INV": 0, "G1SMUL": 0, "G1BFLY": 0}
+#: (``cuda_field.py``), K1IPA the K1 chain of an IPA halving round
+#: (``cuda_ipa.py``), K2FOLD the K2 chain of a point fold (``cuda_curve.py``).
+launches = {**{f"K{i}": 0 for i in range(1, 14)}, "K1INV": 0, "K1IPA": 0, "K2FOLD": 0, "G1SMUL": 0,
+            "G1BFLY": 0}
 
 #: CUDA launches since the last :func:`reset_launches` of the kernels whose
 #: one count above stands for several: the sorted accumulation's, whose C
@@ -57,6 +59,9 @@ _SIGNATURES = {
     "vkzg_point_add": [_P, _P, _P, _I, _P],
     "vkzg_point_double": [_P, _P, _I, _P],
     "vkzg_point_mixed_add": [_P, _P, _P, _I, _P],
+    "vkzg_point_fold": [_P, _P, _I, _I, _P],
+    "vkzg_ipa_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vkzg_ipa_inner": [_P, _P, _P, _I, _P],
     "vkzg_msm_sorted_plan": [_I, _I, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              _P],
     "vkzg_msm_sorted": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -18,9 +18,9 @@ digit sign (default c = 8, signed), in two steps:
   2. K4 (``cuda_msm.tail``): the weighted bucket sums and Horner.
 
 Below 64 points ``msm_auto`` multiplies each point by its scalar with K5
-(``curve.scalar_mul_affine``) and folds the products with K2, as the JAX
-package does on the chip: the bucket machinery costs W x 2^(c-1) rows
-whatever N is.
+(``curve.scalar_mul_affine``) and sums the products with K2FOLD, the JAX
+package's K2 halving tree in one launch: the bucket machinery costs
+W x 2^(c-1) rows whatever N is.
 
 A batch of B independent MSMs (``msm_fixed_base``: one basis for every
 lane, the dense verkle node commits; ``msm_batched``: points per lane)
@@ -28,7 +28,7 @@ takes LSB-carry signed digits (:func:`window_digits_signed`) with c from
 :func:`_auto_c_batched` or as given, in [1, 16], the same digit-tensor
 accumulation with the batch's lanes as its lanes (a shared basis read by
 every lane through a lane stride of 0), and K7 (``cuda_msm_batched.tail``);
-below 64 points per lane, K5 and a K2 fold. Only the group element is
+below 64 points per lane, K5 and a K2FOLD fold. Only the group element is
 contract; the JAX package's own paths return other projective
 representatives.
 """
@@ -40,6 +40,7 @@ import math
 import torch
 
 from ..utils import metrics
+from . import cuda_curve as KC
 from . import cuda_msm as K
 from . import cuda_msm_batched as KB
 from . import cuda_msm_sorted as KS
@@ -117,16 +118,17 @@ def _auto_c(n: int, c: int | None) -> int:
 
 
 def fold_reduce_lanes(p: torch.Tensor, dim: int = -3) -> torch.Tensor:
-    """Tree-reduce points over ``dim`` (size -> 1) by halving, with K2."""
+    """Tree-reduce points (..., 3, 8) over ``dim`` (size -> 1) by halving,
+    the odd point carried to the end of each level: one K2FOLD launch over
+    every row (``cuda_curve.fold``)."""
     dim = dim % p.dim()
-    while p.shape[dim] > 1:
-        n = p.shape[dim]
-        half = n // 2
-        folded = C.add(p.narrow(dim, 0, half), p.narrow(dim, half, half))
-        if n % 2:
-            folded = torch.cat([folded, p.narrow(dim, 2 * half, 1)], dim=dim)
-        p = folded
-    return p
+    n = p.shape[dim]
+    if n == 1:
+        return p
+    rows = p.movedim(dim, -3)
+    lead = rows.shape[:-3]
+    out = KC.fold(rows.reshape((math.prod(lead), n, 3, F.WORDS)))
+    return out.reshape(lead + (1, 3, F.WORDS)).movedim(-3, dim)
 
 
 def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None,
@@ -152,7 +154,7 @@ def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | N
 
 def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None, lanes: int = 128):
     """Single MSM entry point (``ops/msm.py::msm_auto``): double-and-add
-    (K5) and a K2 fold below 64 points, whatever c is; Pippenger from 64 on
+    (K5) and a K2FOLD fold below 64 points, whatever c is; Pippenger from 64 on
     (:func:`msm_pippenger`, signed digits). ``lanes`` has no effect."""
     metrics.record("msm.single.calls")
     metrics.record("msm.single.points", points_affine.shape[0])
@@ -175,7 +177,7 @@ def _auto_c_batched(n: int, c: int | None = None) -> int:
 
 def _batched_naive_affine(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """(B, N, 2, 8) affine x (B, N, 8) standard scalars -> (B, 3, 8): the
-    B * N scalar multiplications in ONE K5 launch, then a K2 fold over N
+    B * N scalar multiplications in ONE K5 launch, then one K2FOLD over N
     (``ops/msm.py::_batched_naive_affine``)."""
     b, n = scalars.shape[:2]
     prods = C.scalar_mul_affine(

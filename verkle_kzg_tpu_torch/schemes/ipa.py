@@ -2,9 +2,10 @@
 (``verkle_kzg_tpu/schemes/ipa.py``), on PyTorch tensors.
 
 The data vector, the barycentric b vector and the CRS live on one device;
-every group operation is a single Pippenger MSM (``ops/msm.py``) and every
-vector step runs through kernel K1. Proofs, transcript bytes and
-commitments are bit-identical to the JAX package's.
+every group operation is a single Pippenger MSM (``ops/msm.py``), and the
+prove's vector math is kernel K1IPA (``ops/cuda_ipa.py``): one launch for
+<a, b>, one a halving round, one for the last fold. Proofs, transcript
+bytes and commitments are bit-identical to the JAX package's.
 
 Prove is a loop sequenced on the host, in coefficient space. Each halving
 round keeps the JAX fused loop's math (``_fused_ipa_loop``): per ORIGINAL
@@ -31,12 +32,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
 from ..fiatshamir.transcript import Transcript
 from ..params import R
 
+from ..ops import cuda_ipa as KI
 from ..ops import cuda_lib
 from ..ops import curve as C
 from ..ops import field as F
@@ -125,14 +126,13 @@ class IPA:
         t = transcript if transcript is not None else Transcript(IPA.transcript_label)
         t.append_point(commitment, "C")
         t.append_scalar(point % R, "input point")
-        y = F.mont_to_ints(F.sum_lanes(F.mont_mul(a, b, "fr"), "fr"), "fr")[0]
+        y = F.mont_to_ints(KI.inner(a, b), "fr")[0]
         t.append_scalar(y, "output point")
         w = t.digest("w", True)
         if n == 1:
             return IPAProof(l=[], r=[], tip=F.mont_to_ints(a, "fr")[0], y=y)
         basis = torch.cat([params.g_affine[:n], params.q_affine])
-        w_mont = F.ints_to_mont([w], "fr", a.device)
-        l_pts, r_pts, tip = _halving_loop(basis, a, b, w_mont, t)
+        l_pts, r_pts, tip = _halving_loop(basis, a, b, w, t)
         return IPAProof(l=l_pts, r=r_pts, tip=tip, y=y)
 
     @staticmethod
@@ -206,69 +206,29 @@ class IPA:
         return _msm_is_zero(params, len(coeffs), extra, sc)
 
 
-@functools.lru_cache(maxsize=None)
-def _round_planes(n: int, device: torch.device) -> list:
-    """Per-round masks and gathers over ORIGINAL indices i (``ipa.py:184-212``):
-    right: (i mod len) is in the current right half; left: slot i is live
-    after the fold; idx_l / idx_r: the gamma gathers a[(i mod len) -/+ half];
-    idx_f: the fold shift a[i + half] for live slots."""
-    i = np.arange(n)
-    planes, ln = [], n
-    while ln > 1:
-        half = ln // 2
-        pos = i % ln
-        right = pos >= half
-        left = i < half
-        planes.append(
-            tuple(
-                torch.as_tensor(v, device=device)
-                for v in (
-                    right[:, None],
-                    left[:, None],
-                    np.where(right, pos - half, 0),
-                    np.where(right, 0, pos + half),
-                    np.where(left, i + half, 0),
-                )
-            )
-        )
-        ln = half
-    return planes
-
-
-def _halving_loop(basis, a, b, w_mont, t: Transcript):
+def _halving_loop(basis, a, b, w, t: Transcript):
     """The halving rounds over the fixed ``basis`` (g, plus q as its last
-    point when ``b`` is given), challenges drawn from ``t``. Returns the
-    L and R points and the tip."""
+    point when ``b`` is given, with ``w`` the inner-product challenge),
+    challenges drawn from ``t``. Each round is one K1IPA launch, which folds
+    the previous challenge into a, b and the weights and builds the two
+    MSMs' scalars (``cuda_ipa.halving_round``); one more launch folds the
+    last challenge. Returns the L and R points and the tip."""
     n = a.shape[0]
     assert n & (n - 1) == 0, "the halving loop needs a power-of-two length"
-    wts = F.ints_to_mont([1], "fr", a.device).expand_as(a)
-    zeros = torch.zeros_like(a)
-    mul = functools.partial(F.mont_mul, spec="fr")
-    add = functools.partial(F.add, spec="fr")
+    wts, x, half, ln = None, None, 0, n
     l_pts, r_pts = [], []
-    for right, left, idx_l, idx_r, idx_f in _round_planes(n, a.device):
-        sc_l = torch.where(right, mul(wts, a[idx_l]), zeros)
-        sc_r = torch.where(right, zeros, mul(wts, a[idx_r]))
-        if b is not None:
-            ip_l = F.sum_lanes(torch.where(left, mul(a, b[idx_f]), zeros), "fr")
-            ip_r = F.sum_lanes(torch.where(left, mul(a[idx_f], b), zeros), "fr")
-            sc_l = torch.cat([sc_l, mul(w_mont, ip_l)])
-            sc_r = torch.cat([sc_r, mul(w_mont, ip_r)])
-        y_l = M.msm_auto(basis, F.from_mont(sc_l, "fr"))
-        y_r = M.msm_auto(basis, F.from_mont(sc_r, "fr"))
+    while ln > 1:
+        a, b, wts, sc = KI.halving_round(a, b, wts, x, w, half, ln)
+        y_l = M.msm_auto(basis, sc[0])
+        y_r = M.msm_auto(basis, sc[1])
         p_l, p_r = C.projective_to_host_points(torch.stack([y_l, y_r]))
         l_pts.append(p_l)
         r_pts.append(p_r)
         t.append_point(p_l, "L")
         t.append_point(p_r, "R")
-        x = F.ints_to_mont([t.digest("x", True)], "fr", a.device).expand_as(a)
-        # live slots j < half fold; dead slots keep stale values that no
-        # later round reads. g <- g_r + x g_l: left-half weights take x.
-        new_a = torch.where(left, add(a, mul(a[idx_f], x)), a)
-        if b is not None:
-            b = torch.where(left, add(b[idx_f], mul(b, x)), b)
-        wts = torch.where(right, wts, mul(wts, x))
-        a = new_a
+        x = t.digest("x", True)
+        half = ln = ln // 2
+    a = KI.halving_round(a, None, None, x, None, half, 0)[0]
     return l_pts, r_pts, F.mont_to_ints(a[:1], "fr")[0]
 
 

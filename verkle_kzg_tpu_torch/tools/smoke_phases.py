@@ -1,6 +1,8 @@
-"""Run phases 2, 4, 7 and 9 of the ``chip_smoke.py`` of a checkout on the
-card: the kernels against their plain versions, the 2^20 MSM with its
-stages, the config-5 MSM sweep and the lane-stream grid. It times a parent
+"""Run phases of the ``chip_smoke.py`` of a checkout on the card: by
+default 2, 4, 7 and 9 (the kernels against their plain versions, the 2^20
+MSM with its stages, the config-5 MSM sweep and the lane-stream grid); a
+third argument lists others, e.g. ``3,5,6`` (the IPA at 256, the verkle
+tree, the multiproof; 6 runs 3 first for its data). It times a parent
 commit beside a change on one card in one call:
 
     mkdir -p _archive/parent && git archive <parent> | tar -x -C _archive/parent
@@ -23,6 +25,7 @@ import time
 def main() -> int:
     root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else ".")
     tag = sys.argv[2] if len(sys.argv) > 2 else os.path.basename(root)
+    phases = set((sys.argv[3] if len(sys.argv) > 3 else "2,4,7,9").split(","))
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -40,21 +43,28 @@ def main() -> int:
     cuda_lib.lib()
     print(tag, f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     crs = ipa_setup(256, device=dev)
-    t0 = time.perf_counter()
-    cuda_lib.reset_launches()
-    kern = S.phase_kernels(dev, crs)
-    print(tag, f"phase 2 ({time.perf_counter() - t0:.1f} s):", json.dumps(kern), f"[{card}]", flush=True)
-    t0 = time.perf_counter()
-    msm = S.phase_msm(dev)
-    print(tag, f"phase 4 ({time.perf_counter() - t0:.1f} s):", json.dumps(msm), f"[{card}]", flush=True)
-    t0 = time.perf_counter()
-    sweep = S.phase_sweep(dev, card)
-    print(tag, f"phase 7 ({time.perf_counter() - t0:.1f} s): launches", json.dumps(sweep["path_launches"]),
-          f"[{card}]", flush=True)
-    t0 = time.perf_counter()
-    group = S.phase_group(dev, card)
-    print(tag, f"phase 9 ({time.perf_counter() - t0:.1f} s): launches", json.dumps(group["path_launches"]),
-          f"[{card}]", flush=True)
+
+    def run(phase, fn, show=json.dumps):
+        if phase not in phases:
+            return None
+        t0 = time.perf_counter()
+        cuda_lib.reset_launches()
+        out = fn()
+        print(tag, f"phase {phase} ({time.perf_counter() - t0:.1f} s):", show(out), f"[{card}]", flush=True)
+        return out
+
+    def launches(out):
+        return "launches " + json.dumps(out["path_launches"])
+
+    run("2", lambda: S.phase_kernels(dev, crs))
+    ipa = run("3", lambda: S.phase_ipa(dev, crs), lambda out: json.dumps(out[0]))
+    run("4", lambda: S.phase_msm(dev))
+    run("5", lambda: S.phase_verkle(dev, crs))
+    if "6" in phases:
+        ipa_data = (ipa or S.phase_ipa(dev, crs))[1]
+        run("6", lambda: S.phase_multiproof(dev, crs, ipa_data))
+    run("7", lambda: S.phase_sweep(dev, card), launches)
+    run("9", lambda: S.phase_group(dev, card), launches)
     return 0
 
 

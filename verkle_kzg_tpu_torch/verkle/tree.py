@@ -12,10 +12,10 @@ is routed on its own:
   * at most ``SPARSE_NNZ_MAX`` nonzero slots (a 1-leaf extension's c1/c2
     vectors have 2 of 256): gather the few live basis points and multiply
     each by its scalar in ONE K5 launch (``curve.scalar_mul_affine``), then
-    fold each node's T terms with K2;
+    sum each node's T terms with one K2FOLD launch;
   * denser vectors: one lane-batched fixed-basis MSM per ``COMMIT_CHUNK``
-    nodes (``msm.msm_fixed_base``: K6, the K2 fold, K7; K5 and a K2 fold
-    below 64 points).
+    nodes (``msm.msm_fixed_base``: K6, K7; K5 and a K2FOLD fold below 64
+    points).
 
 PyTorch keeps no trace cache, so no batch is padded to a fixed shape.
 
@@ -284,7 +284,7 @@ class VerkleTree:
 
     def _sparse_commit(self, sparse_vecs, nnz, maxnnz, width):
         """Commit sparse vectors as T scalar-muls per node in one K5 launch,
-        then a log-depth K2 fold of each node's T terms: device work scales
+        then one K2FOLD launch summing each node's T terms: device work scales
         with the NONZERO count, not the vector width. T is maxnnz rounded up
         to a power of two; pad slots use basis index 0 with a zero scalar,
         whose lane takes no bit and so yields the identity."""
