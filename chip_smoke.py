@@ -66,9 +66,16 @@ and no JAX. Phases, each of which raises on failure:
      accumulation, and K4), against the c = 8 msm_pippenger (K3), each run
      exact, with K13 alone and its stages; then every other entry point
      of msm_stream once at 2^12 points against the native oracle, with
-     their launches (K3, K4, K6, K7, K8 and K10 among them).
+     their launches (K3, K4, K6, K7, K8 and K10 among them);
+ 10. the parallel package (verkle_kzg_tpu_torch.parallel) at world size 1
+     over NCCL, with a file store in a temporary directory: msm_sharded on
+     phase 4's points, the batch-sharded MSMs at the dense commit's shape
+     (width 256, 40 lanes), the Fr and G1 four-step NTTs and their inverses
+     at 256 and 512, FK at 256, phase 5's tree and phase 6's multiproof,
+     each with mesh=, against its unsharded twin and the earlier phase's
+     result, and timed beside its twin (what the mesh costs at d = 1).
 
-Each of phases 2, 3, 5, 6 and 8, and each run of phases 7 and 9, sets the
+Each of phases 2, 3, 5, 6, 8 and 10, and each run of phases 7 and 9, sets the
 launch counts to 0 just before its path and reads them just after; phases
 5, 6 and 8 print K1's, K1INV's and K1IPA's launches stage by stage, phases
 5 and 6 assert that no K2 ran (K2FOLD sums the folds), and phases 5
@@ -81,6 +88,7 @@ per-kernel JSON record.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import pathlib
@@ -1622,6 +1630,27 @@ def _verkle_keys(n: int) -> list:
     return [(i // 256, i % 256, (i * 7) % 256) + tail for i in range(n)]
 
 
+def _verkle_inputs(leaves: int) -> tuple:
+    """Phase 5's keys, their values, and the stem of an extension holding
+    only unit 7 (absence mode L)."""
+    keys = _verkle_keys(leaves)
+    rng = random.Random(10_000)
+    values = {k: rng.randrange(1 << 256) for k in keys}
+    return keys, values, (100, 0, 0) + keys[0][3:]
+
+
+def _verkle_build(crs, keys, values, absent_l, mesh=None):
+    """Phase 5's tree, not yet committed (its node commits sharded over ``mesh``)."""
+    from verkle_kzg_tpu_torch.schemes import IPA
+    from verkle_kzg_tpu_torch.verkle import VerkleTree
+
+    tree = VerkleTree(IPA, crs, key_len=32, ext_width=256, mesh=mesh)
+    for k in keys:
+        tree.insert_single(k, values[k])
+    tree._insert(tree.root, absent_l, [(7, 77)], 0)  # the multi-value insert surface
+    return tree
+
+
 def _all_commits(tree) -> list:
     out = []
 
@@ -1673,20 +1702,13 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     from verkle_kzg_tpu_torch.schemes import IPA, IPAParams
     from verkle_kzg_tpu_torch.verkle import VerkleTree
 
-    keys = _verkle_keys(leaves)
-    rng = random.Random(10_000)
-    values = {k: rng.randrange(1 << 256) for k in keys}
+    keys, values, absent_l = _verkle_inputs(leaves)
     tail = keys[0][3:]
     absent_e = (200, 0, 0) + tail  # no root child 200: mode E
     absent_o = (0, 0, 1) + tail  # reaches (0, 0, 0)'s extension: mode O
-    absent_l = (100, 0, 0) + tail  # an extension of this stem holding only unit 7: mode L
 
     def build():
-        tree = VerkleTree(IPA, crs, key_len=32, ext_width=256)
-        for k in keys:
-            tree.insert_single(k, values[k])
-        tree._insert(tree.root, absent_l, [(7, 77)], 0)  # the multi-value insert surface
-        return tree
+        return _verkle_build(crs, keys, values, absent_l)
 
     t0 = time.perf_counter()
     tree = build()
@@ -1769,7 +1791,21 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
         "profiled_commit": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms, "kernel_ms_by_name": top},
         "small_leaves": small_leaves,
         "cpu_plain_commit_small_s": cpu_small_s,
+        "root": root,
     }
+
+
+def _multiproof_queries(crs, ipa_data, m: int) -> list:
+    """Phase 6's ``m`` queries at seeded domain points of phase 3's vector."""
+    from verkle_kzg_tpu_torch.schemes import ProverQuery
+
+    vals, data, commit = ipa_data
+    rng = random.Random(1024)
+    queries = []
+    for _ in range(m):
+        z = rng.randrange(crs.domain.size)
+        queries.append(ProverQuery(data=data, commit=commit, z=z, y=vals[z]))
+    return queries
 
 
 def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
@@ -1778,14 +1814,9 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
     from verkle_kzg_tpu_torch.params import R
-    from verkle_kzg_tpu_torch.schemes import IPA, ProverQuery, prove_multiproof, verify_multiproof
+    from verkle_kzg_tpu_torch.schemes import IPA, prove_multiproof, verify_multiproof
 
-    vals, data, commit = ipa_data
-    rng = random.Random(1024)
-    queries = []
-    for _ in range(m):
-        z = rng.randrange(crs.domain.size)
-        queries.append(ProverQuery(data=data, commit=commit, z=z, y=vals[z]))
+    queries = _multiproof_queries(crs, ipa_data, m)
     vq = [q.to_verifier_query() for q in queries]
     prove_multiproof(IPA, crs, queries)  # warm-up
 
@@ -1804,7 +1835,7 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     assert path_launches["K2"] == 0, path_launches  # E's one lane is no fold
     assert counts["verify"]["K5"] == regimes["few"] == 1, (counts["verify"], regimes)  # E's one lane
     return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
-            "k5_regime_launches": regimes, "k5_lanes": k5_lanes}
+            "k5_regime_launches": regimes, "k5_lanes": k5_lanes, "d": proof.d}
 
 
 def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, m: int = 1024) -> dict:
@@ -1870,6 +1901,7 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
     singles = _stage("prove_all_singles", lambda: [KZG.prove(params, fk_commit, i, fk_data) for i in range(n)],
                      ms, counts)
     assert [(p.proof, p.y) for p in proofs] == [(p.proof, p.y) for p in singles], "FK != single proofs"
+    fk_digest = proofs_digest(proofs)
     assert KZG.verify(params, fk_commit, 0, proofs[0]) and KZG.verify(params, fk_commit, fk_len + 1, proofs[fk_len + 1])
 
     # FK at domain `small` on the card (held against the CPU path below)
@@ -1962,8 +1994,188 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
         "path_launches": path_launches,
         "launches_per": {name: {k: v for k, v in c.items() if v} for name, c in per.items()},
         "ntt_g1_events": {"stage_ms": stage_ms, "wall_ms": ntt_wall_ms, "busy_share": sum(stage_ms) / ntt_wall_ms},
-        "cpu_plain_fk_small_s": cpu_fk_s, "small": small,
+        "cpu_plain_fk_small_s": cpu_fk_s, "small": small, "fk_sha256": fk_digest,
     }
+
+
+def phase_mesh(dev, card: str, crs, ipa_data, ref: dict, n: int = 1 << 20, lanes: int = 40, width: int = 256,
+               ntt_sizes=(256, 512), fk_n: int = 256, fk_len: int = 200, leaves: int = 10_000, m: int = 1024) -> dict:
+    """The parallel package at world size 1 over NCCL on the card (gloo
+    where ``dev`` is the CPU, for a rehearsal), through ``make_mesh()``:
+    ``msm_sharded`` on phase 4's 2^20 points, ``msm_batched_sharded`` and
+    ``msm_fixed_base_sharded`` at the dense commit's shape, the Fr and G1
+    four-step and its inverse at 256 and 512, FK at 256, phase 5's tree and
+    phase 6's multiproof with ``mesh=``. Each path against its unsharded
+    twin in this run and against the earlier phase's result in ``ref``
+    (phase 5's root, phase 6's D, phase 8's FK digest), and its time beside
+    its twin's."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=600))
+        try:
+            return _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n, fk_len, leaves, m)
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n, fk_len, leaves, m) -> dict:
+    import torch
+
+    from verkle_kzg_tpu_torch import native
+    from verkle_kzg_tpu_torch.hostmath.curve import g1_generator, g1_mul
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import msm as M
+    from verkle_kzg_tpu_torch.ops import ntt as N
+    from verkle_kzg_tpu_torch.parallel import make_mesh
+    from verkle_kzg_tpu_torch.parallel import mesh as PM
+    from verkle_kzg_tpu_torch.parallel import ntt as PN
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.poly import FrVector
+    from verkle_kzg_tpu_torch.schemes import IPA, kzg_setup, prove_multiproof, verify_multiproof
+    from verkle_kzg_tpu_torch.schemes.fk import prove_all_points
+
+    mesh = make_mesh() if dev.type == "cuda" else make_mesh(device="cpu")
+    assert (mesh.size, mesh.rank, mesh.device) == (1, 0, torch.device(dev)), mesh
+    t0 = time.perf_counter()
+    PM.all_gather(mesh, torch.zeros(8, dtype=torch.int32, device=dev))  # the communicator's set-up
+    init_ms = (time.perf_counter() - t0) * 1e3
+
+    # the inputs, as phases 4, 5, 6 and 8 make them
+    pts = msm_points(n).to(dev)
+    rng = random.Random(20)
+    ks = [rng.randrange(R) for _ in range(n)]
+    sc = F.ints_to_words(ks, dev)
+    want = g1_mul(g1_generator(), sum((i + 1) * k for i, k in enumerate(ks)) % R)
+    rng = random.Random(10)
+    basis = crs.g_affine[:width]
+    dense_ks = [[rng.randrange(R) for _ in range(width)] for _ in range(lanes)]
+    dense = F.ints_to_words([k for lane in dense_ks for k in lane], dev).reshape(lanes, width, F.WORDS)
+    lane_pts = pts[: lanes * width].reshape(lanes, width, 2, F.WORDS)
+    fr_in = {s: F.ints_to_mont([rng.randrange(R) for _ in range(s)], "fr", dev) for s in ntt_sizes}
+    g1_in = {s: C.from_affine(pts[:s]) for s in ntt_sizes}
+    kzg = kzg_setup(fk_n, device=dev)
+    rng8 = random.Random(8)  # phase 8's values
+    fk_vals = [rng8.randrange(R) for _ in range(fk_n)][:fk_len]
+    fk_data = FrVector.from_ints(fk_vals, kzg.domain, device=dev)
+    keys, values, absent_l = _verkle_inputs(leaves)
+    queries = _multiproof_queries(crs, ipa_data, m)
+    vq = [q.to_verifier_query() for q in queries]
+
+    # name -> (the mesh path, its unsharded twin)
+    paths = {
+        "msm_sharded": (lambda: PM.msm_sharded(pts, sc, mesh), lambda: M.msm_pippenger(pts, sc, c=8)),
+        "msm_batched_sharded": (lambda: PM.msm_batched_sharded(lane_pts, dense, mesh),
+                                lambda: M.msm_batched(lane_pts, dense, c=8)),
+        "msm_fixed_base_sharded": (lambda: PM.msm_fixed_base_sharded(basis, dense, mesh),
+                                   lambda: M.msm_fixed_base(basis, dense)),
+    }
+    for s in ntt_sizes:
+        paths[f"ntt_fr_{s}"] = (lambda s=s: PN.ntt_fr_sharded(fr_in[s], mesh), lambda s=s: N.ntt_fr(fr_in[s]))
+        paths[f"intt_fr_{s}"] = (lambda s=s: PN.intt_fr_sharded(fr_in[s], mesh), lambda s=s: N.intt_fr(fr_in[s]))
+        paths[f"ntt_g1_{s}"] = (lambda s=s: PN.ntt_g1_sharded(g1_in[s], mesh), lambda s=s: N.ntt_g1(g1_in[s]))
+        paths[f"intt_g1_{s}"] = (lambda s=s: PN.intt_g1_sharded(g1_in[s], mesh), lambda s=s: N.intt_g1(g1_in[s]))
+    paths["fk"] = (lambda: prove_all_points(kzg, fk_data, mesh=mesh), lambda: prove_all_points(kzg, fk_data))
+    paths["multiproof_prove"] = (lambda: prove_multiproof(IPA, crs, queries, mesh=mesh),
+                                 lambda: prove_multiproof(IPA, crs, queries))
+
+    # the mesh paths once each, with fresh launch counts
+    tree = _verkle_build(crs, keys, values, absent_l, mesh=mesh)
+    ms, counts, out = {}, {}, {}
+    _sync(dev)
+    cuda_lib.reset_launches()
+    for name, (fn, _) in paths.items():
+        out[name] = _stage(name, fn, ms, counts)
+    out["verkle_commit"] = _stage("verkle_commit", tree.commitment, ms, counts)
+    proof = out["multiproof_prove"]
+    out["multiproof_verify"] = _stage("multiproof_verify", lambda: verify_multiproof(IPA, crs, vq, proof, mesh=mesh),
+                                      ms, counts)
+    _sync(dev)
+    path_launches = dict(cuda_lib.launches)
+
+    # each against its twin, and the earlier phases' results
+    host = C.projective_to_host_points
+    twin = {name: t() for name, (_, t) in paths.items()}
+    assert host(out["msm_sharded"][None]) == host(twin["msm_sharded"][None]) == [want], "msm_sharded != oracle"
+    sub = torch.randperm(n, generator=torch.Generator().manual_seed(16))[: 1 << 16].to(dev)
+    sub_pts = pts[sub].contiguous()
+    got = host(PM.msm_sharded(sub_pts, sc[sub].contiguous(), mesh)[None])
+    assert got == [native.g1_msm(host(C.from_affine(sub_pts)), [ks[i] for i in sub.tolist()])], "2^16 != native"
+    for name in ("msm_batched_sharded", "msm_fixed_base_sharded"):
+        assert host(out[name]) == host(twin[name]), name
+    lane_host = host(C.from_affine(lane_pts[0]))
+    assert host(out["msm_batched_sharded"][:1]) == [native.g1_msm(lane_host, dense_ks[0])]
+    assert host(out["msm_fixed_base_sharded"][-1:]) == [native.g1_msm(crs.g_host[:width], dense_ks[-1])]
+    for s in ntt_sizes:
+        logn = s.bit_length() - 1
+        for kind in ("ntt_fr", "intt_fr"):
+            assert torch.equal(out[f"{kind}_{s}"], twin[f"{kind}_{s}"]), (kind, s)
+        assert torch.equal(PN.intt_fr_sharded(out[f"ntt_fr_{s}"], mesh), fr_in[s]), f"Fr round trip at {s}"
+        for kind in ("ntt_g1", "intt_g1"):
+            assert host(out[f"{kind}_{s}"]) == host(twin[f"{kind}_{s}"]), (kind, s)
+        assert host(PN.intt_g1_sharded(out[f"ntt_g1_{s}"], mesh)) == host(g1_in[s]), f"G1 round trip at {s}"
+        # the sub-NTTs: one G1BFLY launch a stage over all the columns
+        for kind, smul in (("ntt_g1", 1), ("intt_g1", 3)):
+            c = counts[f"{kind}_{s}"]
+            assert (c["G1BFLY"], c["G1SMUL"]) == (logn, smul), (kind, s, c)
+    logn = fk_n.bit_length() - 1
+    assert (counts["fk"]["G1BFLY"], counts["fk"]["G1SMUL"]) == (4 * logn + 2, 7), counts["fk"]
+    assert [(p.proof, p.y) for p in out["fk"]] == [(p.proof, p.y) for p in twin["fk"]], "FK: mesh != twin"
+    assert proofs_digest(out["fk"]) == ref["fk_sha256"], "FK with the mesh != phase 8's proofs"
+    assert out["verkle_commit"] == ref["root"], "the tree with the mesh != phase 5's root"
+    assert out["multiproof_prove"].d == twin["multiproof_prove"].d == ref["d"], "multiproof D != phase 6's"
+    assert out["multiproof_verify"], "the honest multiproof was rejected on the mesh"
+    bad = [q.to_verifier_query() for q in queries]
+    bad[m // 2].y = (bad[m // 2].y + 1) % R
+    assert not verify_multiproof(IPA, crs, bad, proof, mesh=mesh), "a wrong y was accepted on the mesh"
+    assert counts["msm_sharded"]["K3"] == counts["msm_sharded"]["K4"] == 1, counts["msm_sharded"]
+    for name in ("msm_batched_sharded", "msm_fixed_base_sharded", "verkle_commit"):
+        assert counts[name]["K6"] > 0 and counts[name]["K7"] > 0, (name, counts[name])
+    assert min(counts["multiproof_prove"][k] for k in ("K1IPA", "K3", "K4")) > 0, counts["multiproof_prove"]
+
+    # times, the mesh path beside its twin: CUDA events over a few calls in
+    # turns (mesh, twin, twin, mesh); the tree by the wall clock
+    times = {}
+    for name, (fn, tw) in paths.items():
+        reps = 1 if name in ("fk", "multiproof_prove") else 5
+        a, b, c2, d2 = cuda_ms(fn, reps), cuda_ms(tw, reps), cuda_ms(tw, reps), cuda_ms(fn, reps)
+        times[name] = {"mesh_ms": [a, d2], "twin_ms": [b, c2]}
+    trees = []
+    for shard in (False, True, False):
+        t = _verkle_build(crs, keys, values, absent_l, mesh=mesh if shard else None)
+        _sync(dev)
+        t0 = time.perf_counter()
+        assert t.commitment() == ref["root"]
+        _sync(dev)
+        trees.append((time.perf_counter() - t0) * 1e3)
+    times["verkle_commit"] = {"mesh_wall_ms": [ms["verkle_commit"]["wall_ms"], trees[1]],
+                              "twin_wall_ms": [trees[0], trees[2]]}
+    times["multiproof_verify"] = {"mesh_ms": [ms["multiproof_verify"]["events_ms"]]}
+    for name, rec in times.items():
+        rec["launches"] = {k: v for k, v in counts[name].items() if v}
+        print("phase 10 mesh:", name, json.dumps(rec), f"[{card}]", flush=True)
+    return {"world_size": 1, "comm_init_ms": init_ms, "times": times, "path_launches": path_launches}
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def proofs_digest(proofs) -> str:
+    """SHA-256 of a KZG proof list's (proof, y) pairs, as JSON."""
+    return hashlib.sha256(json.dumps([(p.proof, p.y) for p in proofs]).encode()).hexdigest()
 
 
 def k1_counts(phase: dict) -> dict:
@@ -2044,6 +2256,13 @@ def main() -> int:
           json.dumps(group["path_launches"]), "entry points' launches", json.dumps(group["entry_point_launches"]),
           f"[{card}]", flush=True)
 
+    t0 = time.perf_counter()
+    ref = {"root": verkle["root"], "d": mp["d"], "fk_sha256": kzg["fk_sha256"]}
+    mesh = phase_mesh(dev, card, crs, ipa_data, ref)
+    print(f"phase 10 mesh, world size 1 over NCCL ({time.perf_counter() - t0:.1f} s): launches",
+          json.dumps(mesh["path_launches"]), f"communicator set-up {mesh['comm_init_ms']:.1f} ms", f"[{card}]",
+          flush=True)
+
     sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K1IPA": "ipa_round.cu", "K2": "curve.cu",
                "K2FOLD": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
                "K5": "scalar_mul.cu", "K6": "msm_sorted.cu", "K7": "msm_tail.cuh",
@@ -2109,6 +2328,7 @@ def main() -> int:
             "replaces": replaces[k],
             "launches": path_of[k][1][k],
             "launches_from": path_of[k][0],
+            "launches_phase10": mesh["path_launches"][k],
             "max_abs_err": max(kern[r]["max_abs_err"] for r in mine),
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],

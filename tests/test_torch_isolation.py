@@ -1,4 +1,5 @@
-"""The port, its chip smoke script and its card tests import nothing of the
+"""The port (its parallel package and utilities among it), its chip smoke
+script, its card tests and the mesh tests' rank program import nothing of the
 JAX package (the port keeps its own copies of the host modules it needs),
 no JAX (the card's machine has none) and no Triton at module level; and the
 port's entry points run on the card unless told otherwise."""
@@ -18,8 +19,10 @@ import verkle_kzg_tpu_torch as P
 for m in pkgutil.walk_packages(P.__path__, P.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
+import verkle_kzg_tpu_torch.parallel, verkle_kzg_tpu_torch.utils.persist, verkle_kzg_tpu_torch.utils.profiling
 sys.path.insert(0, "tests")
 import test_torch_kernels
+import torch_mesh_ranks
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("verkle_kzg_tpu", "jax", "jaxlib", "triton"))
 assert not bad, bad
 print("clean")

@@ -15,8 +15,12 @@ Layer map:
              K9, K10) and batched-MSM (K6, K7) kernels with their plain
              PyTorch versions, and the Fr and G1 NTTs over them; ``csrc/``
              holds the CUDA sources
+  parallel   sharding across cards over torch.distributed: the sharded
+             single, batched and fixed-base MSMs, the four-step Fr and G1
+             NTTs (``make_mesh`` over an initialised process group)
   convert    bridge from the JAX package's objects (for tests)
-  utils      metrics counters
+  utils      metrics counters, persistence (the JAX package's ``.npz``
+             format), torch.profiler hooks
 
 Host-side modules of its own, copied from the JAX package (which this
 package never imports): ``params``, ``errors``, ``hostmath`` (field,
@@ -28,5 +32,19 @@ The entry points (``ipa_setup``, ``IPAParams``, ``kzg_setup``,
 ``KZGParams``, ``kzg_generate_monomial_srs``, ``FrVector.from_ints``,
 ``VerkleTree`` through its params, the multiproof through its params) run
 on the CUDA card unless the caller passes ``device="cpu"``; without a card
-they raise.
+they raise. So does ``parallel.make_mesh``, whose CPU form needs a gloo
+process group.
 """
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "fiatshamir",
+    "hostmath",
+    "ops",
+    "params",
+    "parallel",
+    "poly",
+    "schemes",
+    "verkle",
+]

@@ -158,6 +158,12 @@ def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None =
     (:func:`msm_pippenger`, signed digits). ``lanes`` has no effect."""
     metrics.record("msm.single.calls")
     metrics.record("msm.single.points", points_affine.shape[0])
+    return _msm_auto_impl(points_affine, scalars, c, lanes)
+
+
+def _msm_auto_impl(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None, lanes: int = 128):
+    """:func:`msm_auto` without its counters, for the sharded MSMs'
+    local parts (``ops/msm.py::_msm_auto_impl``)."""
     if points_affine.shape[0] < 64:
         return fold_reduce_lanes(C.scalar_mul_affine(points_affine, scalars), dim=0)[0]
     return msm_pippenger(points_affine, scalars, c=c, lanes=lanes)
@@ -207,10 +213,15 @@ def msm_batched(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | Non
     b, n = scalars.shape[:2]
     metrics.record("msm.batched.calls")
     metrics.record("msm.batched.points", b * n)
+    return _msm_batched_impl(points_affine, scalars, c)
+
+
+def _msm_batched_impl(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:
+    """:func:`msm_batched` without its counters (``ops/msm.py::_msm_batched_impl``)."""
+    n = scalars.shape[1]
     if n < 64:
         return _batched_naive_affine(points_affine, scalars)
-    c = _auto_c_batched(n, c)
-    return _msm_lanewise(points_affine, scalars, c)
+    return _msm_lanewise(points_affine, scalars, _auto_c_batched(n, c))
 
 
 def msm_fixed_base(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:
@@ -220,7 +231,12 @@ def msm_fixed_base(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | 
     b, n = scalars.shape[:2]
     metrics.record("msm.fixed_base.calls")
     metrics.record("msm.fixed_base.points", b * n)
+    return _msm_fixed_base_impl(points_affine, scalars, c)
+
+
+def _msm_fixed_base_impl(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:
+    """:func:`msm_fixed_base` without its counters (``ops/msm.py::_msm_fixed_base_impl``)."""
+    b, n = scalars.shape[:2]
     if n < 64:
         return _batched_naive_affine(points_affine[None].expand(b, n, 2, F.WORDS), scalars)
-    c = _auto_c_batched(n, c)
-    return _msm_lanewise(points_affine, scalars, c)
+    return _msm_lanewise(points_affine, scalars, _auto_c_batched(n, c))

@@ -12,7 +12,9 @@ scatter; a G1 stage is one G1BFLY launch (``cuda_g1_chain.butterfly``),
 which multiplies v by the twiddle with ``curve.scalar_mul``'s chain and
 takes u + v and u + (-v) in one kernel. The operations and their order are
 the JAX package's, so Fr outputs and G1 projective coordinates are the
-same words.
+same words. The same stages transform B contiguous segments at once, each
+on its own (``ntt_fr_segments``, ``ntt_g1_segments``): the sub-NTTs of the
+four-step in ``parallel/ntt.py``, one pass or one G1BFLY launch a stage.
 
 Conventions match ark_poly: ``ntt_*`` maps natural-order coefficients to
 natural-order evaluations [p(w^i)]; ``intt_*`` is its inverse, with the 1/N
@@ -33,6 +35,12 @@ from . import curve as C
 from . import field as F
 
 
+def _bitrev(n: int) -> list:
+    """The bit reversal of 0..n - 1 over log2(n) bits."""
+    logn = n.bit_length() - 1
+    return [int(format(i, f"0{logn}b")[::-1], 2) for i in range(n)]
+
+
 @functools.lru_cache(maxsize=None)
 class _Plan:
     """The bit reversal and per-stage (u_idx, v_idx, twiddles) of a size-N
@@ -46,7 +54,7 @@ class _Plan:
         omega = fr_root_of_unity(n)
         if inverse:
             omega = fr_inv(omega)
-        self.bitrev = [int(format(i, f"0{logn}b")[::-1], 2) for i in range(n)]
+        self.bitrev = _bitrev(n)
         pows = [1] * n
         for i in range(1, n):
             pows[i] = pows[i - 1] * omega % R
@@ -64,63 +72,77 @@ class _Plan:
         self.n_inv = fr_inv(n) if inverse else None
         self._mirrors: dict = {}
 
-    def on(self, device, field: bool):
-        """The plan on ``device``: for the Fr butterflies (``field``)
-        (bitrev, [(u_idx, v_idx, Montgomery twiddles)]); for G1BFLY
-        (bitrev, [standard-form twiddles of stage s's first block]), since
-        butterfly j of every block takes w_j."""
-        key = (torch.device(device), field)
+    def on(self, device, field: bool, seg: int | None = None):
+        """The plan on ``device`` of the n / seg transforms of size ``seg``
+        (default n), one on each contiguous segment: a bit reversal within
+        each segment, then the first log2(seg) stages, whose blocks never
+        cross a segment and whose twiddles, w_{2^(s+1)}^j, do not depend on
+        n. For the Fr butterflies (``field``) (order, [(u_idx, v_idx,
+        Montgomery twiddles)]); for G1BFLY (order, [standard-form twiddles
+        of stage s's first block]), since butterfly j of every block takes
+        w_j."""
+        seg = seg or self.n
+        key = (torch.device(device), field, seg)
         if key not in self._mirrors:
             idx = functools.partial(torch.tensor, dtype=torch.int64, device=device)
+            stages = self.stages[: seg.bit_length() - 1]
             if field:
-                stages = [(idx(u), idx(v), F.ints_to_mont(tw, "fr", device)) for u, v, tw in self.stages]
+                stages = [(idx(u), idx(v), F.ints_to_mont(tw, "fr", device)) for u, v, tw in stages]
             else:
-                stages = [F.ints_to_words(tw[: 1 << s], device) for s, (_, _, tw) in enumerate(self.stages)]
-            self._mirrors[key] = (idx(self.bitrev), stages)
+                stages = [F.ints_to_words(tw[: 1 << s], device) for s, (_, _, tw) in enumerate(stages)]
+            order = [s + i for s in range(0, self.n, seg) for i in _bitrev(seg)]
+            self._mirrors[key] = (idx(order), stages)
         return self._mirrors[key]
 
 
-def _run_fr(x: torch.Tensor, plan: _Plan) -> torch.Tensor:
-    """(u + w v, u - w v) over Fr, Montgomery words (``ntt.py::_fr_stage``)."""
-    bitrev, stages = plan.on(x.device, True)
-    x = x[bitrev]
+def ntt_fr_segments(x_mont: torch.Tensor, seg: int, inverse: bool = False) -> torch.Tensor:
+    """(B seg, 8) Montgomery words, B contiguous segments of ``seg``
+    elements -> each segment's size-seg NTT (INTT with its 1/seg), the
+    butterflies of all B segments in one pass a stage: (u + w v, u - w v)
+    over Fr (``ntt.py::_fr_stage``), a gather, K1 products and add/subs and
+    a scatter. B = 1 is the whole vector's transform; B > 1 the four-step's
+    sub-NTTs (``parallel/ntt.py``)."""
+    bitrev, stages = _Plan(x_mont.shape[0], inverse).on(x_mont.device, True, seg)
+    x = x_mont[bitrev]
     for u_idx, v_idx, tw in stages:
         u, v = x[u_idx], F.mont_mul(x[v_idx], tw, "fr")
         x = torch.empty_like(x)
         x[u_idx] = F.add(u, v, "fr")
         x[v_idx] = F.sub(u, v, "fr")
-    return x
+    if not inverse:
+        return x
+    return F.mont_mul(x, F.ints_to_mont([fr_inv(seg)], "fr", x.device), "fr")
 
 
-def _run_g1(x: torch.Tensor, plan: _Plan) -> torch.Tensor:
-    """(u + w v, u - w v) over G1 (``ntt.py::_g1_stage``): one G1BFLY launch a stage."""
-    bitrev, twiddles = plan.on(x.device, False)
-    x = x[bitrev]
+def ntt_g1_segments(pts_proj: torch.Tensor, seg: int, inverse: bool = False) -> torch.Tensor:
+    """(B seg, 3, 8) projective points in B contiguous segments -> each
+    segment's size-seg G1 NTT (INTT with its 1/seg, one G1SMUL): one
+    G1BFLY launch a stage over all B segments (``ntt.py::_g1_stage``)."""
+    n = pts_proj.shape[0]
+    bitrev, twiddles = _Plan(n, inverse).on(pts_proj.device, False, seg)
+    x = pts_proj[bitrev]
     for s, tw in enumerate(twiddles):
         x = G.butterfly(x, tw, s)
-    return x
+    if not inverse:
+        return x
+    return C.scalar_mul(x, F.ints_to_words([fr_inv(seg)], x.device).expand(n, F.WORDS))
 
 
 def ntt_fr(x_mont: torch.Tensor) -> torch.Tensor:
     """(N, 8) coefficients -> evaluations [p(w^i)] (ark fft semantics)."""
-    return _run_fr(x_mont, _Plan(x_mont.shape[0], False))
+    return ntt_fr_segments(x_mont, x_mont.shape[0])
 
 
 def intt_fr(x_mont: torch.Tensor) -> torch.Tensor:
     """(N, 8) evaluations -> coefficients (ark ifft semantics, 1/N folded in)."""
-    plan = _Plan(x_mont.shape[0], True)
-    out = _run_fr(x_mont, plan)
-    return F.mont_mul(out, F.ints_to_mont([plan.n_inv], "fr", out.device), "fr")
+    return ntt_fr_segments(x_mont, x_mont.shape[0], inverse=True)
 
 
 def ntt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) projective points -> the G1 NTT."""
-    return _run_g1(pts_proj, _Plan(pts_proj.shape[0], False))
+    return ntt_g1_segments(pts_proj, pts_proj.shape[0])
 
 
 def intt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) projective points -> the G1 inverse NTT, 1/N folded in."""
-    n = pts_proj.shape[0]
-    plan = _Plan(n, True)
-    out = _run_g1(pts_proj, plan)
-    return C.scalar_mul(out, F.ints_to_words([plan.n_inv], out.device).expand(n, F.WORDS))
+    return ntt_g1_segments(pts_proj, pts_proj.shape[0], inverse=True)

@@ -108,9 +108,16 @@ class IPA:
         return params.g_affine
 
     @staticmethod
-    def commit(params: IPAParams, data: FrVector):
-        """C = <g, a>: one MSM (``ipa/mod.rs:130-135``)."""
-        out = M.msm_auto(params.g_affine, data.to_scalars_standard())
+    def commit(params: IPAParams, data: FrVector, mesh=None):
+        """C = <g, a>: one MSM (``ipa/mod.rs:130-135``); with ``mesh``, the
+        points and scalars split across its ranks (``parallel.msm_sharded``)."""
+        scalars = data.to_scalars_standard()
+        if mesh is not None:
+            from ..parallel.mesh import msm_sharded
+
+            out = msm_sharded(params.g_affine, scalars, mesh)
+        else:
+            out = M.msm_auto(params.g_affine, scalars)
         return C.projective_to_host_points(out)[0]
 
     @staticmethod

@@ -91,9 +91,16 @@ class KZG:
         return params.lagrange_affine
 
     @staticmethod
-    def commit(params: KZGParams, data: FrVector):
-        """C = <lagrange_srs, a>: one MSM (``kzg/mod.rs:126-134``)."""
-        out = M.msm_auto(params.lagrange_affine, data.to_scalars_standard())
+    def commit(params: KZGParams, data: FrVector, mesh=None):
+        """C = <lagrange_srs, a>: one MSM (``kzg/mod.rs:126-134``); with
+        ``mesh``, split across its ranks (``parallel.msm_sharded``)."""
+        scalars = data.to_scalars_standard()
+        if mesh is not None:
+            from ..parallel.mesh import msm_sharded
+
+            out = msm_sharded(params.lagrange_affine, scalars, mesh)
+        else:
+            out = M.msm_auto(params.lagrange_affine, scalars)
         return C.projective_to_host_points(out)[0]
 
     @staticmethod

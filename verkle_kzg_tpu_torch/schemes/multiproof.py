@@ -102,9 +102,11 @@ def _quotients_sum(grouped: torch.Tensor, domain, z_idx: torch.Tensor) -> torch.
     return F.sum_axis(q, 0, "fr")[0]
 
 
-def prove_multiproof(scheme, params, queries: list) -> Multiproof:
+def prove_multiproof(scheme, params, queries: list, mesh=None) -> Multiproof:
     """``multiproof.rs:99-176``. ``scheme`` is the IPA or the KZG namespace;
-    every tensor lives on ``params.device``."""
+    every tensor lives on ``params.device``. With ``mesh``, the D and E
+    commitments split across its ranks (``parallel.msm_sharded``), in the
+    place of the reference's rayon pool (``multiproof.rs:119-132``)."""
     dev = params.device
     domain = params.domain
     n = domain.size
@@ -128,7 +130,7 @@ def prove_multiproof(scheme, params, queries: list) -> Multiproof:
     distinct, grouped = _group_by_z(scaled, [q.z for q in queries])
     g = FrVector(_quotients_sum(grouped, domain, torch.tensor(distinct, device=dev)), n, domain)
 
-    d_commit = scheme.commit(params, g)
+    d_commit = scheme.commit(params, g, mesh=mesh)
     t.append_point(d_commit, "D")
     t_chal = t.digest("t", True)
 
@@ -137,16 +139,17 @@ def prove_multiproof(scheme, params, queries: list) -> Multiproof:
     inv_q = F.ints_to_mont([inversions[q.z] for q in queries], "fr", dev)  # (M, 8)
     h = FrVector(F.sum_axis(F.mont_mul(scaled, inv_q[:, None], "fr"), 0, "fr")[0], n, domain)
 
-    e_commit = scheme.commit(params, h)
+    e_commit = scheme.commit(params, h, mesh=mesh)
     t.append_point(e_commit, "E")
 
     proof = scheme.prove_point(params, g1_add(e_commit, g1_neg(d_commit)), t_chal, h - g, t)
     return Multiproof(proof=proof, d=d_commit)
 
 
-def verify_multiproof(scheme, params, queries: list, proof: Multiproof) -> bool:
+def verify_multiproof(scheme, params, queries: list, proof: Multiproof, mesh=None) -> bool:
     """``multiproof.rs:178-215``: the E aggregation is one MSM over the
-    distinct commitments (``msm_auto``; K5 below 64 of them)."""
+    distinct commitments (``msm_auto``; K5 below 64 of them), split across
+    the ranks of ``mesh`` when one is given (``parallel.msm_sharded``)."""
     n = params.domain.size
     t = Transcript("multiproof")
     _absorb_queries(t, queries)
@@ -167,6 +170,12 @@ def verify_multiproof(scheme, params, queries: list, proof: Multiproof) -> bool:
     commits = list(e_coeffs)
     pts = C.host_points_to_affine(commits, params.device)
     scalars = F.ints_to_words([e_coeffs[c] for c in commits], params.device)
-    e_commit = C.projective_to_host_points(M.msm_auto(pts, scalars))[0]
+    if mesh is not None:
+        from ..parallel.mesh import msm_sharded
+
+        e_dev = msm_sharded(pts, scalars, mesh)
+    else:
+        e_dev = M.msm_auto(pts, scalars)
+    e_commit = C.projective_to_host_points(e_dev)[0]
     t.append_point(e_commit, "E")
     return scheme.verify_point(params, g1_add(e_commit, g1_neg(proof.d)), t_chal, proof.proof, t)

@@ -2,7 +2,9 @@
 default 2, 4, 7 and 9 (the kernels against their plain versions, the 2^20
 MSM with its stages, the config-5 MSM sweep and the lane-stream grid); a
 third argument lists others, e.g. ``3,5,6`` (the IPA at 256, the verkle
-tree, the multiproof; 6 runs 3 first for its data). It times a parent
+tree, the multiproof; 6 runs 3 first for its data) or ``10`` (the mesh
+paths, which run 3, 5, 6 and 8 first, unprinted where not listed, for
+their data and the results they are held to). It times a parent
 commit beside a change on one card in one call:
 
     mkdir -p _archive/parent && git archive <parent> | tar -x -C _archive/parent
@@ -59,12 +61,19 @@ def main() -> int:
     run("2", lambda: S.phase_kernels(dev, crs))
     ipa = run("3", lambda: S.phase_ipa(dev, crs), lambda out: json.dumps(out[0]))
     run("4", lambda: S.phase_msm(dev))
-    run("5", lambda: S.phase_verkle(dev, crs))
-    if "6" in phases:
+    verkle = run("5", lambda: S.phase_verkle(dev, crs))
+    mp = None
+    if phases & {"6", "10"}:
         ipa_data = (ipa or S.phase_ipa(dev, crs))[1]
-        run("6", lambda: S.phase_multiproof(dev, crs, ipa_data))
+        mp = run("6", lambda: S.phase_multiproof(dev, crs, ipa_data))
     run("7", lambda: S.phase_sweep(dev, card), launches)
+    kzg = run("8", lambda: S.phase_kzg(dev, card))
     run("9", lambda: S.phase_group(dev, card), launches)
+    if "10" in phases:
+        ref = {"root": (verkle or S.phase_verkle(dev, crs))["root"],
+               "d": (mp or S.phase_multiproof(dev, crs, ipa_data))["d"],
+               "fk_sha256": (kzg or S.phase_kzg(dev, card))["fk_sha256"]}
+        run("10", lambda: S.phase_mesh(dev, card, crs, ipa_data, ref), launches)
     return 0
 
 

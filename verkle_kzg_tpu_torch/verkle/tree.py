@@ -89,8 +89,12 @@ class VerkleTree:
     """``VerkleTree`` (``verkle-tree/src/lib.rs:87-138``) over a scheme
     namespace (``schemes.IPA`` or ``schemes.KZG``) and its params. Its
     commitments are computed on ``params.device``, which is the CUDA card
-    unless the params were made for another device. There is no ``mesh``: sharding across cards is still
-    to be ported."""
+    unless the params were made for another device. With ``mesh`` (a
+    ``parallel.make_mesh`` over the ranks that each hold this tree), the
+    dense node commits split their batches across the ranks
+    (``parallel.msm_fixed_base_sharded``), in the place of the reference's
+    serial loop over nodes (``node.rs:212-277``); the params must then lie
+    on the mesh's device. The sparse commits stay local."""
 
     def __init__(
         self,
@@ -99,10 +103,12 @@ class VerkleTree:
         key_len: int,
         ext_width: int | None = None,
         internal_width: int = INTERNAL_WIDTH,
+        mesh=None,
     ):
         self.scheme = scheme
         self.params = params
         self.device = params.device
+        self.mesh = mesh
         self.key_len = key_len
         self.ext_width = ext_width if ext_width is not None else key_len
         # width of internal-node vectors; the reference hardcodes 256
@@ -279,7 +285,13 @@ class VerkleTree:
                 for j, v in d.items():
                     flat[bi * width + j] = v % R
             scalars = F.ints_to_words(flat, self.device).reshape(len(chunk), width, F.WORDS)
-            out.extend(C.projective_to_host_points(M.msm_fixed_base(basis, scalars)))
+            if self.mesh is not None:
+                from ..parallel.mesh import msm_fixed_base_sharded
+
+                pts = msm_fixed_base_sharded(basis, scalars, self.mesh)
+            else:
+                pts = M.msm_fixed_base(basis, scalars)
+            out.extend(C.projective_to_host_points(pts))
         return out
 
     def _sparse_commit(self, sparse_vecs, nnz, maxnnz, width):
