@@ -9,13 +9,19 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K13, K1INV, K1IPA, K2FOLD, G1SMUL, G1BFLY) against its
-     plain PyTorch version on the card, at the shapes the main paths give
+  2. each kernel (K1-K13, K1INV, K1IPA, K2FOLD, G1SMUL, G1BFLY, FSX) against
+     its plain PyTorch version on the card, at the shapes the main paths give
      it, exact, with its time and the least time the card could take for
      the same work; K1INV, K1IPA and K2FOLD also against the K1 or K2 chain
      each replaces, timed in the same run (K1INV with its dependent chain:
      products and the inverse's loop steps; K1IPA a round at 8, 256 and
-     1,024 elements with and without b, and <a, b> at 256; K2FOLD at 1 x 51,
+     1,024 elements with and without b, x and w read from device memory,
+     and <a, b> at 256; FSX, a Fiat-Shamir challenge, in each mode at
+     message lengths across SHA-256's padding edges (0-200 bytes), with the
+     identity and both signs of y among its points, against its plain
+     version on CPU copies, hashlib and the host Transcript, and timed at a
+     halving round's and w's shapes with its dependent chain in
+     compressions and inversion steps; K2FOLD at 1 x 51,
      1 x 63 points and the sparse commits' 20,002 x 2 and 10,001 x 4); K5
      in both regimes, with ptxas's registers and spills for each: many
      lanes (2^12 edge lanes, the commit's 40,000) and few (1, 19, 32 and
@@ -37,10 +43,14 @@ and no JAX. Phases, each of which raises on failure:
      sort, sums, combine) from CUDA events recorded between them in one
      call;
   3. IPA at domain 256 (commit, prove, verify, commitment proof) with its
-     checks, launch counts (the prove: 10 K1IPA, no K1) and timings, the
-     prove's 16 K4 tails timed by
-     CUDA events in one more prove, and a proof at domain 32 on the card
-     against the CPU plain path;
+     checks, launch counts (the prove, the device loop: 9 FSX, 10 K1IPA, 16
+     K3, 16 K4, no K1) and timings; the device loop with no host sync
+     between its one upload and its one read (set_sync_debug_mode("error"))
+     and bit for bit equal to the host loop (proofs at index 17 and the
+     point 512 with their transcript states, and the commitment proof);
+     both loops timed by CUDA events, 5 calls each in turns, with their 16
+     K4 tails; and a proof at domain 32 on the card against the CPU plain
+     path;
   4. one MSM of 2^20 points through msm_auto, against an exact oracle, and
      its rate, with K3's four stages and K4 timed apart;
   5. the verkle tree at Ethereum geometry (BASELINE.json config 4: 32-unit
@@ -77,11 +87,11 @@ and no JAX. Phases, each of which raises on failure:
 
 Each of phases 2, 3, 5, 6, 8 and 10, and each run of phases 7 and 9, sets the
 launch counts to 0 just before its path and reads them just after; phases
-5, 6 and 8 print K1's, K1INV's and K1IPA's launches stage by stage, phases
-5 and 6 assert that no K2 ran (K2FOLD sums the folds), and phases 5
+5, 6 and 8 print K1's, K1INV's, K1IPA's and FSX's launches stage by stage,
+phases 5 and 6 assert that no K2 ran (K2FOLD sums the folds), and phases 5
 and 6 the launches of each K5 regime and the lanes of each K5 call. The
-last two
-lines of standard output are the card's name and power limit and a JSON
+IPA proves of phases 3, 5, 6 and 10 run the device loop (FSX). The last
+two lines of standard output are the card's name and power limit and a JSON
 object {"ok": true, "device": {...}}; the line before them holds the
 per-kernel JSON record.
 """
@@ -294,6 +304,7 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_g1_chain(dev, pz, rng))
     rec.update(_kernels_k1ipa(dev, random.Random(12)))  # own seeds: the draws above stay as they were
     rec.update(_kernels_k2fold(dev, pz, random.Random(13)))
+    rec.update(_kernels_fsx(dev, random.Random(14)))
     return rec
 
 
@@ -420,8 +431,9 @@ def _kernels_k1ipa(dev, rng) -> dict:
     (the plain version with each product and add a K1 launch), exact: a
     round with a fold at n / 2 and scalars for a round of n / 2 at each of
     K1IPA_CASES, from random a, b, wts, x and w with 0 and r - 1 in each
-    vector, and the first round and final fold at the same n (exact, not
-    timed); then the inner product at 256. Each record: ms, the plain
+    vector, x and w read from device memory as in the device loop, and the
+    first round and final fold at the same n (exact, not timed); then the
+    inner product at 256. Each record: ms, the plain
     version's and the chain's ms and K1 launches, the kernel's own time
     (``device_ms``), K1IPA launches a call, the bound (bytes and products
     of :func:`ipa_round_work`)."""
@@ -463,7 +475,8 @@ def _kernels_k1ipa(dev, rng) -> dict:
     rec = {}
     for n, with_b in K1IPA_CASES:
         a, b, wts = vec(n), (vec(n) if with_b else None), vec(n)
-        x, w = rng.randrange(R), rng.randrange(R)
+        # x and w as the device loop passes them: Montgomery words on the card
+        x, w = (KI.as_mont(rng.randrange(R), dev) for _ in range(2))
         half = ln = n // 2
         name = "K1IPA" if (n, with_b) == (256, True) else f"K1IPA@{n}" + ("" if with_b else "-nob")
         rec[name] = record(name, KI.halving_round, KI.plain_round, (a, b, wts, x, w, half, ln),
@@ -477,6 +490,137 @@ def _kernels_k1ipa(dev, rng) -> dict:
     rec["K1IPA@inner256"] = record("K1IPA@inner256", KI.inner, KI.plain_inner, (a, b), "<a, b> at n = 256",
                                    (2 * 256 * 32 + 32, 256))
     print("phase 2 k1ipa:", "K1IPA@inner256", json.dumps(rec["K1IPA@inner256"]), flush=True)
+    return rec
+
+
+FSX_EDGES = (0, 55, 56, 63, 64, 100, 119, 120, 200)  # message bytes across SHA-256's padding edges
+
+
+def sha_blocks(n: int) -> int:
+    """SHA-256 compressions of an n-byte message."""
+    return (n + 9 + 63) // 64
+
+
+def fsx_compressions(msg: int, dst: int, out_len: int = 48) -> int:
+    """The compressions of one hash_to_fr / expand_message_xmd launch, its
+    dependent chain: b_0 over Z_pad || msg || l_i_b || 0 || DST', then one
+    digest of 32 + 1 + |DST'| bytes a 32 output bytes."""
+    return sha_blocks(64 + msg + 3 + dst + 1) + -(-out_len // 32) * sha_blocks(32 + 1 + dst + 1)
+
+
+def _kernels_fsx(dev, rng) -> dict:
+    """FSX against its plain version on CPU copies, hashlib, hostmath and the
+    host Transcript, exact: the digest, expand_message_xmd and hash_to_fr
+    modes and a halving round's challenge with a state of each FSX_EDGES
+    length (L and R with Z != 1, both signs of y, the identity on either
+    side and both), and the scalar challenge before the loop; the point
+    compression over a batch with the identity. Two timed records, the
+    shapes of a prove at 256: a round's challenge (33-byte state, both
+    points finite) and w's (the 76-byte state of C and the input point).
+    Each: ms, the kernel's own time (``device_ms``), the plain version's ms
+    on the CPU, the same plain version on the card (torch ops, K1 and K1INV
+    launches: the chain a launch replaces), the bound, and the dependent
+    chain: SHA-256 compressions and the inversion's loop steps."""
+    import torch
+
+    from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
+    from verkle_kzg_tpu_torch.hostmath import curve as hc
+    from verkle_kzg_tpu_torch.hostmath import hashing as H
+    from verkle_kzg_tpu_torch.hostmath.serialize import g1_to_compressed_bytes
+    from verkle_kzg_tpu_torch.ops import cuda_curve, cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_fiat_shamir as FSX
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import sha256 as S
+    from verkle_kzg_tpu_torch.params import Q, R
+
+    def raw(t):
+        return bytes(t.cpu().to(torch.int64).tolist())
+
+    g = hc.g1_generator()
+    base = C.from_affine(C.host_points_to_affine([hc.g1_mul(g, rng.getrandbits(128)) for _ in range(8)], "cpu"))
+    pts = cuda_curve.plain(base[:4], base[4:])  # Z != 1
+    inf = C.infinity((), "cpu")
+    pairs = [(pts[0], pts[1]), (C.neg(pts[0]), pts[2]), (inf, pts[3]), (pts[3], inf), (inf, inf)]
+    host = C.projective_to_host_points(torch.stack([pts[0], C.neg(pts[0])]))
+    assert {g1_to_compressed_bytes(p)[31] >> 7 for p in host} == {0, 1}  # both signs of y
+
+    def challenge_case(st: bytes, parts, label: bytes, dst: bytes, npts: int):
+        """Kernel, plain version and Transcript on one message; -> the card's inputs."""
+        want_pairs = torch.zeros((2, npts, 2, 8), dtype=torch.int32)
+        want = FSX.plain_challenge(S.const_bytes(st, "cpu"), dst, parts, label, want_pairs if npts else None, 1)
+        got_pairs = want_pairs.to(dev)
+        args = (S.const_bytes(st, dev), dst, [p if isinstance(p, bytes) else p.to(dev) for p in parts], label,
+                got_pairs if npts else None, 1)
+        got = FSX.challenge(*args)
+        assert all(torch.equal(g_.cpu(), w_) for g_, w_ in zip(got, want)) and torch.equal(got_pairs.cpu(), want_pairs)
+        t = Transcript(dst.decode())
+        t._state = bytearray(st)
+        for p in parts:
+            if isinstance(p, bytes):
+                t._state += p
+            elif p.shape[-2:] == (3, 8):
+                t._state += g1_to_compressed_bytes(C.projective_to_host_points(p)[0])
+            else:
+                t.append_scalar(F.mont_to_ints(p, "fr")[0], "")
+        x = t.digest(label.decode(), True)
+        assert F.words_to_ints(got[0][0]) == [x] and raw(got[1]) == bytes(t._state)
+        return args, want
+
+    before = cuda_lib.launches["FSX"]
+    for i, n in enumerate(FSX_EDGES):
+        m = bytes(rng.randrange(256) for _ in range(n))
+        t = S.const_bytes(m, dev)
+        assert raw(S.sha256_bytes(t)) == hashlib.sha256(m).digest() == raw(S.plain_sha256(t.cpu())), n
+        assert raw(S.expand_message_xmd(t, b"ipa", 100)) == H.expand_message_xmd(m, b"ipa", 100), n
+        assert F.words_to_ints(S.hash_to_fr(t, b"multiproof")) == H.hash_to_fr(m, b"multiproof", 1), n
+        l, r = pairs[i % len(pairs)]
+        challenge_case(m, [b"L", l, b"R", r], b"x", b"ipa", 2)
+        y = F.ints_to_mont([rng.randrange(R)], "fr", "cpu")
+        challenge_case(m, [b"output point", y], b"w", b"multiproof", 0)
+    aff = C.to_affine(torch.stack([p for pair in pairs for p in pair]))
+    assert torch.equal(S.g1_compressed_bytes(aff.to(dev)).cpu(), S.plain_g1_compressed_bytes(aff))
+    checked = cuda_lib.launches["FSX"] - before
+    assert checked == 5 * len(FSX_EDGES) + 1, checked
+
+    rec = {}
+    y = F.ints_to_mont([rng.randrange(R)], "fr", "cpu")
+    shapes = (  # record, state bytes, parts, label, points, products
+        ("FSX", 33, [b"L", pts[0], b"R", pts[1]], b"x", 2, 15),  # a halving round's challenge
+        ("FSX@w", 76, [b"output point", y], b"w", 0, 3),  # w's: the state of C and the input point
+    )
+    for name, n, parts, label, npts, products in shapes:
+        st = bytes(rng.randrange(256) for _ in range(n))
+        args, want = challenge_case(st, parts, label, b"ipa", npts)
+        cpu_args = (S.const_bytes(st, "cpu"), b"ipa", parts, label, None, 0)
+        _, plain_ms = timed_once(lambda: FSX.plain_challenge(*cpu_args))
+        before = dict(cuda_lib.launches)
+        chain_out = FSX.plain_challenge(*args[:4])
+        chain_launches = {k: cuda_lib.launches[k] - before[k] for k in ("K1", "K1INV", "FSX")}
+        assert all(torch.equal(c.cpu(), w_) for c, w_ in zip(chain_out, want)) and chain_launches["FSX"] == 0
+        msg = n + sum(len(p) if isinstance(p, bytes) else 32 for p in parts) + len(label)
+        zs = [F.mont_to_ints(p[2:3], "fq")[0] for p in parts if not isinstance(p, bytes)] if npts else []
+        prod = 1
+        for z in zs:
+            prod = prod * (z or 1) % Q
+        out_bytes = 64 + 32 + len(label) + 64 * npts
+        in_bytes = n + 96 * npts + (32 if not npts else 0)
+        rec[name] = {
+            "max_abs_err": 0,
+            "ms": cuda_ms(lambda: FSX.challenge(*args), 50),
+            "device_ms": device_ms(lambda: FSX.challenge(*args), 20),
+            "plain_ms": plain_ms,
+            "chain_ms": cuda_ms(lambda: FSX.plain_challenge(*args[:4]), 3),
+            "chain_launches": chain_launches,
+            "library_ms": None,
+            "shape": f"{n}-byte state, {msg}-byte message" + (", L and R projective" if npts else ", y"),
+            "compressions": fsx_compressions(msg, 3),
+            "inverse_steps": inverse_steps((prod << 256) % Q, Q) if npts else 0,
+            "products": products,
+            "checked_launches": checked,
+            **bound(in_bytes + out_bytes, products),
+        }
+        print("phase 2 fsx:", name, json.dumps(rec[name]), flush=True)
     return rec
 
 
@@ -1161,17 +1305,21 @@ def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0)
 
 
 def phase_ipa(dev, crs, small: int = 32):
-    """IPA at domain 256 on the card: checks, launch counts, timings; and a
-    proof at domain ``small`` on the card against the CPU plain path. Also
-    returns the data vector and its commitment for phase 6."""
+    """IPA at domain 256 on the card: checks, launch counts, timings; the
+    device loop (the prove's path) against the host loop, bit for bit, with
+    no host sync between its upload and its one read; and a proof at domain
+    ``small`` on the card against the CPU plain path. Also returns the data
+    vector and its commitment for phase 6."""
     import torch
 
     from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
     from verkle_kzg_tpu_torch.hostmath.curve import g1_add, g1_generator
     from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.poly import Domain, FrVector
     from verkle_kzg_tpu_torch.schemes import IPA, IPAParams
+    from verkle_kzg_tpu_torch.schemes import ipa as I
 
     n = 256
     rng = random.Random(256)
@@ -1200,13 +1348,13 @@ def phase_ipa(dev, crs, small: int = 32):
     cuda_lib.reset_launches()
     commit = run("commit", lambda: IPA.commit(crs, data))
     t_gpu = Transcript("ipa")
-    proof = run("prove", lambda: IPA.prove_point(crs, commit, index, data, t_gpu))
+    proof, reads = run("prove", lambda: no_sync_window(lambda: IPA.prove_point(crs, commit, index, data, t_gpu)))
     ok = run("verify", lambda: IPA.verify(crs, commit, index, proof))
     proof_out = IPA.prove(crs, commit, outside, data)
     ok_out = IPA.verify(crs, commit, outside, proof_out)
     bad_commit = IPA.verify(crs, g1_add(commit, g1_generator()), index, proof)
     cross = IPA.verify(crs, commit, index, proof_out)
-    cproof = IPA.prove_commitment(crs, commit, data)
+    cproof, creads = run("prove_commitment", lambda: no_sync_window(lambda: IPA.prove_commitment(crs, commit, data)))
     cok = IPA.verify_commitment_proof(crs, commit, cproof)
     torch.cuda.synchronize()
     main_path_launches = dict(cuda_lib.launches)
@@ -1216,13 +1364,35 @@ def phase_ipa(dev, crs, small: int = 32):
     assert proof.y == vals[index] and len(proof.l) == 8
     assert commit == native.g1_msm(crs.g_host, vals), "commit != native oracle"
     assert counts["commit"]["K3"] == 1 and counts["commit"]["K4"] == 1
-    assert counts["prove"]["K3"] == 16 and counts["prove"]["K4"] == 16
     assert counts["verify"]["K3"] == 1 and counts["verify"]["K4"] == 1
-    # the prove's vector math is K1IPA: <a, b>, 8 rounds and the last fold
-    assert counts["prove"]["K1IPA"] == 10 and counts["prove"]["K1"] == 0, counts["prove"]
-    # (K2 is not among them: its launches here were the folds of K3's point
-    # segments, which the sorted K3 has no more; K1 is the commit's from_mont)
-    assert min(main_path_launches[k] for k in ("K1", "K1IPA", "K3", "K4")) > 0, main_path_launches
+    # the device loop: <a, b> and w, then 8 rounds of K1IPA, two MSMs (K3 +
+    # K4) and FSX, and the last fold; no K1, one read, no sync in between
+    c = counts["prove"]
+    assert (c["FSX"], c["K1IPA"], c["K3"], c["K4"], c["K1"]) == (9, 10, 16, 16, 0), c
+    assert (counts["prove_commitment"]["FSX"], counts["prove_commitment"]["K1IPA"]) == (8, 9), counts
+    assert reads == creads == 1, (reads, creads)
+    assert min(main_path_launches[k] for k in ("K1", "K1IPA", "K3", "K4", "FSX")) > 0, main_path_launches
+
+    # the host loop, the second implementation, on the same inputs
+    same = {}
+    for point, want in ((index, proof), (outside, proof_out)):
+        t_dev, t_host = Transcript("ipa"), Transcript("ipa")
+        got = IPA.prove_point(crs, commit, point, data, t_dev)
+        b = F.ints_to_mont(crs.domain.barycentric_coefficients(point), "fr", dev)
+        host = I._low_level_ipa_hostloop(crs, data.vals, b, commit, point, t_host)
+        same[point] = (got.l, got.r, got.tip, got.y) == (host.l, host.r, host.tip, host.y) == (
+            want.l, want.r, want.tip, want.y) and bytes(t_dev._state) == bytes(t_host._state)
+    hproof = I._commitment_proof(crs, commit, data, hostloop=True)
+    same["commitment"] = (cproof.l, cproof.r, cproof.tip) == (hproof.l, hproof.r, hproof.tip)
+    assert all(same.values()), f"device loop != host loop: {same}"
+
+    # both loops timed by CUDA events, 5 calls each in turns, and their K4 tails
+    b17 = F.ints_to_mont(crs.domain.barycentric_coefficients(index), "fr", dev)
+    loops = {"device": lambda: IPA.prove_point(crs, commit, index, data, Transcript("ipa")),
+             "host": lambda: I._low_level_ipa_hostloop(crs, data.vals, b17, commit, index, Transcript("ipa"))}
+    loop_ms = {k: [] for k in loops}
+    for name in ("device", "host", "host", "device", "device", "host", "host", "device", "device", "host"):
+        loop_ms[name].append(timed_once(loops[name])[1])
 
     # the same proof from the plain path on this machine's CPU, at domain
     # `small` (the setup ipa_setup(small) makes: the first small + 1 of the
@@ -1240,7 +1410,11 @@ def phase_ipa(dev, crs, small: int = 32):
     assert proofs[0] == proofs[1], f"IPA proof at {small}: card != CPU"
     assert states[0] == states[1], f"IPA transcript at {small}: card != CPU"
     return {
-        "prove_k4_tails_ms": _prove_tails(crs, commit, index, data),
+        "prove_k4_tails_ms": _prove_tails(crs, loops["device"]),
+        "hostloop_k4_tails_ms": _prove_tails(crs, loops["host"]),
+        "loop_ms": loop_ms,
+        "device_vs_host_identical": same,
+        "reads_per_prove": reads,
         "ms": ms,
         "launches_per_call": counts,
         "main_path_launches": main_path_launches,
@@ -1248,15 +1422,42 @@ def phase_ipa(dev, crs, small: int = 32):
     }, (vals, data, commit)
 
 
-def _prove_tails(crs, commit, index, data) -> dict:
-    """One more IPA prove with a CUDA-event pair around each of its K4 tails
-    (two a halving round, 16 at domain 256; ``cuda_msm.tail`` wrapped for
-    that call): their sum and each."""
+def no_sync_window(fn) -> tuple:
+    """``fn()`` with the IPA device loop watched: from the return of its one
+    upload (``ipa._state_to_device``) to its one read (``ipa._read_back``)
+    the card runs under ``torch.cuda.set_sync_debug_mode("error")``, so any
+    host sync in between raises. -> (fn's result, the reads it made)."""
     import torch
 
-    from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
+    from verkle_kzg_tpu_torch.schemes import ipa as I
+
+    upload, read, reads = I._state_to_device, I._read_back, []
+
+    def watched_upload(t, device):
+        out = upload(t, device)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def watched_read(*parts):
+        torch.cuda.set_sync_debug_mode(0)
+        reads.append(1)
+        return read(*parts)
+
+    I._state_to_device, I._read_back = watched_upload, watched_read
+    try:
+        return fn(), len(reads)
+    finally:
+        I._state_to_device, I._read_back = upload, read
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _prove_tails(crs, prove) -> dict:
+    """One more IPA prove (``prove()``) with a CUDA-event pair around each of
+    its K4 tails (two a halving round, 16 at domain 256; ``cuda_msm.tail``
+    wrapped for that call): their sum and each."""
+    import torch
+
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
-    from verkle_kzg_tpu_torch.schemes import IPA
 
     events, tail = [], K.tail
 
@@ -1270,7 +1471,7 @@ def _prove_tails(crs, commit, index, data) -> dict:
 
     K.tail = timed_tail
     try:
-        IPA.prove_point(crs, commit, index, data, Transcript("ipa"))
+        prove()
         torch.cuda.synchronize()
     finally:
         K.tail = tail
@@ -1735,7 +1936,8 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
     assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
     # K2FOLD sums the sparse commits and the verify's 51 commitments, so no K2
-    assert min(path_launches[k] for k in ("K1", "K1IPA", "K2FOLD", "K3", "K4", "K5", "K6", "K7")) > 0, path_launches
+    assert min(path_launches[k] for k in ("K1", "K1IPA", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7")) > 0, \
+        path_launches
     assert path_launches["K2"] == 0, path_launches
     assert counts["prove"]["K1INV"] > 0 and regimes["many"] > 0 and regimes["few"] > 0, (counts["prove"], regimes)
 
@@ -1831,7 +2033,7 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     bad = [q.to_verifier_query() for q in queries]
     bad[m // 2].y = (bad[m // 2].y + 1) % R
     assert not verify_multiproof(IPA, crs, bad, proof), "a wrong y was accepted"
-    assert min(path_launches[k] for k in ("K1", "K1INV", "K1IPA", "K3", "K4", "K5")) > 0, path_launches
+    assert min(path_launches[k] for k in ("K1", "K1INV", "K1IPA", "FSX", "K3", "K4", "K5")) > 0, path_launches
     assert path_launches["K2"] == 0, path_launches  # E's one lane is no fold
     assert counts["verify"]["K5"] == regimes["few"] == 1, (counts["verify"], regimes)  # E's one lane
     return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
@@ -2140,7 +2342,7 @@ def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n,
     assert counts["msm_sharded"]["K3"] == counts["msm_sharded"]["K4"] == 1, counts["msm_sharded"]
     for name in ("msm_batched_sharded", "msm_fixed_base_sharded", "verkle_commit"):
         assert counts[name]["K6"] > 0 and counts[name]["K7"] > 0, (name, counts[name])
-    assert min(counts["multiproof_prove"][k] for k in ("K1IPA", "K3", "K4")) > 0, counts["multiproof_prove"]
+    assert min(counts["multiproof_prove"][k] for k in ("K1IPA", "FSX", "K3", "K4")) > 0, counts["multiproof_prove"]
 
     # times, the mesh path beside its twin: CUDA events over a few calls in
     # turns (mesh, twin, twin, mesh); the tree by the wall clock
@@ -2179,8 +2381,9 @@ def proofs_digest(proofs) -> str:
 
 
 def k1_counts(phase: dict) -> dict:
-    """K1's, K1INV's and K1IPA's launches in each stage of a phase's record."""
-    return {stage: {k: c[k] for k in ("K1", "K1INV", "K1IPA")} for stage, c in phase["launches_per_stage"].items()}
+    """K1's, K1INV's, K1IPA's and FSX's launches in each stage of a phase's record."""
+    keys = ("K1", "K1INV", "K1IPA", "FSX")
+    return {stage: {k: c[k] for k in keys} for stage, c in phase["launches_per_stage"].items()}
 
 
 def main() -> int:
@@ -2228,14 +2431,14 @@ def main() -> int:
     verkle = phase_verkle(dev, crs)
     print(f"phase 5 verkle, 10k leaves, Ethereum geometry ({time.perf_counter() - t0:.1f} s):", json.dumps(verkle),
           f"[{card}]", flush=True)
-    print("phase 5 K1, K1INV and K1IPA launches per stage:", json.dumps(k1_counts(verkle)), flush=True)
+    print("phase 5 K1, K1INV, K1IPA and FSX launches per stage:", json.dumps(k1_counts(verkle)), flush=True)
     print("phase 5 K5 lanes of each call per stage:", json.dumps(verkle["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
     mp = phase_multiproof(dev, crs, ipa_data)
     print(f"phase 6 multiproof, 1024 queries at 256 ({time.perf_counter() - t0:.1f} s):", json.dumps(mp),
           f"[{card}]", flush=True)
-    print("phase 6 K1, K1INV and K1IPA launches per stage:", json.dumps(k1_counts(mp)), flush=True)
+    print("phase 6 K1, K1INV, K1IPA and FSX launches per stage:", json.dumps(k1_counts(mp)), flush=True)
     print("phase 6 K5 lanes of each call per stage:", json.dumps(mp["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
@@ -2247,7 +2450,7 @@ def main() -> int:
     kzg = phase_kzg(dev, card)
     print(f"phase 8 kzg@256, fk, kzg multiproof ({time.perf_counter() - t0:.1f} s):", json.dumps(kzg),
           f"[{card}]", flush=True)
-    print("phase 8 K1, K1INV and K1IPA launches per stage:", json.dumps(k1_counts(kzg)),
+    print("phase 8 K1, K1INV, K1IPA and FSX launches per stage:", json.dumps(k1_counts(kzg)),
           "path:", json.dumps({k: kzg["path_launches"][k] for k in ("K1", "K1INV")}), flush=True)
 
     t0 = time.perf_counter()
@@ -2268,7 +2471,7 @@ def main() -> int:
                "K5": "scalar_mul.cu", "K6": "msm_sorted.cu", "K7": "msm_tail.cuh",
                "K8": "msm_sorted.cu", "K9": "msm_sorted.cu", "K10": "msm_sorted.cu",
                "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_sorted.cu",
-               "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu"}
+               "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu", "FSX": "fiat_shamir.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         # the K1 chain of verkle_kzg_tpu/ops/field.py:327's scan and :342's batch inversion
@@ -2292,8 +2495,11 @@ def main() -> int:
         # the chain of verkle_kzg_tpu/ops/curve.py:239's scan: double (:350) and add (:328) a bit
         "G1SMUL": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         "G1BFLY": "verkle_kzg_tpu/ops/pallas_curve.py:328",
+        # no pallas_call: the jnp digest chain in the fused loop's round body
+        # (to_affine, g1_compressed_bytes, hash_to_fr, to_mont)
+        "FSX": "verkle_kzg_tpu/schemes/ipa.py:249",
     }
-    # launches: K1, K1INV, K1IPA, K2FOLD and K3-K7 from the verkle path of
+    # launches: K1, K1INV, K1IPA, FSX, K2FOLD and K3-K7 from the verkle path of
     # phase 5 (commit, prove, verify), which runs all of them; K8-K10 from the
     # sweep of phase 7; G1SMUL and G1BFLY from the KZG path of phase 8; K2,
     # K11 and K12 from phase 2, since no path calls the standalone add (its
@@ -2302,7 +2508,7 @@ def main() -> int:
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
-        **dict.fromkeys(("K1", "K1INV", "K1IPA", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
+        **dict.fromkeys(("K1", "K1INV", "K1IPA", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
                         ("phase 5", verkle["path_launches"])),
         "K2": ("phase 2 only: no path calls curve.add since K2FOLD", phase2_launches),
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
@@ -2316,7 +2522,8 @@ def main() -> int:
                  "K13": group["path_cuda_launches"]["K13"]}
     chains = {"G1SMUL": "verkle_kzg_tpu/ops/curve.py:239", "G1BFLY": "verkle_kzg_tpu/ops/curve.py:239",
               "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342",
-              "K1IPA": "verkle_kzg_tpu/schemes/ipa.py:214", "K2FOLD": "verkle_kzg_tpu/ops/msm.py:67"}
+              "K1IPA": "verkle_kzg_tpu/schemes/ipa.py:214", "K2FOLD": "verkle_kzg_tpu/ops/msm.py:67",
+              "FSX": "verkle_kzg_tpu/schemes/ipa.py:236-252"}
     kernels = []
     for k in sources:
         first = kern[k] if k in kern else kern[min(r for r in kern if r.startswith(k + "@"))]

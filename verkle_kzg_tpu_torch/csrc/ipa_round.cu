@@ -17,11 +17,6 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// A field element passed to the kernel by value: no copy to the card.
-struct Word8 {
-  uint32_t v[8];
-};
-
 __device__ __forceinline__ void set_zero(uint32_t r[8]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) r[j] = 0;
@@ -72,16 +67,19 @@ __device__ void block_sum(uint32_t (&s)[K][8]) {
 //    and with b, slot n: w <a'_l, b'_r> and w <a'_r, b'_l> over j < h.
 __global__ void __launch_bounds__(THREADS)
     ipa_round_kernel(const uint32_t* a, const uint32_t* b, const uint32_t* wts, uint32_t* a_out,
-                     uint32_t* b_out, uint32_t* wts_out, uint32_t* sc, Word8 x, Word8 w, int64_t n,
-                     int64_t half, int64_t len) {
+                     uint32_t* b_out, uint32_t* wts_out, uint32_t* sc, const uint32_t* xp,
+                     const uint32_t* wp, int64_t n, int64_t half, int64_t len) {
   const int tid = threadIdx.x;
+  uint32_t x[8], w[8];  // from device memory: the challenges FSX (or the host) wrote there
+  if (half) load8(x, xp);
+  if (len && b) load8(w, wp);
   for (int64_t i = tid; i < n; i += THREADS) {
     const bool live = i < half;
     uint32_t v[8], u[8];
     load8(v, a + 8 * i);
     if (live) {
       load8(u, a + 8 * (i + half));
-      fmul<Fr, false>(u, u, x.v);
+      fmul<Fr, false>(u, u, x);
       fadd<Fr, false>(v, v, u);
     }
     store8(a_out + 8 * i, v);
@@ -89,7 +87,7 @@ __global__ void __launch_bounds__(THREADS)
       load8(v, b + 8 * i);
       if (live) {
         load8(u, b + 8 * (i + half));
-        fmul<Fr, false>(v, v, x.v);
+        fmul<Fr, false>(v, v, x);
         fadd<Fr, false>(v, u, v);
       }
       store8(b_out + 8 * i, v);
@@ -101,7 +99,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = Fr::one(j);
       }
-      if (half && (i & (2 * half - 1)) < half) fmul<Fr, false>(v, v, x.v);
+      if (half && (i & (2 * half - 1)) < half) fmul<Fr, false>(v, v, x);
       store8(wts_out + 8 * i, v);
     }
   }
@@ -146,7 +144,7 @@ __global__ void __launch_bounds__(THREADS)
     if (tid == 0) {
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        fmul<Fr, false>(ip[k], ip[k], w.v);
+        fmul<Fr, false>(ip[k], ip[k], w);
         from_mont(ip[k], ip[k]);
       }
       store8(sc_l + 8 * n, ip[0]);
@@ -171,18 +169,9 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) store8(out, s[0]);
 }
 
-Word8 words_of(const void* p) {
-  Word8 r{};
-  if (p) {
-    const uint32_t* q = (const uint32_t*)p;
-    for (int j = 0; j < 8; ++j) r.v[j] = q[j];
-  }
-  return r;
-}
-
 }  // namespace
 
-// x, w: host pointers to 8 Montgomery words each (null where unused); b, wts,
+// x, w: device pointers to 8 Montgomery words each (null where unused); b, wts,
 // b_out: null without b; wts and wts_out: see the kernel; sc: null when
 // len == 0.
 extern "C" int vkzg_ipa_round(const void* a, const void* b, const void* wts, void* a_out,
@@ -190,7 +179,8 @@ extern "C" int vkzg_ipa_round(const void* a, const void* b, const void* wts, voi
                               int64_t n, int64_t half, int64_t len, void* stream) {
   ipa_round_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)wts, (uint32_t*)a_out,
-      (uint32_t*)b_out, (uint32_t*)wts_out, (uint32_t*)sc, words_of(x), words_of(w), n, half, len);
+      (uint32_t*)b_out, (uint32_t*)wts_out, (uint32_t*)sc, (const uint32_t*)x, (const uint32_t*)w, n,
+      half, len);
   return (int)cudaGetLastError();
 }
 

@@ -20,12 +20,14 @@ runs. It folds the previous challenge x into a, b and the weights, reading
 the input buffers and writing fresh output buffers (the fold reads
 a[j + half], which another thread owns), then after one ``__syncthreads()``
 builds both MSMs' scalars in standard form and the two inner products,
-each summed in shared memory by a tree of reduced adds. x and w travel as
-kernel arguments, eight Montgomery words computed on the host, so a round
-copies nothing to the card. A prove at 256 is 1 + 8 + 1 launches (the inner
-product, the rounds, the fold that leaves the tip). Every product and sum
-is reduced, so the words are unique: the order of a sum cannot change them,
-and kernel, plain version and the JAX package agree bit for bit.
+each summed in shared memory by a tree of reduced adds. x and w are read
+from device memory, eight Montgomery words each: in the device loop FSX
+(``cuda_fiat_shamir.py``) writes them there, so a round needs nothing from
+the host; the host loop copies its int challenge to the card first. A
+prove at 256 is 1 + 8 + 1 launches (the inner product, the rounds, the
+fold that leaves the tip). Every product and sum is reduced, so the words
+are unique: the order of a sum cannot change them, and kernel, plain
+version and the JAX package agree bit for bit.
 
 The plain versions below are what the wrappers run for CPU tensors: the
 round as it ran on K1's plain functions (``cuda_field.plain``). For a CUDA
@@ -34,11 +36,8 @@ tensor the wrappers launch the kernel or raise.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..params import R
 from . import cuda_field as KF
 from . import cuda_lib
 from . import field as F
@@ -54,8 +53,10 @@ def _add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return KF.plain("add", p, q, _SPEC)
 
 
-def _mont(v: int, device) -> torch.Tensor:
-    return F.ints_to_mont([v], _SPEC, device)[0]
+def as_mont(v, device) -> torch.Tensor:
+    """A challenge as (8,) Montgomery words on ``device``: an int is
+    converted on the host and copied there, a word tensor kept as it is."""
+    return v if isinstance(v, torch.Tensor) else F.ints_to_mont([v], _SPEC, device)[0]
 
 
 def _plain_sum(x: torch.Tensor) -> torch.Tensor:
@@ -80,9 +81,9 @@ def plain_round(a, b, wts, x, w, half: int, ln: int):
     n, dev = a.shape[0], a.device
     i = torch.arange(n, device=dev)[:, None]
     if wts is None:
-        wts = _mont(1, dev).expand(n, F.WORDS)
+        wts = as_mont(1, dev).expand(n, F.WORDS)
     if half:
-        xm = _mont(x, dev).expand(n, F.WORDS)
+        xm = as_mont(x, dev).expand(n, F.WORDS)
         left = i < half
         idx_f = torch.where(left, i + half, 0)[:, 0]
         new_a = torch.where(left, _add(a, _mul(a[idx_f], xm)), a)
@@ -104,20 +105,11 @@ def plain_round(a, b, wts, x, w, half: int, ln: int):
         idx_f = torch.where(left, i + h, 0)[:, 0]
         ip_l = _plain_sum(torch.where(left, _mul(a, b[idx_f]), zeros))
         ip_r = _plain_sum(torch.where(left, _mul(a[idx_f], b), zeros))
-        wm = _mont(w, dev)[None]
+        wm = as_mont(w, dev)[None]
         sc_l = torch.cat([sc_l, _mul(wm, ip_l)])
         sc_r = torch.cat([sc_r, _mul(wm, ip_r)])
     one = F.const_words(1, dev)
     return a, b, wts, torch.stack([_mul(sc_l, one.expand_as(sc_l)), _mul(sc_r, one.expand_as(sc_r))])
-
-
-def _words(v):
-    """A field element as the kernel's by-value argument: 8 Montgomery words
-    on the host (None: a null pointer)."""
-    if v is None:
-        return None
-    m = (int(v) % R << 256) % R
-    return (ctypes.c_uint32 * F.WORDS)(*((m >> (32 * j)) & 0xFFFFFFFF for j in range(F.WORDS)))
 
 
 def _ptr(t):
@@ -134,12 +126,13 @@ def halving_round(a, b, wts, x, w, half: int, ln: int):
     ``a``, ``b``: the vectors, n a power of two (``b`` None in a commitment
     proof); ``wts``: the accumulated challenge weight of each original
     basis index (None: all one, before the first fold). With ``half`` > 0
-    the previous round's challenge ``x`` (an int) folds in first:
+    the previous round's challenge ``x`` folds in first:
     a[j] += x a[j + half], b[j] = b[j + half] + x b[j] for j < half, and
     wts[i] *= x where i mod 2 half < half. With ``ln`` > 0 (the round's
     length) the scalars of its two MSMs follow, in standard form, as
     (2, n, 8), or (2, n + 1, 8) with ``b``, whose slot n holds
-    w <a_l, b_r> and w <a_r, b_l> for the challenge ``w`` (an int).
+    w <a_l, b_r> and w <a_r, b_l> for the challenge ``w``. A challenge is
+    (8,) Montgomery words on a's device, or an int (:func:`as_mont`).
 
     Returns (a, b, wts, scalars), new tensors: b None without ``b``; wts and
     scalars None when ``ln`` is 0 (the final fold, which leaves the tip in
@@ -156,14 +149,18 @@ def halving_round(a, b, wts, x, w, half: int, ln: int):
     given = [t for t in (a, b, wts) if t is not None]
     if any(t.shape != a.shape for t in given):
         raise ValueError("ipa round: a, b and wts must have one shape")
-    cuda_lib.require_cuda("ipa.halving_round", *given)
+    xm = as_mont(x, a.device) if half else None
+    wm = as_mont(w, a.device) if ln and b is not None else None
+    if any(t is not None and t.shape != (F.WORDS,) for t in (xm, wm)):
+        raise ValueError("ipa round: a challenge must be an int or (8,) Montgomery words")
+    cuda_lib.require_cuda("ipa.halving_round", *given, *(t for t in (xm, wm) if t is not None))
     a_out = torch.empty_like(a)
     b_out = None if b is None else torch.empty_like(b)
     wts_out = torch.empty_like(a) if ln else None
     sc = torch.empty((2, n + (b is not None), F.WORDS), dtype=a.dtype, device=a.device) if ln else None
     err = cuda_lib.lib().vkzg_ipa_round(
         a.data_ptr(), _ptr(b), _ptr(wts), a_out.data_ptr(), _ptr(b_out), _ptr(wts_out), _ptr(sc),
-        _words(x if half else None), _words(w if ln else None), n, half, ln, cuda_lib.stream(a),
+        _ptr(xm), _ptr(wm), n, half, ln, cuda_lib.stream(a),
     )
     cuda_lib.check(err, "vkzg_ipa_round")
     cuda_lib.launches["K1IPA"] += 1

@@ -166,6 +166,37 @@ def neg(p: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, F.neg(y, _FQ), z], dim=-2)
 
 
+def affine_neg(a: torch.Tensor) -> torch.Tensor:
+    """-a for (..., 2, 8) affine points, through K1; the (0, 0) sentinel
+    stays itself, since -0 = 0 (``ops/curve.py::affine_neg``)."""
+    x, y = a.unbind(-2)
+    return torch.stack([x, F.neg(y, _FQ)], dim=-2)
+
+
+def is_infinity(p: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 8) projective -> (...) bool: Z = 0 (``ops/curve.py::is_infinity``)."""
+    return F.is_zero(p[..., 2, :])
+
+
+def select(mask: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``mask`` (...) picks whole points of ``p``, else of ``q``, projective
+    or affine (``ops/curve.py::select``)."""
+    return torch.where(mask[..., None, None], p, q)
+
+
+def eq(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Projective equality by cross-multiplication (four K1 products):
+    (..., 3, 8) x (..., 3, 8) -> (...) bool (``ops/curve.py::eq``)."""
+    p, q = torch.broadcast_tensors(p, q)
+    x1, y1, z1 = p.unbind(-2)
+    x2, y2, z2 = q.unbind(-2)
+    inf1, inf2 = F.is_zero(z1), F.is_zero(z2)
+    lhs = F.mont_mul(torch.stack([x1, y1]), torch.stack([z2, z2]), _FQ)
+    rhs = F.mont_mul(torch.stack([x2, y2]), torch.stack([z1, z1]), _FQ)
+    same = F.eq(lhs, rhs).all(0)
+    return (inf1 & inf2) | (same & ~(inf1 ^ inf2))
+
+
 def scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """Double-and-add (``ops/curve.py::scalar_mul``): (..., 3, 8) projective
     points x (..., 8) standard scalars, reduced domain, in one G1SMUL launch.
@@ -225,6 +256,24 @@ def host_points_to_affine(points, device) -> torch.Tensor:
     for pt in points:
         coords.extend((0, 0) if pt is None else ((pt[0] << 256) % Q, (pt[1] << 256) % Q))
     return F.ints_to_words(coords, device).reshape(len(points), 2, F.WORDS)
+
+
+def host_point_to_projective(pt, device) -> torch.Tensor:
+    """One host point -> (1, 3, 8) projective (``ops/curve.py::host_point_to_projective``)."""
+    return from_affine(host_points_to_affine([pt], device))
+
+
+def affine_to_host_points(a: torch.Tensor) -> list:
+    """(..., 2, 8) Montgomery affine with the (0, 0) sentinel -> flat list of
+    host points (None for the sentinel), computed on the host
+    (``ops/curve.py::affine_to_host_points``)."""
+    xy = F.words_to_ints(a)
+    rinv = pow(1 << 256, -1, Q)
+    out = []
+    for i in range(0, len(xy), 2):
+        x, y = xy[i] * rinv % Q, xy[i + 1] * rinv % Q
+        out.append(None if x == 0 and y == 0 else (x, y))
+    return out
 
 
 def projective_to_host_points(p: torch.Tensor) -> list:

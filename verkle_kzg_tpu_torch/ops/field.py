@@ -9,7 +9,9 @@ Montgomery *integers* equal the JAX package's; only the limb split differs
 
 Two layers live here:
 
-  * the public API on word tensors: element-wise ``mont_mul``, ``add``,
+  * the public API on word tensors: the constructors and predicates
+    (``zeros``, ``one_mont``, ``const_mont``, ``is_zero``, ``eq``,
+    ``select``), element-wise ``mont_mul``, ``mont_sq``, ``add``, ``double``,
     ``sub``, ``neg``, ``to_mont``, ``from_mont``, ``inv_mont``, and across
     elements ``sum_lanes``/``sum_axis``, ``batch_inv_mont`` and
     ``powers_of_mont``. Every product and modular add/sub goes through
@@ -298,13 +300,59 @@ def mont_mul16(a: torch.Tensor, b: torch.Tensor, spec: str, lazy: bool = False) 
 # ---------------------------------------------------------------------------
 
 
+def zeros(lead=(), b: int | None = None, *, device) -> torch.Tensor:
+    """(lead..., b, 8) zero words; b None gives (lead..., 8)
+    (``ops/field.py::zeros``)."""
+    return torch.zeros(tuple(lead) + ((b,) if b is not None else ()) + (WORDS,), dtype=torch.int32, device=device)
+
+
+def one_mont(spec: str, lead=(), b: int | None = None, *, device) -> torch.Tensor:
+    """The multiplicative identity in Montgomery form (R mod m), broadcast to
+    (lead..., b, 8), or (lead..., 8) when b is None (``ops/field.py::one_mont``)."""
+    shape = tuple(lead) + ((b,) if b is not None else ()) + (WORDS,)
+    return const_words(SPECS[spec].r_mod, device).expand(shape)
+
+
+def const_mont(value: int, spec: str, device) -> torch.Tensor:
+    """The integer ``value`` in Montgomery form: one (8,) word vector,
+    computed on the host (``ops/field.py::const_mont``)."""
+    return ints_to_mont([value], spec, device)[0]
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """(..., 8) -> (...) bool (``ops/field.py::is_zero``)."""
+    return (a == 0).all(-1)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Word equality of each element: (..., 8) x (..., 8) -> (...) bool; for
+    reduced elements, equality of the values (``ops/field.py::eq``)."""
+    return (a == b).all(-1)
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``mask`` (broadcastable to a's shape less the word axis) picks whole
+    elements of ``a``, else of ``b`` (``ops/field.py::select``)."""
+    return torch.where(mask[..., None], a, b)
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
     """Montgomery product of reduced operands, reduced. Kernel K1."""
     return _k1.binop("mul", a, b, spec)
 
 
+def mont_sq(a: torch.Tensor, spec: str) -> torch.Tensor:
+    """a * a / R (``ops/field.py::mont_sq``). Kernel K1."""
+    return mont_mul(a, a, spec)
+
+
 def add(a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
     return _k1.binop("add", a, b, spec)
+
+
+def double(a: torch.Tensor, spec: str) -> torch.Tensor:
+    """2a mod m (``ops/field.py::double``). Kernel K1."""
+    return add(a, a, spec)
 
 
 def sub(a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
@@ -364,12 +412,18 @@ def sum_axis(a: torch.Tensor, dim: int, spec: str) -> torch.Tensor:
     return sum_lanes(a.movedim(dim, -2), spec).movedim(-2, dim)
 
 
-def batch_inv_mont(a: torch.Tensor, spec: str) -> torch.Tensor:
-    """Montgomery's trick over the element axis (-2) of (..., N, 8)
-    Montgomery words, each leading index on its own
-    (``ops/field.py::batch_inv_mont``); zero entries invert to zero
-    (ark_ff::batch_inversion skips zeros). Kernel K1INV, one launch."""
-    return _k1.inverse(a, spec, batch=True)
+def batch_inv_mont(a: torch.Tensor, spec: str, axis: int = -2) -> torch.Tensor:
+    """Montgomery's trick over the batch axis ``axis`` of (..., 8)
+    Montgomery words, by default the element axis (-2, the JAX package's
+    lane axis), each other index on its own (``ops/field.py::batch_inv_mont``);
+    zero entries invert to zero (ark_ff::batch_inversion skips zeros).
+    Kernel K1INV, one launch."""
+    axis = axis % a.dim()
+    if axis == a.dim() - 1:
+        raise ValueError("batch_inv_mont: the word axis is not a batch axis")
+    if axis == a.dim() - 2:
+        return _k1.inverse(a, spec, batch=True)
+    return _k1.inverse(a.movedim(axis, -2), spec, batch=True).movedim(-2, axis)
 
 
 def powers_of_mont(x: torch.Tensor, n: int, spec: str) -> torch.Tensor:

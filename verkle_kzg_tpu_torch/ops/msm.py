@@ -131,6 +131,39 @@ def fold_reduce_lanes(p: torch.Tensor, dim: int = -3) -> torch.Tensor:
     return out.reshape(lead + (1, 3, F.WORDS)).movedim(-3, dim)
 
 
+def tree_reduce_points(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """The sum of points (..., 3, 8) over the batch axis ``axis``, which the
+    result drops (``ops/msm.py::tree_reduce_points``): the same halving tree
+    as :func:`fold_reduce_lanes`, one K2FOLD launch."""
+    axis = axis % p.dim()
+    if axis >= p.dim() - 2:
+        raise ValueError("tree_reduce_points: the axis must be a batch axis of (..., 3, 8) points")
+    return fold_reduce_lanes(p, dim=axis).squeeze(axis)
+
+
+def suffix_scan_points(p: torch.Tensor, axis: int) -> torch.Tensor:
+    """Inclusive suffix sums of points (..., 3, 8) along the batch axis
+    ``axis`` (``ops/msm.py::suffix_scan_points``): Hillis-Steele, ceil(log2 n)
+    steps, each one K2 launch of complete adds over the whole axis."""
+    axis = axis % p.dim()
+    if axis >= p.dim() - 2:
+        raise ValueError("suffix_scan_points: the axis must be a batch axis of (..., 3, 8) points")
+    x = p.movedim(axis, 0)
+    n = x.shape[0]
+    idx = torch.arange(n, device=x.device).reshape((n,) + (1,) * (x.dim() - 1))
+    for k in range((n - 1).bit_length()):
+        sh = 1 << k
+        x = torch.where(idx + sh < n, C.add(x, torch.roll(x, -sh, 0)), x)
+    return x.movedim(0, axis)
+
+
+def msm_naive(points_proj: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """The per-point oracle MSM (``ops/msm.py::msm_naive``, ``utils.rs:16-19``):
+    (N, 3, 8) projective x (N, 8) standard scalars -> (3, 8), one G1SMUL
+    launch for the products and one K2FOLD for their sum."""
+    return fold_reduce_lanes(C.scalar_mul(points_proj, scalars), dim=0)[0]
+
+
 def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None,
                   lanes: int = 128, signed: bool = True):
     """(N, 2, 8) affine Montgomery points x (N, 8) standard scalars ->
