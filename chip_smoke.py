@@ -9,11 +9,14 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K13, K1INV, K1IPA, K2FOLD, G1SMUL, G1BFLY, FSX) against
-     its plain PyTorch version on the card, at the shapes the main paths give
-     it, exact, with its time and the least time the card could take for
-     the same work; K1INV, K1IPA and K2FOLD also against the K1 or K2 chain
-     each replaces, timed in the same run (K1INV with its dependent chain:
+  2. each kernel (K1-K13, K1INV, K1IPA, K1QUO, K1MP, K2FOLD, G1SMUL, G1BFLY,
+     FSX) against its plain PyTorch version on the card, at the shapes the
+     main paths give it, exact, with its time and the least time the card
+     could take for the same work; K1INV, K1IPA, K1QUO, K1MP and K2FOLD also
+     against the K1 or K2 chain each replaces, timed in the same run (K1QUO
+     and K1MP at phase 6's shape (the grouped pass, g, each row's quotient,
+     h and h - g), the KZG prove's one row at index 17 and 1,024 queries at
+     one point; K1INV with its dependent chain:
      products and the inverse's loop steps; K1IPA a round at 8, 256 and
      1,024 elements with and without b, x and w read from device memory,
      and <a, b> at 256; FSX, a Fiat-Shamir challenge, in each mode at
@@ -58,7 +61,8 @@ and no JAX. Phases, each of which raises on failure:
      present and 3 absent keys with one multiproof, verify statelessly;
      sampled commitments against the native C++ oracle, a 150-leaf tree on
      the card against the CPU plain path, and a profile of the commit;
-  6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3);
+  6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3),
+     and its twin made through the plain versions of K1MP and K1QUO;
   7. the single-MSM sweep of BASELINE.json config 5, 2^16-2^22 points, at
      c = 8, 4, 12 and 16 signed, and at 2^20 also unsigned c = 8 and 16 and
      signed c = 5, 10 and 13, each run exact against an oracle, with the
@@ -67,7 +71,9 @@ and no JAX. Phases, each of which raises on failure:
      native oracle, proofs in and out of the domain with their pairings;
      FK all-points proofs against the 256 single proofs; FK at domain 16
      on the card against the CPU path; and the 1,024-query multiproof over
-     KZG (config 3, the KZG half); then, off that path, one G1 scalar
+     KZG (config 3, the KZG half); the in-domain prove, the 256 single
+     proves and the multiproof against twins made through the plain
+     versions of K1QUO and K1MP; then, off that path, one G1 scalar
      multiplication and the Fr and G1 NTT round trips with their launches,
      and one G1 NTT with each stage timed by CUDA events;
   9. benchmarks/tune_group.py's default grid on the port: the signed
@@ -87,7 +93,9 @@ and no JAX. Phases, each of which raises on failure:
 
 Each of phases 2, 3, 5, 6, 8 and 10, and each run of phases 7 and 9, sets the
 launch counts to 0 just before its path and reads them just after; phases
-5, 6 and 8 print K1's, K1INV's, K1IPA's and FSX's launches stage by stage,
+5, 6 and 8 print K1's, K1INV's, K1IPA's, K1QUO's, K1MP's and FSX's launches
+stage by stage and assert those of the proves exactly (a multiproof: 2
+K1MP, 1 K1QUO, 2 K1 for the commits, no K1INV over the IPA),
 phases 5 and 6 assert that no K2 ran (K2FOLD sums the folds), and phases 5
 and 6 the launches of each K5 regime and the lanes of each K5 call. The
 IPA proves of phases 3, 5, 6 and 10 run the device loop (FSX). The last
@@ -98,6 +106,7 @@ per-kernel JSON record.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -305,6 +314,7 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_k1ipa(dev, random.Random(12)))  # own seeds: the draws above stay as they were
     rec.update(_kernels_k2fold(dev, pz, random.Random(13)))
     rec.update(_kernels_fsx(dev, random.Random(14)))
+    rec.update(_kernels_k1quo_k1mp(dev, random.Random(15)))
     return rec
 
 
@@ -490,6 +500,198 @@ def _kernels_k1ipa(dev, rng) -> dict:
     rec["K1IPA@inner256"] = record("K1IPA@inner256", KI.inner, KI.plain_inner, (a, b), "<a, b> at n = 256",
                                    (2 * 256 * 32 + 32, 256))
     print("phase 2 k1ipa:", "K1IPA@inner256", json.dumps(rec["K1IPA@inner256"]), flush=True)
+    return rec
+
+
+def phase6_points(m: int = 1024, n: int = 256) -> list:
+    """The opening points of phase 6's queries, as ``_multiproof_queries``
+    draws them."""
+    rng = random.Random(1024)
+    return [rng.randrange(n) for _ in range(m)]
+
+
+def _chain_group(stack, sel, r, zs):
+    """The grouped pass as it ran before K1MP, on K1 (each op a launch):
+    r's powers, the scaling, a device sort by z, the segmented scan of adds,
+    a ``bincount``. Returns the grouped rows and the scaled queries."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import field as F
+
+    dev = stack.device
+    scaled = F.mont_mul(stack[torch.tensor(sel, device=dev)], F.powers_of_mont(r, len(zs), "fr")[:, None], "fr")
+    distinct = sorted(set(zs))
+    rank = {z: i for i, z in enumerate(distinct)}
+    seg, order = torch.sort(torch.tensor([rank[z] for z in zs], device=dev), stable=True)
+    x = scaled[order]
+    k = 1
+    while k < x.shape[0]:
+        same = (seg[k:] == seg[:-k])[:, None, None]
+        x = torch.cat([x[:k], torch.where(same, F.add(x[k:], x[:-k], "fr"), x[k:])])
+        k *= 2
+    return x[torch.cumsum(torch.bincount(seg, minlength=len(distinct)), 0) - 1], scaled
+
+
+def _chain_h(scaled, inv_q, g):
+    """h and h - g as they ran before K1MP: a product a query and an add tree."""
+    from verkle_kzg_tpu_torch.ops import field as F
+
+    h = F.sum_axis(F.mont_mul(scaled, inv_q[:, None], "fr"), 0, "fr")[0]
+    return h, F.sub(h, g, "fr")
+
+
+def _chain_quotient(vals, zs, domain, sum_rows):
+    """The in-domain quotient as it ran before K1QUO: the ratio product,
+    ``Domain.invdiff_rows`` (a sub and a K1INV launch), the per-row chain
+    and, summed, the add tree over the rows."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.poly.lagrange import _quotient_in_domain
+
+    dev = vals.device
+    z = torch.tensor(zs, device=dev)
+    ratio = F.mont_mul(domain.d_vanishing(dev)[z][:, None], domain.d_vanishing_inv(dev)[None], "fr")
+    q = _k1_chain(_quotient_in_domain, vals, domain.invdiff_rows(z), ratio, z)
+    return F.sum_axis(q, 0, "fr")[0] if sum_rows else q
+
+
+@contextlib.contextmanager
+def plain_passes():
+    """A context in which ``prove_multiproof`` and the in-domain quotient
+    run the plain versions of K1MP and K1QUO (on the card's tensors, K1's
+    plain arithmetic), for a twin of a proof made through the kernels."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_multiproof as KM
+    from verkle_kzg_tpu_torch.poly import lagrange as LG
+
+    seg, quo = KM.segment_sum, KM.quotient
+    KM.segment_sum = KM.plain_segment_sum
+    KM.quotient = lambda vals, zs, omegas, table, sum_rows: LG._quotient_in_domain_table(
+        vals, torch.tensor(list(zs), device=vals.device), omegas, table, sum_rows)
+    try:
+        yield
+    finally:
+        KM.segment_sum, KM.quotient = seg, quo
+
+
+def multiproof_digest(mp) -> str:
+    """SHA-256 of a multiproof's D and its final proof's fields, as JSON."""
+    import dataclasses
+
+    return hashlib.sha256(json.dumps([mp.d, dataclasses.asdict(mp.proof)]).encode()).hexdigest()
+
+
+def _kernels_k1quo_k1mp(dev, rng) -> dict:
+    """K1QUO and K1MP against their plain versions (on the card's tensors)
+    and against the K1 chains they replaced (the passes as they ran before,
+    each op a K1 launch, ``invdiff_rows`` a K1INV), exact, at phase 6's
+    shape (1,024 queries of one vector at its points, N = 256: the grouped
+    pass, g summed over the distinct points, each row's quotient, h and
+    h - g), the KZG prove's (one row at index 17) and a skewed one (1,024
+    queries at one point: the grouped pass, g of one row, h). Each record:
+    ms, the kernel's own time (``device_ms``), the plain version's and the
+    chain's ms and K1 / K1INV launches, launches a call, the bound (each
+    input read once, each output written once; the products the function
+    needs: 3 an element of a quotient, a product a query and column and
+    a power a query for the grouped pass, a product a point and column
+    for h)."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_multiproof as KM
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.poly import Domain
+    from verkle_kzg_tpu_torch.poly.lagrange import _quotient_in_domain_table, quotient_in_domain
+
+    n = 256
+    dom = Domain(n)
+    omegas, table = dom.d_omegas(dev), dom.d_invdiff_table(dev)
+
+    def vec():
+        vals = [rng.randrange(R) for _ in range(n)]
+        vals[rng.randrange(n)], vals[rng.randrange(n)] = 0, R - 1
+        return F.ints_to_mont(vals, "fr", dev)
+
+    def record(kind, name, fn, plain_fn, chain_fn, shape, nbytes, products):
+        before = dict(cuda_lib.launches)
+        out = fn()
+        launched = cuda_lib.launches[kind] - before[kind]
+        plain_out, plain_ms = timed_once(plain_fn)
+        before = dict(cuda_lib.launches)
+        chain_out, chain_first_ms = timed_once(chain_fn)
+        chain = {k: cuda_lib.launches[k] - before[k] for k in ("K1", "K1INV", kind)}
+        outs = out if isinstance(out, tuple) else (out,)
+        err = max(_words_err(outs, plain_out if isinstance(plain_out, tuple) else (plain_out,)),
+                  _words_err(outs, chain_out if isinstance(chain_out, tuple) else (chain_out,)))
+        assert err == 0 and launched == 1 and chain[kind] == 0, (name, err, launched, chain)
+        rec = {
+            "max_abs_err": err,
+            "ms": cuda_ms(fn, 20),
+            "device_ms": device_ms(fn, 10),
+            "plain_ms": plain_ms,
+            "chain_ms": cuda_ms(chain_fn, 3),
+            "chain_k1_launches": chain["K1"],
+            "chain_k1inv_launches": chain["K1INV"],
+            "launches_per_call": launched,
+            "library_ms": None,
+            "shape": shape,
+            "products": products,
+            **bound(nbytes, products),
+        }
+        print(f"phase 2 {kind.lower()}:", name, json.dumps(rec), flush=True)
+        return rec
+
+    def h_pair(out):  # (h as (1, N, 8), h - g) -> (h, h - g), the chain's shapes
+        return out[0][0], out[1]
+
+    rec = {}
+    r = F.ints_to_mont([rng.randrange(R)], "fr", dev)[0]
+    for tag, zs in (("", phase6_points(1024, n)), ("@skew", [rng.randrange(n)] * 1024)):
+        m = len(zs)
+        stack = vec()[None].contiguous()
+        sel = [0] * m
+        distinct, plan = KM.plan_segments(zs, sel)
+        zq = len(distinct)
+        grouped = KM.segment_sum(stack, r, plan, 0)
+        plan_bytes = 4 * plan.packed().size
+        rec["K1MP" + tag] = record(
+            "K1MP", "K1MP" + tag, lambda: KM.segment_sum(stack, r, plan, 0),
+            lambda: KM.plain_segment_sum(stack, r, plan, 0),
+            lambda: _chain_group(stack, sel, r, zs)[0],
+            f"grouped pass: {m} queries of one vector at {zq} points, N = {n}, {plan.chunk_seg.size} chunks",
+            stack.numel() * 4 + 32 + plan_bytes + zq * n * 32, m * n + m)
+        # g: the quotients of the grouped rows, summed; and each row's
+        rec["K1QUO" + tag] = record(
+            "K1QUO", "K1QUO" + tag, lambda: quotient_in_domain(grouped, distinct, dom, True),
+            lambda: _quotient_in_domain_table(grouped, torch.tensor(distinct, device=dev), omegas, table, True),
+            lambda: _chain_quotient(grouped, distinct, dom, True),
+            f"g: {zq} rows summed, N = {n}", (zq + 2) * n * 32 + 4 * zq + n * 32, 3 * zq * n)
+        g = quotient_in_domain(grouped, distinct, dom, True)
+        inv = F.ints_to_mont([rng.randrange(R) for _ in distinct], "fr", dev)
+        inv_q = inv[torch.tensor([distinct.index(z) for z in zs], device=dev)]
+        _, one = KM.plan_segments([0] * zq, range(zq))
+        scaled = _chain_group(stack, sel, r, zs)[1]
+        rec["K1MP@h" + tag] = record(
+            "K1MP", "K1MP@h" + tag, lambda: h_pair(KM.segment_sum(grouped, inv, one, 1, g=g)),
+            lambda: h_pair(KM.plain_segment_sum(grouped, inv, one, 1, g=g)),
+            lambda: _chain_h(scaled, inv_q, g),
+            f"h and h - g over {zq} points, N = {n}",
+            (zq + 1) * n * 32 + zq * 32 + 4 * one.packed().size + 2 * n * 32, zq * n)
+        if not tag:
+            rec["K1QUO@rows"] = record(
+                "K1QUO", "K1QUO@rows", lambda: quotient_in_domain(grouped, distinct, dom),
+                lambda: _quotient_in_domain_table(grouped, torch.tensor(distinct, device=dev), omegas, table),
+                lambda: _chain_quotient(grouped, distinct, dom, False),
+                f"{zq} rows, each its quotient, N = {n}", (2 * zq + 2) * n * 32 + 4 * zq, 3 * zq * n)
+    row = vec()[None].contiguous()
+    rec["K1QUO@kzg"] = record(
+        "K1QUO", "K1QUO@kzg", lambda: quotient_in_domain(row, [17], dom),
+        lambda: _quotient_in_domain_table(row, torch.tensor([17], device=dev), omegas, table),
+        lambda: _chain_quotient(row, [17], dom, False),
+        f"one row at index 17 (the KZG prove), N = {n}", 4 * n * 32 + 4, 3 * n)
     return rec
 
 
@@ -1936,10 +2138,14 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
     assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
     # K2FOLD sums the sparse commits and the verify's 51 commitments, so no K2
-    assert min(path_launches[k] for k in ("K1", "K1IPA", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7")) > 0, \
-        path_launches
+    assert min(path_launches[k] for k in ("K1IPA", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7")) > 0, path_launches
     assert path_launches["K2"] == 0, path_launches
-    assert counts["prove"]["K1INV"] > 0 and regimes["many"] > 0 and regimes["few"] > 0, (counts["prove"], regimes)
+    # the multiproof's passes: two K1MP and one K1QUO; K1 only for the D and
+    # E commits' standard form, no inversion on the card
+    c = counts["prove"]
+    assert (c["K1"], c["K1INV"], c["K1QUO"], c["K1MP"]) == (2, 0, 1, 2), c
+    assert tuple(path_launches[k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == (2, 0, 1, 2), path_launches
+    assert regimes["many"] > 0 and regimes["few"] > 0, regimes
 
     # sampled commitments against the native C++ Pippenger
     g = crs.g_host
@@ -2033,11 +2239,20 @@ def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
     bad = [q.to_verifier_query() for q in queries]
     bad[m // 2].y = (bad[m // 2].y + 1) % R
     assert not verify_multiproof(IPA, crs, bad, proof), "a wrong y was accepted"
-    assert min(path_launches[k] for k in ("K1", "K1INV", "K1IPA", "FSX", "K3", "K4", "K5")) > 0, path_launches
+    assert min(path_launches[k] for k in ("K1IPA", "FSX", "K3", "K4", "K5")) > 0, path_launches
     assert path_launches["K2"] == 0, path_launches  # E's one lane is no fold
     assert counts["verify"]["K5"] == regimes["few"] == 1, (counts["verify"], regimes)  # E's one lane
+    # the passes: two K1MP and one K1QUO; K1 only for the D and E commits
+    c = counts["prove"]
+    assert (c["K1"], c["K1INV"], c["K1QUO"], c["K1MP"]) == (2, 0, 1, 2), c
+    assert tuple(path_launches[k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == (2, 0, 1, 2), path_launches
+    # the same multiproof through the plain versions of the passes
+    with plain_passes():
+        twin = prove_multiproof(IPA, crs, queries)
+    digest = multiproof_digest(proof)
+    assert twin.d == proof.d and multiproof_digest(twin) == digest, "the multiproof != its plain-pass twin"
     return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
-            "k5_regime_launches": regimes, "k5_lanes": k5_lanes, "d": proof.d}
+            "k5_regime_launches": regimes, "k5_lanes": k5_lanes, "d": proof.d, "digest": digest}
 
 
 def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, m: int = 1024) -> dict:
@@ -2128,8 +2343,32 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
 
     torch.cuda.synchronize()
     path_launches = dict(cuda_lib.launches)
-    assert min(path_launches[k] for k in ("K1", "K1INV", "K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, \
-        path_launches  # K2: see phase 3
+    assert min(path_launches[k] for k in ("K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, path_launches  # K2: see phase 3
+    # (K1, K1INV, K1QUO, K1MP): an in-domain prove is one K1QUO and the MSM's
+    # standard form; the out-of-domain one a sub, the quotient's sub and
+    # product, the standard form and one K1INV; a multiproof its passes, the
+    # D and E commits and the out-of-domain prove at t
+    want = {"commit": (1, 0, 0, 0), "prove": (1, 0, 1, 0), "prove_outside": (4, 1, 0, 0),
+            "prove_all_singles": (n, 0, n, 0), "multiproof_prove": (6, 1, 1, 2), "multiproof_verify": (0, 0, 0, 0)}
+    for name, expect in want.items():
+        assert tuple(counts[name][k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == expect, (name, counts[name])
+
+    def fk_k1(size):  # FK's Fr INTT at N and NTT at 2N (3 a stage, the INTT's 1/N), and y's standard form
+        return 6 * (size.bit_length() - 1) + 5
+
+    # the warm-up commit and prove, the stages above, FK's commit, FK at n and at small
+    path_k1 = 2 + 1 + 1 + 4 + 1 + fk_k1(n) + n + fk_k1(small) + 2 * 6
+    assert tuple(path_launches[k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == (path_k1, 3, n + 4, 4), path_launches
+
+    # the proofs through the plain versions of K1QUO and K1MP
+    with plain_passes():
+        twin_proof = KZG.prove(params, commit, index, data)
+        twin_singles = [KZG.prove(params, fk_commit, i, fk_data) for i in range(n)]
+        twin_mp = prove_multiproof(KZG, params, queries)
+    assert twin_proof == proof, "the KZG prove != its plain-quotient twin"
+    assert proofs_digest(twin_singles) == proofs_digest(singles) == fk_digest, "single proves != plain twins"
+    mp_digest = multiproof_digest(mproof)
+    assert twin_mp.d == mproof.d and multiproof_digest(twin_mp) == mp_digest, "KZG multiproof != its plain twin"
 
     # off the path: FK at `small` on the CPU, the card's G1 NTT at `small`
     # against the CPU's
@@ -2196,7 +2435,7 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
         "path_launches": path_launches,
         "launches_per": {name: {k: v for k, v in c.items() if v} for name, c in per.items()},
         "ntt_g1_events": {"stage_ms": stage_ms, "wall_ms": ntt_wall_ms, "busy_share": sum(stage_ms) / ntt_wall_ms},
-        "cpu_plain_fk_small_s": cpu_fk_s, "small": small, "fk_sha256": fk_digest,
+        "cpu_plain_fk_small_s": cpu_fk_s, "small": small, "fk_sha256": fk_digest, "multiproof_sha256": mp_digest,
     }
 
 
@@ -2335,6 +2574,7 @@ def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n,
     assert proofs_digest(out["fk"]) == ref["fk_sha256"], "FK with the mesh != phase 8's proofs"
     assert out["verkle_commit"] == ref["root"], "the tree with the mesh != phase 5's root"
     assert out["multiproof_prove"].d == twin["multiproof_prove"].d == ref["d"], "multiproof D != phase 6's"
+    assert multiproof_digest(out["multiproof_prove"]) == ref["mp_sha256"], "multiproof != phase 6's"
     assert out["multiproof_verify"], "the honest multiproof was rejected on the mesh"
     bad = [q.to_verifier_query() for q in queries]
     bad[m // 2].y = (bad[m // 2].y + 1) % R
@@ -2342,7 +2582,9 @@ def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n,
     assert counts["msm_sharded"]["K3"] == counts["msm_sharded"]["K4"] == 1, counts["msm_sharded"]
     for name in ("msm_batched_sharded", "msm_fixed_base_sharded", "verkle_commit"):
         assert counts[name]["K6"] > 0 and counts[name]["K7"] > 0, (name, counts[name])
-    assert min(counts["multiproof_prove"][k] for k in ("K1IPA", "FSX", "K3", "K4")) > 0, counts["multiproof_prove"]
+    c = counts["multiproof_prove"]
+    assert min(c[k] for k in ("K1IPA", "FSX", "K3", "K4")) > 0, c
+    assert (c["K1"], c["K1INV"], c["K1QUO"], c["K1MP"]) == (2, 0, 1, 2), c
 
     # times, the mesh path beside its twin: CUDA events over a few calls in
     # turns (mesh, twin, twin, mesh); the tree by the wall clock
@@ -2381,8 +2623,8 @@ def proofs_digest(proofs) -> str:
 
 
 def k1_counts(phase: dict) -> dict:
-    """K1's, K1INV's, K1IPA's and FSX's launches in each stage of a phase's record."""
-    keys = ("K1", "K1INV", "K1IPA", "FSX")
+    """K1's, K1INV's, K1IPA's, K1QUO's, K1MP's and FSX's launches in each stage of a phase's record."""
+    keys = ("K1", "K1INV", "K1IPA", "K1QUO", "K1MP", "FSX")
     return {stage: {k: c[k] for k in keys} for stage, c in phase["launches_per_stage"].items()}
 
 
@@ -2431,14 +2673,15 @@ def main() -> int:
     verkle = phase_verkle(dev, crs)
     print(f"phase 5 verkle, 10k leaves, Ethereum geometry ({time.perf_counter() - t0:.1f} s):", json.dumps(verkle),
           f"[{card}]", flush=True)
-    print("phase 5 K1, K1INV, K1IPA and FSX launches per stage:", json.dumps(k1_counts(verkle)), flush=True)
+    print("phase 5 K1, K1INV, K1IPA, K1QUO, K1MP and FSX launches per stage:", json.dumps(k1_counts(verkle)),
+          flush=True)
     print("phase 5 K5 lanes of each call per stage:", json.dumps(verkle["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
     mp = phase_multiproof(dev, crs, ipa_data)
     print(f"phase 6 multiproof, 1024 queries at 256 ({time.perf_counter() - t0:.1f} s):", json.dumps(mp),
           f"[{card}]", flush=True)
-    print("phase 6 K1, K1INV, K1IPA and FSX launches per stage:", json.dumps(k1_counts(mp)), flush=True)
+    print("phase 6 K1, K1INV, K1IPA, K1QUO, K1MP and FSX launches per stage:", json.dumps(k1_counts(mp)), flush=True)
     print("phase 6 K5 lanes of each call per stage:", json.dumps(mp["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
@@ -2450,8 +2693,8 @@ def main() -> int:
     kzg = phase_kzg(dev, card)
     print(f"phase 8 kzg@256, fk, kzg multiproof ({time.perf_counter() - t0:.1f} s):", json.dumps(kzg),
           f"[{card}]", flush=True)
-    print("phase 8 K1, K1INV, K1IPA and FSX launches per stage:", json.dumps(k1_counts(kzg)),
-          "path:", json.dumps({k: kzg["path_launches"][k] for k in ("K1", "K1INV")}), flush=True)
+    print("phase 8 K1, K1INV, K1IPA, K1QUO, K1MP and FSX launches per stage:", json.dumps(k1_counts(kzg)),
+          "path:", json.dumps({k: kzg["path_launches"][k] for k in ("K1", "K1INV", "K1QUO", "K1MP")}), flush=True)
 
     t0 = time.perf_counter()
     group = phase_group(dev, card)
@@ -2460,13 +2703,14 @@ def main() -> int:
           f"[{card}]", flush=True)
 
     t0 = time.perf_counter()
-    ref = {"root": verkle["root"], "d": mp["d"], "fk_sha256": kzg["fk_sha256"]}
+    ref = {"root": verkle["root"], "d": mp["d"], "mp_sha256": mp["digest"], "fk_sha256": kzg["fk_sha256"]}
     mesh = phase_mesh(dev, card, crs, ipa_data, ref)
     print(f"phase 10 mesh, world size 1 over NCCL ({time.perf_counter() - t0:.1f} s): launches",
           json.dumps(mesh["path_launches"]), f"communicator set-up {mesh['comm_init_ms']:.1f} ms", f"[{card}]",
           flush=True)
 
-    sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K1IPA": "ipa_round.cu", "K2": "curve.cu",
+    sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K1IPA": "ipa_round.cu", "K1QUO": "quotient.cu",
+               "K1MP": "multiproof.cu", "K2": "curve.cu",
                "K2FOLD": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
                "K5": "scalar_mul.cu", "K6": "msm_sorted.cu", "K7": "msm_tail.cuh",
                "K8": "msm_sorted.cu", "K9": "msm_sorted.cu", "K10": "msm_sorted.cu",
@@ -2478,6 +2722,10 @@ def main() -> int:
         "K1INV": "verkle_kzg_tpu/ops/pallas_field.py:298",
         # the K1 chain of verkle_kzg_tpu/schemes/ipa.py:214's round_body
         "K1IPA": "verkle_kzg_tpu/ops/pallas_field.py:298",
+        # the K1 chains of verkle_kzg_tpu/poly/lagrange.py:26's _quotient_in_domain
+        # and of verkle_kzg_tpu/schemes/multiproof.py:78-129's three programs
+        "K1QUO": "verkle_kzg_tpu/ops/pallas_field.py:298",
+        "K1MP": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         # the K2 chain of verkle_kzg_tpu/ops/msm.py:67's fold_reduce_lanes
         "K2FOLD": "verkle_kzg_tpu/ops/pallas_curve.py:328",
@@ -2499,17 +2747,18 @@ def main() -> int:
         # (to_affine, g1_compressed_bytes, hash_to_fr, to_mont)
         "FSX": "verkle_kzg_tpu/schemes/ipa.py:249",
     }
-    # launches: K1, K1INV, K1IPA, FSX, K2FOLD and K3-K7 from the verkle path of
+    # launches: K1, K1IPA, K1QUO, K1MP, FSX, K2FOLD and K3-K7 from the verkle path of
     # phase 5 (commit, prove, verify), which runs all of them; K8-K10 from the
-    # sweep of phase 7; G1SMUL and G1BFLY from the KZG path of phase 8; K2,
+    # sweep of phase 7; K1INV, G1SMUL and G1BFLY from the KZG path of phase 8; K2,
     # K11 and K12 from phase 2, since no path calls the standalone add (its
     # folds are K2FOLD's), double (the scalar multiplication it served is
     # G1SMUL's) or mixed add; K13 from the tune_group grid of phase 9.
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
-        **dict.fromkeys(("K1", "K1INV", "K1IPA", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
+        **dict.fromkeys(("K1", "K1IPA", "K1QUO", "K1MP", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
                         ("phase 5", verkle["path_launches"])),
+        "K1INV": ("phase 8: no inversion runs on the card in phase 5 since K1QUO", kzg["path_launches"]),
         "K2": ("phase 2 only: no path calls curve.add since K2FOLD", phase2_launches),
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
         "K11": ("phase 2 only: no path calls curve.double since G1SMUL", phase2_launches),
@@ -2523,6 +2772,7 @@ def main() -> int:
     chains = {"G1SMUL": "verkle_kzg_tpu/ops/curve.py:239", "G1BFLY": "verkle_kzg_tpu/ops/curve.py:239",
               "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342",
               "K1IPA": "verkle_kzg_tpu/schemes/ipa.py:214", "K2FOLD": "verkle_kzg_tpu/ops/msm.py:67",
+              "K1QUO": "verkle_kzg_tpu/poly/lagrange.py:26-40", "K1MP": "verkle_kzg_tpu/schemes/multiproof.py:78-129",
               "FSX": "verkle_kzg_tpu/schemes/ipa.py:236-252"}
     kernels = []
     for k in sources:

@@ -1,5 +1,5 @@
-"""Build and load the port's CUDA kernels (K1-K13, K1INV, K1IPA, K2FOLD, G1SMUL,
-G1BFLY, FSX) and count their launches.
+"""Build and load the port's CUDA kernels (K1-K13, K1INV, K1IPA, K1QUO, K1MP,
+K2FOLD, G1SMUL, G1BFLY, FSX) and count their launches.
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and the objects are
@@ -40,11 +40,13 @@ BUILD = _PKG / "_build"
 #: G1SMUL and G1BFLY fuse the K11 + K2 chain of ``curve.scalar_mul``
 #: (``cuda_g1_chain.py``), K1INV the K1 chain of a batched inversion
 #: (``cuda_field.py``), K1IPA the K1 chain of an IPA halving round
-#: (``cuda_ipa.py``), K2FOLD the K2 chain of a point fold (``cuda_curve.py``).
+#: (``cuda_ipa.py``), K1QUO that of the in-domain quotient and K1MP those of
+#: the multiproof's grouped sums and h (``cuda_multiproof.py``), K2FOLD the
+#: K2 chain of a point fold (``cuda_curve.py``).
 #: FSX, a Fiat-Shamir challenge or digest on the card (``cuda_fiat_shamir.py``),
 #: stands for no Pallas kernel: its JAX counterpart is jnp code.
-launches = {**{f"K{i}": 0 for i in range(1, 14)}, "K1INV": 0, "K1IPA": 0, "K2FOLD": 0, "G1SMUL": 0,
-            "G1BFLY": 0, "FSX": 0}
+launches = {**{f"K{i}": 0 for i in range(1, 14)}, "K1INV": 0, "K1IPA": 0, "K1QUO": 0, "K1MP": 0,
+            "K2FOLD": 0, "G1SMUL": 0, "G1BFLY": 0, "FSX": 0}
 
 #: CUDA launches since the last :func:`reset_launches` of the kernels whose
 #: one count above stands for several: the sorted accumulation's, whose C
@@ -78,6 +80,8 @@ _SIGNATURES = {
     "vkzg_g1_butterfly": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P],
     "vkzg_fsx": [_P, _P, _P, _P, _P, _P],
     "vkzg_fsx_compress": [_P, _P, _I, _P],
+    "vkzg_quotient": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_int, _I, _P],
+    "vkzg_mp_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int, ctypes.c_int, _P],
 }
 
 

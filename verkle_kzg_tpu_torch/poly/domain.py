@@ -3,7 +3,8 @@
 The host keeps python-int mirrors (the IPA needs just the barycentric
 coefficients of one point at a time, KZG's verify one domain element); the
 device mirrors are Montgomery ``(N, 8)`` word tensors, made once per device
-on first use, and ``invdiff_rows`` feeds the in-domain quotients.
+on first use. The in-domain quotients (K1QUO) read ``omegas`` and
+``invdiff_table``; ``invdiff_rows`` is the JAX package's per-row form.
 """
 
 from __future__ import annotations
@@ -47,6 +48,16 @@ class Domain:
 
     def d_vanishing_inv(self, device) -> torch.Tensor:
         return self._mirror("vanishing_inv", device)
+
+    @functools.cached_property
+    def invdiff_table(self) -> list:
+        """T[k] = 1 / (w^k - 1), T[0] = 0, so that 1 / (w^i - w^z) =
+        w^-z T[(i - z) mod N]: the in-domain quotient's inverses from one
+        table and the omegas, made on the host at first use."""
+        return [0] + (fr_batch_inverse([(w - 1) % R for w in self.omegas[1:]]) if self.size > 1 else [])
+
+    def d_invdiff_table(self, device) -> torch.Tensor:
+        return self._mirror("invdiff_table", device)
 
     def invdiff_rows(self, z_sel: torch.Tensor) -> torch.Tensor:
         """(Zq,) domain indices (an int64 tensor on the target device) ->

@@ -2,17 +2,20 @@
 over the IPA or KZG, on PyTorch tensors (``verkle_kzg_tpu/schemes/multiproof.py``,
 the reference's ``vector-commit/src/multiproof.rs``).
 
-Every per-query computation runs on the device of ``params`` as a few
-batched K1 passes over an (M, N, 8) tensor:
+Every per-query computation runs on the device of ``params`` in three
+launches (``ops/cuda_multiproof.py``), the JAX package's three jitted
+programs (``verkle_kzg_tpu/schemes/multiproof.py:78-129``):
 
-  * query scaling by r^i: one broadcast Montgomery product;
-  * grouping by evaluation point: the queries are sorted by z and summed
-    within each run of equal z by a segmented Hillis-Steele scan of K1 adds
-    (log2 M passes), exact in the field (the JAX package's lazy uint32
-    column scatter is a device trick of the TPU and is not needed here);
-  * per-point quotients: ``poly/lagrange.py::_quotient_in_domain`` for all
-    distinct points at once, fed by ``Domain.invdiff_rows``;
-  * h(x) accumulation: a broadcast product and a K1 add tree.
+  * :func:`_scale_and_group`, kernel K1MP: grouped[j] = sum over the queries
+    m opened at the j-th distinct point of r^m data[m], the powers of r made
+    in the kernel; the host plans the order by z and the segments from the
+    ints it holds, so no device sort or host sync runs (the JAX package's
+    lazy uint32 column scatter is a device trick of the TPU and is not
+    needed here);
+  * :func:`_quotients_sum`, kernel K1QUO: g = the sum of the in-domain
+    quotients of the grouped rows, from the domain's tables, no inversion;
+  * :func:`_h_accumulate`, kernel K1MP: h = sum_j grouped[j] / (t - z_j)
+    and h - g, exact in the field, so equal to the sum over the queries.
 
 Transcript bytes match the reference exactly (labels "C"/"z"/"y"/"r"/"D"/
 "t"/"E"; z is appended as an 8-byte LE usize). Quirk 1 (SURVEY.md §5) is
@@ -30,12 +33,13 @@ import torch
 from ..fiatshamir.transcript import Transcript
 from ..hostmath.curve import g1_add, g1_neg
 from ..hostmath.field import fr_batch_inverse
+from ..ops import cuda_multiproof as KM
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as M
 from ..params import R
 from ..poly import FrVector
-from ..poly.lagrange import _quotient_in_domain
+from ..poly.lagrange import quotient_in_domain
 from ..utils import metrics
 
 
@@ -72,34 +76,29 @@ def _absorb_queries(t: Transcript, queries) -> None:
         t.append_scalar(q.y, "y")
 
 
-def _group_by_z(scaled: torch.Tensor, zs: list):
-    """(M, N, 8) scaled query rows and their M opening points -> the sorted
-    distinct points and (Zq, N, 8) rows, each the field sum of the rows
-    opened at that point: sort by z, then a segmented inclusive scan of K1
-    adds (a row takes the partial sum k rows back only within its own run),
-    whose last row in each run is the run's sum."""
-    distinct = sorted(set(zs))
-    rank = {z: i for i, z in enumerate(distinct)}
-    seg = torch.tensor([rank[z] for z in zs], device=scaled.device)
-    seg, order = torch.sort(seg, stable=True)
-    x = scaled[order]
-    k = 1
-    while k < x.shape[0]:
-        same = (seg[k:] == seg[:-k])[:, None, None]
-        x = torch.cat([x[:k], torch.where(same, F.add(x[k:], x[:-k], "fr"), x[k:])])
-        k *= 2
-    ends = torch.cumsum(torch.bincount(seg, minlength=len(distinct)), 0) - 1
-    return distinct, x[ends]
+def _scale_and_group(stack: torch.Tensor, sel: list, r: torch.Tensor, zs: list):
+    """Kernel K1MP's grouped pass: the (U, N, 8) distinct data vectors, each
+    query's vector ``sel[m]`` and point ``zs[m]``, and r as (8,) Montgomery
+    words -> the sorted distinct points and (Zq, N, 8) rows, each the field
+    sum of r^m data[m] over the queries m opened at that point."""
+    distinct, plan = KM.plan_segments(zs, sel)
+    return distinct, KM.segment_sum(stack, r, plan, mode=0)
 
 
-def _quotients_sum(grouped: torch.Tensor, domain, z_idx: torch.Tensor) -> torch.Tensor:
+def _quotients_sum(grouped: torch.Tensor, domain, zs: list) -> torch.Tensor:
     """g(x) = sum over the distinct opening points z of the in-domain
     quotient of that point's grouped row (``multiproof.py::_quotients_sum_impl``):
-    (Zq, N, 8) -> (N, 8)."""
-    dev = grouped.device
-    ratio = F.mont_mul(domain.d_vanishing(dev)[z_idx][:, None], domain.d_vanishing_inv(dev)[None], "fr")
-    q = _quotient_in_domain(grouped, domain.invdiff_rows(z_idx), ratio, z_idx)
-    return F.sum_axis(q, 0, "fr")[0]
+    (Zq, N, 8) -> (N, 8), one K1QUO launch."""
+    return quotient_in_domain(grouped, zs, domain, sum_rows=True)
+
+
+def _h_accumulate(grouped: torch.Tensor, inv: torch.Tensor, g: torch.Tensor) -> tuple:
+    """Kernel K1MP's h pass: h = sum_j grouped[j] inv[j] for the (Zq, 8)
+    Montgomery inverses 1 / (t - z_j), and h - g; both (N, 8)."""
+    zq = grouped.shape[0]
+    _, plan = KM.plan_segments([0] * zq, range(zq))
+    h, h_minus_g = KM.segment_sum(grouped, inv, plan, mode=1, g=g)
+    return h[0], h_minus_g
 
 
 def prove_multiproof(scheme, params, queries: list, mesh=None) -> Multiproof:
@@ -118,31 +117,30 @@ def prove_multiproof(scheme, params, queries: list, mesh=None) -> Multiproof:
     r = t.digest("r", True)
 
     # stack each distinct data vector once (the verkle path opens the same
-    # node vector at several points) and gather per query
+    # node vector at several points); the kernel gathers per query
     uniq, sel = {}, []
     for q in queries:
         sel.append(uniq.setdefault(id(q.data), (len(uniq), q.data.vals))[0])
     stack = torch.stack([vals for _, vals in uniq.values()])
-    data = stack[torch.tensor(sel, device=dev)]  # (M, N, 8)
-    r_pows = F.powers_of_mont(F.ints_to_mont([r], "fr", dev)[0], m, "fr")  # (M, 8)
-    scaled = F.mont_mul(data, r_pows[:, None], "fr")
-
-    distinct, grouped = _group_by_z(scaled, [q.z for q in queries])
-    g = FrVector(_quotients_sum(grouped, domain, torch.tensor(distinct, device=dev)), n, domain)
+    r_mont = F.ints_to_mont([r], "fr", dev)[0]
+    distinct, grouped = _scale_and_group(stack, sel, r_mont, [q.z for q in queries])
+    g = FrVector(_quotients_sum(grouped, domain, distinct), n, domain)
 
     d_commit = scheme.commit(params, g, mesh=mesh)
     t.append_point(d_commit, "D")
     t_chal = t.digest("t", True)
 
-    # 1 / (t - z) for integer z in 0..N (``utils.rs:57-62``)
+    # 1 / (t - z) for integer z in 0..N (``utils.rs:57-62``), one a distinct point
     inversions = fr_batch_inverse([(t_chal - i) % R for i in range(n)])
-    inv_q = F.ints_to_mont([inversions[q.z] for q in queries], "fr", dev)  # (M, 8)
-    h = FrVector(F.sum_axis(F.mont_mul(scaled, inv_q[:, None], "fr"), 0, "fr")[0], n, domain)
+    inv = F.ints_to_mont([inversions[z] for z in distinct], "fr", dev)
+    h_vals, h_minus_g = _h_accumulate(grouped, inv, g.vals)
+    h = FrVector(h_vals, n, domain)
 
     e_commit = scheme.commit(params, h, mesh=mesh)
     t.append_point(e_commit, "E")
 
-    proof = scheme.prove_point(params, g1_add(e_commit, g1_neg(d_commit)), t_chal, h - g, t)
+    h_minus_g = FrVector(h_minus_g, n, domain)
+    proof = scheme.prove_point(params, g1_add(e_commit, g1_neg(d_commit)), t_chal, h_minus_g, t)
     return Multiproof(proof=proof, d=d_commit)
 
 

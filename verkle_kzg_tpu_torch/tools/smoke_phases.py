@@ -70,9 +70,9 @@ def main() -> int:
     kzg = run("8", lambda: S.phase_kzg(dev, card))
     run("9", lambda: S.phase_group(dev, card), launches)
     if "10" in phases:
-        ref = {"root": (verkle or S.phase_verkle(dev, crs))["root"],
-               "d": (mp or S.phase_multiproof(dev, crs, ipa_data))["d"],
-               "fk_sha256": (kzg or S.phase_kzg(dev, card))["fk_sha256"]}
+        mp = mp or S.phase_multiproof(dev, crs, ipa_data)
+        ref = {"root": (verkle or S.phase_verkle(dev, crs))["root"], "d": mp["d"],
+               "mp_sha256": mp.get("digest"), "fk_sha256": (kzg or S.phase_kzg(dev, card))["fk_sha256"]}
         run("10", lambda: S.phase_mesh(dev, card, crs, ipa_data, ref), launches)
     return 0
 
