@@ -9,8 +9,8 @@ and no JAX. Phases, each of which raises on failure:
 
   1. the card's name and power limit, and the kernels' build (one nvcc per
      source, in parallel);
-  2. each kernel (K1-K13, K1INV, K1IPA, K1QUO, K1MP, K2FOLD, G1SMUL, G1BFLY,
-     FSX) against its plain PyTorch version on the card, at the shapes the
+  2. each kernel (K1-K13, K1INV, K1IPA, K1QUO, K1MP, K1AFF, K1NTT, K2FOLD,
+     G1SMUL, G1BFLY, FSX) against its plain PyTorch version on the card, at the shapes the
      main paths give it, exact, with its time and the least time the card
      could take for the same work; K1INV, K1IPA, K1QUO, K1MP and K2FOLD also
      against the K1 or K2 chain each replaces, timed in the same run (K1QUO
@@ -25,7 +25,12 @@ and no JAX. Phases, each of which raises on failure:
      version on CPU copies, hashlib and the host Transcript, and timed at a
      halving round's and w's shapes with its dependent chain in
      compressions and inversion steps; K2FOLD at 1 x 51,
-     1 x 63 points and the sparse commits' 20,002 x 2 and 10,001 x 4); K5
+     1 x 63 points and the sparse commits' 20,002 x 2 and 10,001 x 4; K1AFF
+     at about the verkle commit's 30,000 points, a tenth at infinity, and at
+     1, 2 and 256, its host points also against the host-int conversion it
+     replaced, on the CPU copy; K1NTT at 256 and 512 both ways, the
+     four-step's 16 segments of 16 and 2^14, above its shared-memory tile,
+     against the K1 chain it replaced); K5
      in both regimes, with ptxas's registers and spills for each: many
      lanes (2^12 edge lanes, the commit's 40,000) and few (1, 19, 32 and
      51 lanes), and at the regime switch +- 1 both regimes timed, each
@@ -60,7 +65,8 @@ and no JAX. Phases, each of which raises on failure:
      keys, width-256 nodes, 10,000 leaves): insert, commit, prove 16
      present and 3 absent keys with one multiproof, verify statelessly;
      sampled commitments against the native C++ oracle, a 150-leaf tree on
-     the card against the CPU plain path, and a profile of the commit;
+     the card against the CPU plain path, a profile of the commit and a
+     cProfile of another (the host's share, by function);
   6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3),
      and its twin made through the plain versions of K1MP and K1QUO;
   7. the single-MSM sweep of BASELINE.json config 5, 2^16-2^22 points, at
@@ -97,7 +103,10 @@ launch counts to 0 just before its path and reads them just after; phases
 stage by stage and assert those of the proves exactly (a multiproof: 2
 K1MP, 1 K1QUO, 2 K1 for the commits, no K1INV over the IPA),
 phases 5 and 6 assert that no K2 ran (K2FOLD sums the folds), and phases 5
-and 6 the launches of each K5 regime and the lanes of each K5 call. The
+and 6 the launches of each K5 regime and the lanes of each K5 call;
+phases 5, 8 and 10 assert one K1AFF launch a conversion of card points to
+host points, and 8 and 10 one K1NTT a Fr transform or sub-NTT pass (FK:
+one K1, for y's standard form). The
 IPA proves of phases 3, 5, 6 and 10 run the device loop (FSX). The last
 two lines of standard output are the card's name and power limit and a JSON
 object {"ok": true, "device": {...}}; the line before them holds the
@@ -212,12 +221,15 @@ def phase_kernels(dev, crs) -> dict:
         a = F.ints_to_words(xs, dev)
         b = F.ints_to_words(xs[::-1], dev)
         for op in ("mul", "add", "sub"):
-            errs.append(max_abs_err(cuda_field.binop(op, a, b, spec), cuda_field.plain(op, a, b, spec)))
+            plain_out, plain_ms = timed_once(lambda: cuda_field.plain(op, a, b, spec))
+            errs.append(max_abs_err(cuda_field.binop(op, a, b, spec), plain_out))
             assert errs[-1] == 0, (spec, op)
+            if (spec, op) == ("fq", "mul"):
+                k1_plain_ms = plain_ms
     rec["K1"] = {
         "max_abs_err": max(errs),
         "ms": cuda_ms(lambda: cuda_field.binop("mul", a, b, "fq"), 50),
-        "plain_ms": cuda_ms(lambda: cuda_field.plain("mul", a, b, "fq"), 3),
+        "plain_ms": k1_plain_ms,
         "shape": "2^16 Fq mont_mul",
         **bound(a.numel() * 4 * 3, a.shape[0]),
     }
@@ -234,11 +246,12 @@ def phase_kernels(dev, crs) -> dict:
     p = C.from_affine(C.host_points_to_affine(ps, dev))
     q = C.from_affine(C.host_points_to_affine(qs, dev))
     got = cuda_curve.add(p, q)
-    rec["K2"] = {"max_abs_err": max_abs_err(got, cuda_curve.plain(p, q)), "shape": "32768 point adds"}
+    plain_out, plain_ms = timed_once(lambda: cuda_curve.plain(p, q))
+    rec["K2"] = {"max_abs_err": max_abs_err(got, plain_out), "shape": "32768 point adds"}
     assert rec["K2"]["max_abs_err"] == 0
     assert C.projective_to_host_points(got[:4]) == [hc.g1_add(a_, b_) for a_, b_ in zip(ps[:4], qs[:4])]
     rec["K2"]["ms"] = cuda_ms(lambda: cuda_curve.add(p, q), 20)
-    rec["K2"]["plain_ms"] = cuda_ms(lambda: cuda_curve.plain(p, q), 2)
+    rec["K2"]["plain_ms"] = plain_ms
     rec["K2"].update(bound(3 * p.numel() * 4, n2 * ADD_FMULS))
 
     # K11 and K12 at K2's shape, on the K2 sums p + q (Z is not 1; the
@@ -247,19 +260,21 @@ def phase_kernels(dev, crs) -> dict:
     pz = got
     sums = C.projective_to_host_points(pz[:6])
     got = cuda_curve.double(pz)
-    rec["K11"] = {"max_abs_err": max_abs_err(got, cuda_curve.plain_double(pz)), "shape": "32768 point doublings"}
+    plain_out, plain_ms = timed_once(lambda: cuda_curve.plain_double(pz))
+    rec["K11"] = {"max_abs_err": max_abs_err(got, plain_out), "shape": "32768 point doublings"}
     assert rec["K11"]["max_abs_err"] == 0
     assert C.projective_to_host_points(got[:6]) == [hc.g1_add(a_, a_) for a_ in sums]
     rec["K11"]["ms"] = cuda_ms(lambda: cuda_curve.double(pz), 20)
-    rec["K11"]["plain_ms"] = cuda_ms(lambda: cuda_curve.plain_double(pz), 2)
+    rec["K11"]["plain_ms"] = plain_ms
     rec["K11"].update(bound(2 * pz.numel() * 4, n2 * DOUBLE_FMULS))
     qa = C.host_points_to_affine(qs, dev)
     got = cuda_curve.mixed_add(pz, qa)
-    rec["K12"] = {"max_abs_err": max_abs_err(got, cuda_curve.plain_mixed_add(pz, qa)), "shape": "32768 mixed adds"}
+    plain_out, plain_ms = timed_once(lambda: cuda_curve.plain_mixed_add(pz, qa))
+    rec["K12"] = {"max_abs_err": max_abs_err(got, plain_out), "shape": "32768 mixed adds"}
     assert rec["K12"]["max_abs_err"] == 0
     assert C.projective_to_host_points(got[:6]) == [hc.g1_add(a_, b_) for a_, b_ in zip(sums, qs[:6])]
     rec["K12"]["ms"] = cuda_ms(lambda: cuda_curve.mixed_add(pz, qa), 20)
-    rec["K12"]["plain_ms"] = cuda_ms(lambda: cuda_curve.plain_mixed_add(pz, qa), 2)
+    rec["K12"]["plain_ms"] = plain_ms
     live = int((~C.affine_is_infinity(qa)).sum())  # sentinel lanes do no products
     rec["K12"].update(bound((pz.numel() * 2 + qa.numel()) * 4, live * MIXED_FMULS))
     # K11 and K2 at the width of a G1 NTT stage of FK at domain 256 (256
@@ -315,24 +330,15 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_k2fold(dev, pz, random.Random(13)))
     rec.update(_kernels_fsx(dev, random.Random(14)))
     rec.update(_kernels_k1quo_k1mp(dev, random.Random(15)))
+    rec.update(_kernels_k1aff(dev, crs, random.Random(16)))
+    rec.update(_kernels_k1ntt(dev, random.Random(17)))
     return rec
 
 
-def inverse_steps(x: int, m: int) -> int:
-    """Loop steps (shifts and subtractions) of ``csrc/field_inv.cu``'s binary
-    extended Euclid on x in [1, m), the inverse's dependent chain."""
-    u, v, steps = x, m, 0
-    while u != 1 and v != 1:
-        while u % 2 == 0:
-            u, steps = u >> 1, steps + 1
-        while v % 2 == 0:
-            v, steps = v >> 1, steps + 1
-        if u >= v:
-            u -= v
-        else:
-            v -= u
-        steps += 1
-    return steps
+# The inverse's dependent chain (``csrc/field_inv.cuh``), the same for every
+# input: 18 outer iterations of 31 binary GCD steps on 64-bit registers, each
+# iteration ending in one update of the 256-bit values and their cofactors.
+INVERSE_STEPS = 18 * 31
 
 
 def _k1_chain(fn, *args):
@@ -384,18 +390,12 @@ def _kernels_k1inv(dev, rng) -> dict:
         err = max(max_abs_err(out, plain_out), max_abs_err(out, chain_out))
         assert err == 0, name
         assert F.mont_to_ints(out, spec) == [pow(v, -1, m) if v else 0 for v in vals], name
-        if batch:  # each row's product of its nonzero entries is inverted
-            inverted = []
-            for r in range(rows):
-                prod = 1
-                for v in vals[r * n : (r + 1) * n]:
-                    prod = prod * (v or 1) % m
-                inverted.append(prod)
+        if batch:
             threads = min(256, max(32, 1 << (n - 1).bit_length()))
             run_len = -(-n // threads)
             products = 3 * (run_len - 1) + 2 * (threads.bit_length() - 1) + 3
         else:
-            inverted, products = [v for v in vals if v], 1
+            products = 1
         rec[name] = {
             "max_abs_err": err,
             "ms": cuda_ms(run, 20),
@@ -405,7 +405,7 @@ def _kernels_k1inv(dev, rng) -> dict:
             "library_ms": None,
             "shape": f"{rows} x {n} {spec}" + ("" if batch else " (inv_mont)"),
             "chain_products": products,
-            "inverse_steps": max(inverse_steps((x << 256) % m, m) for x in inverted),
+            "inverse_steps": INVERSE_STEPS,
             **bound(2 * a.numel() * 4, rows * 3 * (n - 1)),
         }
         print("phase 2 k1inv:", name, json.dumps(rec[name]), flush=True)
@@ -695,6 +695,139 @@ def _kernels_k1quo_k1mp(dev, rng) -> dict:
     return rec
 
 
+K1AFF_CASES = (  # record, points: about the verkle commit's node commitments, then a KZG proof's one
+    ("K1AFF", 30_000),  # point, the host-loop IPA round's two, and a 256-point row
+    ("K1AFF@1", 1),
+    ("K1AFF@2", 2),
+    ("K1AFF@256", 256),
+)
+
+
+def _kernels_k1aff(dev, crs, rng, cases=K1AFF_CASES) -> dict:
+    """K1AFF against its plain version (on the card's tensors), exact, and
+    the host points of ``curve.projective_to_host_points`` on the card (one
+    K1AFF launch, one read) against the host-int path it replaced on
+    ``p.cpu()``, equal, at ``cases``: K5 products of basis points by
+    128-bit scalars (Z not 1), every tenth scalar zero (Z = 0, infinity).
+    Each record: ms (the wrapper, CUDA events), device_ms (the kernel
+    alone, profiler), the plain version's ms, chain_ms (the replaced
+    host-int conversion of the same points, copy included, host clock) and
+    host_points_ms (the conversion now: launch, read, ints; host clock),
+    the rows, the infinities, and the bound (160 bytes a point; the
+    Montgomery trick's 3 (N - 1) products and 4 a point for x Z^-1, y Z^-1
+    and the two out of Montgomery form)."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_curve as KC
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if torch.device(dev).type == "cuda" else 132
+    most = max(n for _, n in cases)
+    idx = torch.tensor([rng.randrange(crs.n) for _ in range(most)], device=dev)
+    ks = [0 if i % 10 == 3 else rng.getrandbits(128) for i in range(most)]
+    pts = K5.scalar_mul_affine(crs.g_affine[idx].contiguous(), F.ints_to_words(ks, dev))
+    rec = {}
+    for name, n in cases:
+        p = pts[:n].contiguous()
+        before = cuda_lib.launches["K1AFF"]
+        out = KC.affine_words(p)
+        launched = cuda_lib.launches["K1AFF"] - before
+        plain_out, plain_ms = timed_once(lambda: KC.plain_affine_words(p))
+        err = max_abs_err(out, plain_out)
+        C.projective_to_host_points(p), C.projective_to_host_points(p.cpu())  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        now = C.projective_to_host_points(p)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        old = C.projective_to_host_points(p.cpu())
+        chain_ms = (time.perf_counter() - t0) * 1e3
+        infinities = sum(pt is None for pt in old)
+        assert err == 0 and launched == 1 and now == old, (name, err, launched)
+        assert (infinities > 0) == (n > 3), (name, infinities)
+        rec[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: KC.affine_words(p), 20),
+            "device_ms": device_ms(lambda: KC.affine_words(p), 10),
+            "plain_ms": plain_ms,
+            "chain_ms": chain_ms,
+            "host_points_ms": host_ms,
+            "launches_per_call": launched,
+            "library_ms": None,
+            "shape": f"{n} projective points, {infinities} at infinity",
+            "row": (row := KC.affine_row(n, sms)),
+            "blocks": -(-n // row),
+            **bound(160 * n, 3 * (n - 1) + 4 * n),
+        }
+        print("phase 2 k1aff:", name, json.dumps(rec[name]), flush=True)
+    return rec
+
+
+K1NTT_CASES = (  # record, elements, segment, inverse
+    ("K1NTT", 256, 256, False),  # FK's and phase 8's transforms at 256 and 512
+    ("K1NTT@intt256", 256, 256, True),
+    ("K1NTT@512", 512, 512, False),
+    ("K1NTT@intt512", 512, 512, True),
+    ("K1NTT@16x16", 256, 16, False),  # the four-step's sub-NTTs at 256
+    ("K1NTT@16x16inv", 256, 16, True),
+    ("K1NTT@2^14", 1 << 14, 1 << 14, False),  # above the shared-memory tile
+    ("K1NTT@2^14inv", 1 << 14, 1 << 14, True),
+)
+
+
+def _kernels_k1ntt(dev, rng, cases=K1NTT_CASES) -> dict:
+    """K1NTT against its plain version (on the card's tensors) and against
+    the K1 chain it replaced (the plain stage loop with each op a K1
+    launch), exact, at ``cases``; a forward transform's element 1 against
+    the host's sum. Each record: ms, device_ms (the kernel alone), the plain
+    version's and the chain's ms and K1 launches, the CUDA launches a call
+    (one up to the tile, one more a stage above), and the bound (32 bytes an
+    element each way and the table; seg / 2 products a stage a segment, and
+    one an element for the inverse's 1/seg)."""
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_ntt as KN
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import ntt as N
+    from verkle_kzg_tpu_torch.params import R, fr_root_of_unity
+
+    rec = {}
+    for name, n, seg, inverse in cases:
+        vals = [rng.randrange(R) for _ in range(n)]
+        vals[0], vals[-1] = 0, R - 1
+        x = F.ints_to_mont(vals, "fr", dev)
+        run = lambda: N.ntt_fr_segments(x, seg, inverse)  # noqa: E731
+        before = cuda_lib.launches["K1NTT"]
+        out = run()
+        launched = cuda_lib.launches["K1NTT"] - before
+        plain_out, plain_ms = timed_once(lambda: KN.plain(x, seg, inverse))
+        before = dict(cuda_lib.launches)
+        chain_out, _ = timed_once(lambda: _k1_chain(KN.plain, x, seg, inverse))
+        chain = {k: cuda_lib.launches[k] - before[k] for k in ("K1", "K1NTT")}
+        err = max(max_abs_err(out, plain_out), max_abs_err(out, chain_out))
+        logs, tile = seg.bit_length() - 1, min(seg, KN.TILE).bit_length() - 1
+        assert err == 0 and launched == 1 + logs - tile and chain["K1NTT"] == 0, (name, err, launched, chain)
+        if not inverse and n == seg:
+            w = fr_root_of_unity(n)
+            assert F.mont_to_ints(out[1:2], "fr") == [sum(v * pow(w, j, R) for j, v in enumerate(vals)) % R]
+        rec[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(run, 20),
+            "device_ms": device_ms(run, 10),
+            "plain_ms": plain_ms,
+            "chain_ms": cuda_ms(lambda: _k1_chain(KN.plain, x, seg, inverse), 3),
+            "chain_k1_launches": chain["K1"],
+            "launches_per_call": launched,
+            "library_ms": None,
+            "shape": f"{n // seg} x {seg} Fr, {'inverse' if inverse else 'forward'}",
+            **bound(64 * n + 32 * (seg // 2 + 1), n // 2 * logs + (n if inverse else 0)),
+        }
+        print("phase 2 k1ntt:", name, json.dumps(rec[name]), flush=True)
+    return rec
+
+
 FSX_EDGES = (0, 55, 56, 63, 64, 100, 119, 120, 200)  # message bytes across SHA-256's padding edges
 
 
@@ -734,7 +867,7 @@ def _kernels_fsx(dev, rng) -> dict:
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import sha256 as S
-    from verkle_kzg_tpu_torch.params import Q, R
+    from verkle_kzg_tpu_torch.params import R
 
     def raw(t):
         return bytes(t.cpu().to(torch.int64).tolist())
@@ -801,10 +934,6 @@ def _kernels_fsx(dev, rng) -> dict:
         chain_launches = {k: cuda_lib.launches[k] - before[k] for k in ("K1", "K1INV", "FSX")}
         assert all(torch.equal(c.cpu(), w_) for c, w_ in zip(chain_out, want)) and chain_launches["FSX"] == 0
         msg = n + sum(len(p) if isinstance(p, bytes) else 32 for p in parts) + len(label)
-        zs = [F.mont_to_ints(p[2:3], "fq")[0] for p in parts if not isinstance(p, bytes)] if npts else []
-        prod = 1
-        for z in zs:
-            prod = prod * (z or 1) % Q
         out_bytes = 64 + 32 + len(label) + 64 * npts
         in_bytes = n + 96 * npts + (32 if not npts else 0)
         rec[name] = {
@@ -817,7 +946,7 @@ def _kernels_fsx(dev, rng) -> dict:
             "library_ms": None,
             "shape": f"{n}-byte state, {msg}-byte message" + (", L and R projective" if npts else ", y"),
             "compressions": fsx_compressions(msg, 3),
-            "inverse_steps": inverse_steps((prod << 256) % Q, Q) if npts else 0,
+            "inverse_steps": INVERSE_STEPS if npts else 0,
             "products": products,
             "checked_launches": checked,
             **bound(in_bytes + out_bytes, products),
@@ -1191,7 +1320,8 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
             pa[3:9] = 0  # (0, 0) lanes, one with a zero scalar
         sc = F.ints_to_words(ks, dev)
         out = K5.scalar_mul_affine(pa, sc)
-        errs.append(max_abs_err(out, K5.plain(pa, sc)))
+        plain_out, plain_ms = timed_once(lambda: K5.plain(pa, sc))
+        errs.append(max_abs_err(out, plain_out))
         assert errs[-1] == 0, n
     hp = C.projective_to_host_points(out[:8])
     gx = [crs.g_host[i] for i in idx[:8].tolist()]
@@ -1203,7 +1333,7 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
         "max_abs_err": max(errs),
         "ms": cuda_ms(lambda: K5.scalar_mul_affine(pa, sc), 5),
         "ptxas": ptxas_of("scalar_mul_kernelILi4E"),
-        "plain_ms": cuda_ms(lambda: K5.plain(pa, sc), 1),
+        "plain_ms": plain_ms,
         "library_ms": None,
         "regime": "many",
         "shape": f"{lanes} lanes, 128-bit scalars on half",
@@ -1992,23 +2122,32 @@ def phase_group(dev, card: str, n: int = 1 << 20, lanes: int = 128, grid=GROUP_G
 
 
 def _stage(name, fn, ms, counts, k5_lanes=None):
-    """Run one stage of a path: CUDA-event and wall milliseconds, and the
-    launches per kernel it made; with ``k5_lanes``, also the lane count of
-    each K5 call it made, into ``k5_lanes[name]``."""
+    """Run one stage of a path: CUDA-event and wall milliseconds, the
+    launches per kernel it made, and its calls of
+    ``curve.projective_to_host_points`` on card tensors (``ms[name]
+    ["card_conversions"]``, a K1AFF launch each); with ``k5_lanes``, also
+    the lane count of each K5 call it made, into ``k5_lanes[name]``."""
     import torch
 
     from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
+    from verkle_kzg_tpu_torch.ops import curve as C
 
     before = dict(cuda_lib.launches)
     inner, lanes = K5.scalar_mul_affine, []
+    convert, conversions = C.projective_to_host_points, []
 
     def recorded(pts, sc):
         lanes.append(int(pts.shape[0]))
         return inner(pts, sc)
 
+    def counted(p):
+        conversions.append(p.device.type != "cpu")
+        return convert(p)
+
     if k5_lanes is not None:
         K5.scalar_mul_affine = recorded
+    C.projective_to_host_points = counted
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2017,9 +2156,11 @@ def _stage(name, fn, ms, counts, k5_lanes=None):
         out = fn()
     finally:
         K5.scalar_mul_affine = inner
+        C.projective_to_host_points = convert
     end.record()
     torch.cuda.synchronize()
-    ms[name] = {"events_ms": start.elapsed_time(end), "wall_ms": (time.perf_counter() - t0) * 1e3}
+    ms[name] = {"events_ms": start.elapsed_time(end), "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "card_conversions": sum(conversions)}
     counts[name] = {k: cuda_lib.launches[k] - before[k] for k in before}
     if k5_lanes is not None:
         k5_lanes[name] = lanes
@@ -2138,7 +2279,8 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
     assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
     # K2FOLD sums the sparse commits and the verify's 51 commitments, so no K2
-    assert min(path_launches[k] for k in ("K1IPA", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7")) > 0, path_launches
+    assert min(path_launches[k] for k in ("K1IPA", "FSX", "K1AFF", "K2FOLD", "K3", "K4", "K5", "K6", "K7")) > 0, \
+        path_launches
     assert path_launches["K2"] == 0, path_launches
     # the multiproof's passes: two K1MP and one K1QUO; K1 only for the D and
     # E commits' standard form, no inversion on the card
@@ -2146,6 +2288,9 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     assert (c["K1"], c["K1INV"], c["K1QUO"], c["K1MP"]) == (2, 0, 1, 2), c
     assert tuple(path_launches[k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == (2, 0, 1, 2), path_launches
     assert regimes["many"] > 0 and regimes["few"] > 0, regimes
+    # every conversion of card points to host points is one K1AFF launch
+    for name in ms:
+        assert counts[name]["K1AFF"] == ms[name]["card_conversions"] > 0, (name, counts[name], ms[name])
 
     # sampled commitments against the native C++ Pippenger
     g = crs.g_host
@@ -2170,6 +2315,13 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
         torch.cuda.synchronize()
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = _device_busy_ms(prof)
+    # and where the host's share goes: a third tree's commit under cProfile
+    from verkle_kzg_tpu_torch.tools.smoke_phases import cprofile_top
+
+    third = build()
+    root3, host_split = cprofile_top(third.commitment)
+    assert root3 == root
+    print("phase 5 commit under cProfile, by cumulative s:", json.dumps(host_split), flush=True)
 
     # a small tree of the same geometry (a sparse root, a dense depth-1
     # node), on the card and on the CPU path
@@ -2197,6 +2349,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
         "k5_lanes": k5_lanes,
         "queries": len(prove_keys),
         "profiled_commit": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms, "kernel_ms_by_name": top},
+        "cprofile_commit": host_split,
         "small_leaves": small_leaves,
         "cpu_plain_commit_small_s": cpu_small_s,
         "root": root,
@@ -2343,7 +2496,7 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
 
     torch.cuda.synchronize()
     path_launches = dict(cuda_lib.launches)
-    assert min(path_launches[k] for k in ("K3", "K4", "K5", "G1SMUL", "G1BFLY")) > 0, path_launches  # K2: see phase 3
+    assert min(path_launches[k] for k in ("K3", "K4", "K5", "G1SMUL", "G1BFLY", "K1AFF", "K1NTT")) > 0, path_launches
     # (K1, K1INV, K1QUO, K1MP): an in-domain prove is one K1QUO and the MSM's
     # standard form; the out-of-domain one a sub, the quotient's sub and
     # product, the standard form and one K1INV; a multiproof its passes, the
@@ -2353,12 +2506,15 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
     for name, expect in want.items():
         assert tuple(counts[name][k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == expect, (name, counts[name])
 
-    def fk_k1(size):  # FK's Fr INTT at N and NTT at 2N (3 a stage, the INTT's 1/N), and y's standard form
-        return 6 * (size.bit_length() - 1) + 5
-
+    # FK: its Fr INTT at N and NTT at 2N one K1NTT each, K1 only for y's standard form
+    for name in ("fk", f"fk_{small}"):
+        assert (counts[name]["K1NTT"], counts[name]["K1"]) == (2, 1), (name, counts[name])
     # the warm-up commit and prove, the stages above, FK's commit, FK at n and at small
-    path_k1 = 2 + 1 + 1 + 4 + 1 + fk_k1(n) + n + fk_k1(small) + 2 * 6
+    path_k1 = 2 + 1 + 1 + 4 + 1 + 1 + n + 1 + 2 * 6
     assert tuple(path_launches[k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == (path_k1, 3, n + 4, 4), path_launches
+    # every conversion of card points to host points is one K1AFF launch
+    for name in ms:
+        assert counts[name]["K1AFF"] == ms[name]["card_conversions"], (name, counts[name], ms[name])
 
     # the proofs through the plain versions of K1QUO and K1MP
     with plain_passes():
@@ -2393,7 +2549,11 @@ def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, 
         coeffs = [rng.randrange(R) for _ in range(size)]
         a = F.ints_to_mont(coeffs, "fr", dev)
         ev = _stage(f"ntt_fr_{size}", lambda: N.ntt_fr(a), ms, counts)
-        assert torch.equal(N.intt_fr(ev), a), f"Fr NTT round trip at {size}"
+        back = _stage(f"intt_fr_{size}", lambda: N.intt_fr(ev), ms, counts)
+        assert torch.equal(back, a), f"Fr NTT round trip at {size}"
+        for kind in ("ntt_fr", "intt_fr"):  # one K1NTT a transform, no K1
+            c = counts[f"{kind}_{size}"]
+            assert (c["K1NTT"], c["K1"]) == (1, 0), (kind, size, c)
         w = fr_root_of_unity(size)
         assert F.mont_to_ints(ev[1:2], "fr") == [sum(c * pow(w, j, R) for j, c in enumerate(coeffs)) % R]
     mono = _stage(f"ntt_g1_{n}", lambda: N.ntt_g1(lag), ms, counts)
@@ -2560,6 +2720,8 @@ def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n,
         logn = s.bit_length() - 1
         for kind in ("ntt_fr", "intt_fr"):
             assert torch.equal(out[f"{kind}_{s}"], twin[f"{kind}_{s}"]), (kind, s)
+            c = counts[f"{kind}_{s}"]  # a K1NTT a sub-NTT pass, a K1 for the twiddles
+            assert (c["K1NTT"], c["K1"]) == (2, 1), (kind, s, c)
         assert torch.equal(PN.intt_fr_sharded(out[f"ntt_fr_{s}"], mesh), fr_in[s]), f"Fr round trip at {s}"
         for kind in ("ntt_g1", "intt_g1"):
             assert host(out[f"{kind}_{s}"]) == host(twin[f"{kind}_{s}"]), (kind, s)
@@ -2570,6 +2732,9 @@ def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n,
             assert (c["G1BFLY"], c["G1SMUL"]) == (logn, smul), (kind, s, c)
     logn = fk_n.bit_length() - 1
     assert (counts["fk"]["G1BFLY"], counts["fk"]["G1SMUL"]) == (4 * logn + 2, 7), counts["fk"]
+    assert (counts["fk"]["K1NTT"], counts["fk"]["K1"]) == (4, 3), counts["fk"]  # 2 four-steps, y's standard form
+    for name in ms:
+        assert counts[name]["K1AFF"] == ms[name]["card_conversions"], (name, counts[name], ms[name])
     assert [(p.proof, p.y) for p in out["fk"]] == [(p.proof, p.y) for p in twin["fk"]], "FK: mesh != twin"
     assert proofs_digest(out["fk"]) == ref["fk_sha256"], "FK with the mesh != phase 8's proofs"
     assert out["verkle_commit"] == ref["root"], "the tree with the mesh != phase 5's root"
@@ -2623,8 +2788,9 @@ def proofs_digest(proofs) -> str:
 
 
 def k1_counts(phase: dict) -> dict:
-    """K1's, K1INV's, K1IPA's, K1QUO's, K1MP's and FSX's launches in each stage of a phase's record."""
-    keys = ("K1", "K1INV", "K1IPA", "K1QUO", "K1MP", "FSX")
+    """K1's, K1INV's, K1IPA's, K1QUO's, K1MP's, K1AFF's, K1NTT's and FSX's
+    launches in each stage of a phase's record."""
+    keys = ("K1", "K1INV", "K1IPA", "K1QUO", "K1MP", "K1AFF", "K1NTT", "FSX")
     return {stage: {k: c[k] for k in keys} for stage, c in phase["launches_per_stage"].items()}
 
 
@@ -2673,7 +2839,8 @@ def main() -> int:
     verkle = phase_verkle(dev, crs)
     print(f"phase 5 verkle, 10k leaves, Ethereum geometry ({time.perf_counter() - t0:.1f} s):", json.dumps(verkle),
           f"[{card}]", flush=True)
-    print("phase 5 K1, K1INV, K1IPA, K1QUO, K1MP and FSX launches per stage:", json.dumps(k1_counts(verkle)),
+    print("phase 5 K1, K1INV, K1IPA, K1QUO, K1MP, K1AFF, K1NTT and FSX launches per stage:",
+          json.dumps(k1_counts(verkle)),
           flush=True)
     print("phase 5 K5 lanes of each call per stage:", json.dumps(verkle["k5_lanes"]), flush=True)
 
@@ -2681,7 +2848,8 @@ def main() -> int:
     mp = phase_multiproof(dev, crs, ipa_data)
     print(f"phase 6 multiproof, 1024 queries at 256 ({time.perf_counter() - t0:.1f} s):", json.dumps(mp),
           f"[{card}]", flush=True)
-    print("phase 6 K1, K1INV, K1IPA, K1QUO, K1MP and FSX launches per stage:", json.dumps(k1_counts(mp)), flush=True)
+    print("phase 6 K1, K1INV, K1IPA, K1QUO, K1MP, K1AFF, K1NTT and FSX launches per stage:",
+          json.dumps(k1_counts(mp)), flush=True)
     print("phase 6 K5 lanes of each call per stage:", json.dumps(mp["k5_lanes"]), flush=True)
 
     t0 = time.perf_counter()
@@ -2693,8 +2861,10 @@ def main() -> int:
     kzg = phase_kzg(dev, card)
     print(f"phase 8 kzg@256, fk, kzg multiproof ({time.perf_counter() - t0:.1f} s):", json.dumps(kzg),
           f"[{card}]", flush=True)
-    print("phase 8 K1, K1INV, K1IPA, K1QUO, K1MP and FSX launches per stage:", json.dumps(k1_counts(kzg)),
-          "path:", json.dumps({k: kzg["path_launches"][k] for k in ("K1", "K1INV", "K1QUO", "K1MP")}), flush=True)
+    print("phase 8 K1, K1INV, K1IPA, K1QUO, K1MP, K1AFF, K1NTT and FSX launches per stage:",
+          json.dumps(k1_counts(kzg)), "path:",
+          json.dumps({k: kzg["path_launches"][k] for k in ("K1", "K1INV", "K1QUO", "K1MP", "K1AFF", "K1NTT")}),
+          flush=True)
 
     t0 = time.perf_counter()
     group = phase_group(dev, card)
@@ -2710,7 +2880,7 @@ def main() -> int:
           flush=True)
 
     sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K1IPA": "ipa_round.cu", "K1QUO": "quotient.cu",
-               "K1MP": "multiproof.cu", "K2": "curve.cu",
+               "K1MP": "multiproof.cu", "K1AFF": "affine.cu", "K1NTT": "ntt_fr.cu", "K2": "curve.cu",
                "K2FOLD": "curve.cu", "K3": "msm_sorted.cu", "K4": "msm_tail.cuh",
                "K5": "scalar_mul.cu", "K6": "msm_sorted.cu", "K7": "msm_tail.cuh",
                "K8": "msm_sorted.cu", "K9": "msm_sorted.cu", "K10": "msm_sorted.cu",
@@ -2726,6 +2896,10 @@ def main() -> int:
         # and of verkle_kzg_tpu/schemes/multiproof.py:78-129's three programs
         "K1QUO": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K1MP": "verkle_kzg_tpu/ops/pallas_field.py:298",
+        # the K1 work of verkle_kzg_tpu/ops/curve.py:273's to_affine, which :320's
+        # projective_to_host_points runs before its read, and of ops/ntt.py:88's _fr_stage
+        "K1AFF": "verkle_kzg_tpu/ops/pallas_field.py:298",
+        "K1NTT": "verkle_kzg_tpu/ops/pallas_field.py:298",
         "K2": "verkle_kzg_tpu/ops/pallas_curve.py:328",
         # the K2 chain of verkle_kzg_tpu/ops/msm.py:67's fold_reduce_lanes
         "K2FOLD": "verkle_kzg_tpu/ops/pallas_curve.py:328",
@@ -2747,17 +2921,18 @@ def main() -> int:
         # (to_affine, g1_compressed_bytes, hash_to_fr, to_mont)
         "FSX": "verkle_kzg_tpu/schemes/ipa.py:249",
     }
-    # launches: K1, K1IPA, K1QUO, K1MP, FSX, K2FOLD and K3-K7 from the verkle path of
-    # phase 5 (commit, prove, verify), which runs all of them; K8-K10 from the
-    # sweep of phase 7; K1INV, G1SMUL and G1BFLY from the KZG path of phase 8; K2,
+    # launches: K1, K1IPA, K1QUO, K1MP, K1AFF, FSX, K2FOLD and K3-K7 from the verkle
+    # path of phase 5 (commit, prove, verify), which runs all of them; K8-K10 from the
+    # sweep of phase 7; K1INV, K1NTT, G1SMUL and G1BFLY from the KZG path of phase 8; K2,
     # K11 and K12 from phase 2, since no path calls the standalone add (its
     # folds are K2FOLD's), double (the scalar multiplication it served is
     # G1SMUL's) or mixed add; K13 from the tune_group grid of phase 9.
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
-        **dict.fromkeys(("K1", "K1IPA", "K1QUO", "K1MP", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
+        **dict.fromkeys(("K1", "K1IPA", "K1QUO", "K1MP", "K1AFF", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
                         ("phase 5", verkle["path_launches"])),
+        "K1NTT": ("phase 8: FK's two Fr transforms, at 256 and at 16", kzg["path_launches"]),
         "K1INV": ("phase 8: no inversion runs on the card in phase 5 since K1QUO", kzg["path_launches"]),
         "K2": ("phase 2 only: no path calls curve.add since K2FOLD", phase2_launches),
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
@@ -2773,6 +2948,9 @@ def main() -> int:
               "K1INV": "verkle_kzg_tpu/ops/field.py:327 and verkle_kzg_tpu/ops/field.py:342",
               "K1IPA": "verkle_kzg_tpu/schemes/ipa.py:214", "K2FOLD": "verkle_kzg_tpu/ops/msm.py:67",
               "K1QUO": "verkle_kzg_tpu/poly/lagrange.py:26-40", "K1MP": "verkle_kzg_tpu/schemes/multiproof.py:78-129",
+              # K1AFF's chain_ms: the port's host-int conversion it replaced
+              "K1AFF": "verkle_kzg_tpu/ops/curve.py:273-284 and :320-329",
+              "K1NTT": "verkle_kzg_tpu/ops/ntt.py:88-96",
               "FSX": "verkle_kzg_tpu/schemes/ipa.py:236-252"}
     kernels = []
     for k in sources:

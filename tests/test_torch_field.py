@@ -139,17 +139,23 @@ def test_domain_mirrors_match_jax():
 
 
 def test_cuda_header_constants():
-    """The moduli, 2m, Montgomery one, R^3 mod m (K1INV's step from
-    (a R)^-1 to a^-1 R) and -m^-1 mod 2^32 written into the CUDA header
-    equal the ones derived in params.py (the header cannot be compiled
-    here)."""
+    """The moduli, 2m, Montgomery one and -m^-1 mod 2^32 written into the
+    CUDA header, and the inverse's closing factor 2^INV_OUTER R^3 mod m in
+    ``field_inv.cuh`` (its rounds' 2^(32 - 31) each, and (a R)^-1 to
+    a^-1 R), equal the ones derived in params.py (the headers cannot be
+    compiled here)."""
+
+    def words(blk):
+        return sum(int(w, 16) << (32 * i) for i, w in enumerate(re.findall(r"0x([0-9a-f]{8})u", blk)))
+
     src = (cuda_lib.CSRC / "bn254_field.cuh").read_text()
+    inv = (cuda_lib.CSRC / "field_inv.cuh").read_text()
+    outer = int(re.search(r"INV_OUTER = (\d+);", inv).group(1))
     for name, fs in (("Fq", FQ), ("Fr", FR)):
         body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
-        arrays = [
-            sum(int(w, 16) << (32 * i) for i, w in enumerate(re.findall(r"0x([0-9a-f]{8})u", blk)))
-            for blk in re.findall(r"\{(0x[^}]*)\}", body)
-        ]
-        assert arrays == [fs.modulus, 2 * fs.modulus, fs.r_mod, pow(fs.r_mod, 3, fs.modulus)]
+        arrays = [words(blk) for blk in re.findall(r"\{(0x[^}]*)\}", body)]
+        assert arrays == [fs.modulus, 2 * fs.modulus, fs.r_mod]
         n0 = int(re.search(r"n0 = 0x([0-9a-f]+)u", body).group(1), 16)
         assert n0 == (-pow(fs.modulus, -1, 1 << 32)) % (1 << 32)
+        fix = re.search(r"inv_fix<%s>\(int i\) \{\n\s*const uint32_t v\[8\] = \{([^}]*)\}" % name, inv).group(1)
+        assert words(fix) == pow(2, outer, fs.modulus) * pow(fs.r_mod, 3, fs.modulus) % fs.modulus

@@ -34,12 +34,6 @@ struct Fq {
                            0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
     return v[i];
   }
-  // R^3 mod m: a Montgomery product by it takes x^-1 R^-1 to x^-1 R.
-  static __device__ __forceinline__ uint32_t r3(int i) {
-    const uint32_t v[8] = {0xda1530dfu, 0xb1cd6dafu, 0xa7283db6u, 0x62f210e6u,
-                           0x0ada0afbu, 0xef7f0b0cu, 0x2d592544u, 0x20fd6e90u};
-    return v[i];
-  }
   static constexpr uint32_t n0 = 0xe4866389u;  // -m^-1 mod 2^32
 };
 
@@ -57,11 +51,6 @@ struct Fr {
   static __device__ __forceinline__ uint32_t one(int i) {
     const uint32_t v[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
                            0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
-    return v[i];
-  }
-  static __device__ __forceinline__ uint32_t r3(int i) {
-    const uint32_t v[8] = {0xb4bf0040u, 0x5e94d8e1u, 0x1cfbb6b8u, 0x2a489cbeu,
-                           0xa19fcfedu, 0x893cc664u, 0x7fcc657cu, 0x0cf8594bu};
     return v[i];
   }
   static constexpr uint32_t n0 = 0xefffffffu;

@@ -39,12 +39,36 @@ first level's pairs), a block of 128 threads holds 128 / group rows, and
 the levels step together on ``__syncthreads()``, in place in a scratch
 buffer after the first. Pairs and the odd tail point take the plain
 version's slots, so the projective words are its words.
+
+Kernel K1AFF (``csrc/affine.cu``, :func:`affine_words`): projective points
+to the standard-form canonical affine words that the host reads, (0, 0)
+where Z = 0. It replaces the K1 work of the JAX package's
+``verkle_kzg_tpu/ops/curve.py::projective_to_host_points`` (lines 320-329),
+which runs ``to_affine`` (lines 273-284: ``batch_inv_mont`` and two
+``mont_mul``, the ``pallas_call`` of ``ops/pallas_field.py:298``) on the
+device before it reads the words. The port had read the projective words
+and done the work in Python ints instead: three products out of Montgomery
+form, a ``pow(z, -1, Q)`` and two products a point, about 0.7-0.8 s for the
+30,000 node commitments of a 10,000-leaf verkle commit. Every
+``curve.projective_to_host_points`` on a card tensor is now one launch and
+one read. What bounds it is one inversion's dependent chain a row
+(field_inv.cuh's ``finv``: 18 rounds of 31 steps on 64-bit registers,
+Pornin's binary GCD, in place of about 500 steps on 256-bit words, which
+took a one-point call to about 0.07 ms), not bytes (160 a point) or
+products (about 7 a point). The design is a
+block a row of up to 256 points, a point a thread: the Z's prefix and
+suffix products scanned in shared memory, one inversion a row, each Z^-1
+from the row's inverse and two scanned products; rows shrink (to one
+point) until the launch has a block an SM, so that the inversions run side
+by side and a call of a few points does no scan. Every product is reduced and an inverse is unique, so the words are
+the plain version's, whatever the row split.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import cuda_field as KF
 from . import cuda_lib
 from . import curve as C
 from . import field as F
@@ -134,3 +158,45 @@ def mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
     p = p.expand(lead + p.shape[-2:]).contiguous()
     q_aff = q_aff.expand(lead + q_aff.shape[-2:]).contiguous()
     return _launch("vkzg_point_mixed_add", "K12", torch.empty_like(p), p, q_aff)
+
+
+def affine_row(n: int, sms: int) -> int:
+    """Points a K1AFF block takes for ``n`` points on a card of ``sms``
+    SMs: 256, halved (down to 1) while the launch would have fewer blocks
+    than SMs, so that the rows' inversions run side by side and a few
+    points skip the scan."""
+    row = 256
+    while row > 1 and -(-n // row) < sms:
+        row //= 2
+    return row
+
+
+def plain_affine_words(p: torch.Tensor) -> torch.Tensor:
+    """K1AFF's plain version, on K1INV's and K1's plain versions, any
+    device: (..., 3, 8) projective Montgomery words -> (N, 2, 8) standard
+    canonical affine words, (0, 0) where Z = 0 (its inverse is 0)."""
+    flat = p.reshape(-1, 3, F.WORDS)
+    zinv = KF.plain_batch_inv(flat[None, :, 2], "fq")[0]
+    xy = KF.plain("mul", flat[:, :2], zinv[:, None].expand(-1, 2, -1), "fq")
+    return KF.plain("mul", xy, F.const_words(1, p.device).expand_as(xy), "fq")  # by the plain 1: out of the form
+
+
+def affine_words(p: torch.Tensor) -> torch.Tensor:
+    """Kernel K1AFF: (..., 3, 8) projective Montgomery words -> (N, 2, 8)
+    standard-form canonical affine x and y, (0, 0) where Z = 0, N the
+    points of the leading axes, in one launch. CPU tensors take the plain
+    version."""
+    if p.device.type == "cpu":
+        return plain_affine_words(p)
+    if p.dim() < 2 or p.shape[-2:] != (3, F.WORDS):
+        raise ValueError(f"curve.affine_words: points must be (..., 3, 8), got {tuple(p.shape)}")
+    flat = p.reshape(-1, 3, F.WORDS).contiguous()
+    cuda_lib.require_cuda("curve.affine_words", flat)
+    n = flat.shape[0]
+    out = torch.empty((n, 2, F.WORDS), dtype=flat.dtype, device=flat.device)
+    if n:
+        row = affine_row(n, torch.cuda.get_device_properties(flat.device).multi_processor_count)
+        err = cuda_lib.lib().vkzg_affine(flat.data_ptr(), out.data_ptr(), n, row, cuda_lib.stream(flat))
+        cuda_lib.check(err, "vkzg_affine")
+        cuda_lib.launches["K1AFF"] += 1
+    return out

@@ -12,8 +12,8 @@ it costs a device->host read of each round's points, their affine
 conversion in Python, and the challenge's copy back.
 
 What bounds it on the card is its dependent chain, not bytes or
-multiplies: one inversion over Fq (the binary extended Euclid of K1INV,
-``csrc/field_inv.cuh``, ~500 loop steps), then five compressions of 64
+multiplies: one inversion over Fq (K1INV's, ``csrc/field_inv.cuh``: 18
+rounds of 31 register steps), then five compressions of 64
 rounds each, all serial. The design is one block of one warp. Lane 0
 converts the message's points to affine with ONE inversion (Montgomery's
 trick over their Z: two lanes inverting a point each would run their

@@ -36,13 +36,15 @@ thread an element. N > 1 takes a block a row: each thread's run of
 elements is multiplied out, the run products are scanned both ways in
 shared memory (8 levels at 256 threads), one thread inverts the row's
 product, and each thread walks its run back with two products an element.
-The inverse is the binary extended Euclid of (a R, m), about 2 x 254
-shifts and 254 subtractions of 256-bit words, then one Montgomery product
-by R^3: Fermat's a^(m - 2) chains 381 products of ~500 instructions (0.68
-us each on one thread, ``tools/fmul_probe.py``), ~0.26 ms; the shifts and
-subtractions are a few dozen instructions each. Every product is reduced,
-and an inverse is unique, so the words are those of the JAX package's
-Fermat chain, which the plain version below runs unchanged.
+The inverse is Pornin's optimized binary GCD of (a R, m)
+(``csrc/field_inv.cuh``: 18 rounds of 31 steps on 64-bit approximations in
+registers, each round one update of the 256-bit values and their
+cofactors, where a binary extended Euclid takes about 500 steps on 256-bit
+words), then one Montgomery product: Fermat's a^(m - 2)
+chains 381 products of ~500 instructions (0.68 us each on one thread,
+``tools/fmul_probe.py``), ~0.26 ms. Every product is reduced, and an
+inverse is unique, so the words are those of the JAX package's Fermat
+chain, which the plain version below runs unchanged.
 """
 
 from __future__ import annotations

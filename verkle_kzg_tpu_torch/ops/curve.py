@@ -25,6 +25,7 @@ import torch
 
 from ..params import Q
 
+from . import cuda_lib
 from . import field as F
 
 _FQ = "fq"
@@ -154,10 +155,10 @@ def double(p: torch.Tensor) -> torch.Tensor:
     return _k2.double(p)
 
 
-def mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
-    """p + q_aff, q_aff (..., 2, 8) affine with the (0, 0) sentinel
+def mixed_add(p: torch.Tensor, q_affine: torch.Tensor) -> torch.Tensor:
+    """p + q_affine, q_affine (..., 2, 8) affine with the (0, 0) sentinel
     (``ops/curve.py::mixed_add``). K12."""
-    return _k2.mixed_add(p, q_aff)
+    return _k2.mixed_add(p, q_affine)
 
 
 def neg(p: torch.Tensor) -> torch.Tensor:
@@ -224,9 +225,14 @@ def scalar_bits_msb(scalars: torch.Tensor) -> torch.Tensor:
     return bits.flatten(-2).flip(-1).movedim(-1, 0)
 
 
-def infinity(shape, device) -> torch.Tensor:
-    """(*shape, 3, 8) words of the identity (0 : 1 : 0)."""
-    return F.from_limbs(infinity16((), device)).expand(tuple(shape) + (3, F.WORDS)).clone()
+def infinity(lead=(), device=None, *, b: int | None = None) -> torch.Tensor:
+    """(*lead, 3, 8) words of the identity (0 : 1 : 0), or (*lead, b, 3, 8)
+    with ``b`` (``ops/curve.py::infinity``: JAX's ``b`` lanes are b points
+    here). On the card unless ``device`` says otherwise; ``b`` is keyword
+    only, since the second position is the device."""
+    device = cuda_lib.resolve_device(device)
+    shape = tuple(lead) + ((b,) if b is not None else ())
+    return F.from_limbs(infinity16((), device)).expand(shape + (3, F.WORDS)).clone()
 
 
 def from_affine(a: torch.Tensor) -> torch.Tensor:
@@ -278,7 +284,13 @@ def affine_to_host_points(a: torch.Tensor) -> list:
 
 def projective_to_host_points(p: torch.Tensor) -> list:
     """(..., 3, 8) projective -> flat list of canonical host affine points
-    (None for infinity), computed with python ints on the host."""
+    (None for infinity) (``ops/curve.py::projective_to_host_points``). On
+    the card: one K1AFF launch (the affine form, out of Montgomery form)
+    and one read, the host only turning words into ints. On the CPU: with
+    python ints on the host, the exact oracle."""
+    if p.device.type != "cpu":
+        xy = F.words_to_ints(_k2.affine_words(p))
+        return [None if x == 0 and y == 0 else (x, y) for x, y in zip(xy[0::2], xy[1::2])]
     xyz = F.words_to_ints(p)
     rinv = pow(1 << 256, -1, Q)
     out = []

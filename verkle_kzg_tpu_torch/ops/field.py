@@ -426,12 +426,12 @@ def batch_inv_mont(a: torch.Tensor, spec: str, axis: int = -2) -> torch.Tensor:
     return _k1.inverse(a.movedim(axis, -2), spec, batch=True).movedim(-2, axis)
 
 
-def powers_of_mont(x: torch.Tensor, n: int, spec: str) -> torch.Tensor:
+def powers_of_mont(x_mont: torch.Tensor, n: int, spec: str) -> torch.Tensor:
     """[1, x, ..., x^(n-1)] of one (8,) Montgomery element -> (n, 8), by
     doubling the known prefix with one K1 product per round
     (``ops/field.py::powers_of_mont``, ``utils.rs:44-55``)."""
-    out = const_words(SPECS[spec].r_mod, x.device)[None]
-    step = x[None]  # x^len(out)
+    out = const_words(SPECS[spec].r_mod, x_mont.device)[None]
+    step = x_mont[None]  # x^len(out)
     while out.shape[0] < n:
         out = torch.cat([out, mont_mul(out, step.expand_as(out), spec)])
         step = mont_mul(step, step, spec)

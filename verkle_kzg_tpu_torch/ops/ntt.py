@@ -7,14 +7,18 @@ Feist-Khovratovich all-points prover (``kzg/mod.rs:215-224``,
 
 Decimation in time: a bit-reversal gather, then log2(N) butterfly stages
 with their u/v position indices and twiddles as data (:class:`_Plan`). An
-Fr stage (u + w v, u - w v) is a gather, K1 products and add/subs and a
-scatter; a G1 stage is one G1BFLY launch (``cuda_g1_chain.butterfly``),
+Fr transform is one K1NTT launch up to 4,096 elements, one more a stage
+above (``cuda_ntt.ntt``: the bit reversal, the stages' (u + w v, u - w v)
+and the inverse's 1/N in shared memory; its plain version is the stage
+loop of gathers, K1 products and add/subs and scatters that it replaced);
+a G1 stage is one G1BFLY launch (``cuda_g1_chain.butterfly``),
 which multiplies v by the twiddle with ``curve.scalar_mul``'s chain and
 takes u + v and u + (-v) in one kernel. The operations and their order are
 the JAX package's, so Fr outputs and G1 projective coordinates are the
 same words. The same stages transform B contiguous segments at once, each
 on its own (``ntt_fr_segments``, ``ntt_g1_segments``): the sub-NTTs of the
-four-step in ``parallel/ntt.py``, one pass or one G1BFLY launch a stage.
+four-step in ``parallel/ntt.py``, one K1NTT pass or one G1BFLY launch a
+stage.
 
 Conventions match ark_poly: ``ntt_*`` maps natural-order coefficients to
 natural-order evaluations [p(w^i)]; ``intt_*`` is its inverse, with the 1/N
@@ -94,24 +98,27 @@ class _Plan:
             self._mirrors[key] = (idx(order), stages)
         return self._mirrors[key]
 
+    def k1ntt_table(self, device) -> torch.Tensor:
+        """K1NTT's twiddles on ``device``, made once: (n / 2 + 1, 8)
+        Montgomery words, w^k for k < n / 2 (the last stage's twiddles;
+        stage s takes every n / 2^(s+1)-th), then 1/n for the inverse (1
+        for the forward transform)."""
+        key = (torch.device(device), "k1ntt")
+        if key not in self._mirrors:
+            half = self.n // 2
+            tw = self.stages[-1][2][:half] + [self.n_inv if self.n_inv is not None else 1]
+            self._mirrors[key] = F.ints_to_mont(tw, "fr", device)
+        return self._mirrors[key]
+
 
 def ntt_fr_segments(x_mont: torch.Tensor, seg: int, inverse: bool = False) -> torch.Tensor:
     """(B seg, 8) Montgomery words, B contiguous segments of ``seg``
-    elements -> each segment's size-seg NTT (INTT with its 1/seg), the
-    butterflies of all B segments in one pass a stage: (u + w v, u - w v)
-    over Fr (``ntt.py::_fr_stage``), a gather, K1 products and add/subs and
-    a scatter. B = 1 is the whole vector's transform; B > 1 the four-step's
+    elements -> each segment's size-seg NTT (INTT with its 1/seg):
+    (u + w v, u - w v) over Fr a butterfly (``ntt.py::_fr_stage``), all B
+    segments in kernel K1NTT's one launch (one more a stage above 4,096
+    elements). B = 1 is the whole vector's transform; B > 1 the four-step's
     sub-NTTs (``parallel/ntt.py``)."""
-    bitrev, stages = _Plan(x_mont.shape[0], inverse).on(x_mont.device, True, seg)
-    x = x_mont[bitrev]
-    for u_idx, v_idx, tw in stages:
-        u, v = x[u_idx], F.mont_mul(x[v_idx], tw, "fr")
-        x = torch.empty_like(x)
-        x[u_idx] = F.add(u, v, "fr")
-        x[v_idx] = F.sub(u, v, "fr")
-    if not inverse:
-        return x
-    return F.mont_mul(x, F.ints_to_mont([fr_inv(seg)], "fr", x.device), "fr")
+    return _kn.ntt(x_mont, seg, inverse)
 
 
 def ntt_g1_segments(pts_proj: torch.Tensor, seg: int, inverse: bool = False) -> torch.Tensor:
@@ -146,3 +153,6 @@ def ntt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
 def intt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) projective points -> the G1 inverse NTT, 1/N folded in."""
     return ntt_g1_segments(pts_proj, pts_proj.shape[0], inverse=True)
+
+
+from . import cuda_ntt as _kn  # noqa: E402  (K1NTT wrapper; it imports this module)

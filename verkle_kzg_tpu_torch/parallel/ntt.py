@@ -7,8 +7,8 @@ A[j1, j2] = x[j1 n2 + j2]. On a mesh of d ranks, rank r:
   1. takes its n2 / d columns j2, the split the JAX package's
      ``P(None, None, axis)`` gives, each column a contiguous segment;
   2. runs the size-n1 NTTs along j1, all its columns at once
-     (``ops/ntt.py``'s segmented plan: one pass of K1 products, or one
-     G1BFLY launch, a stage);
+     (``ops/ntt.py``'s segmented transforms: one K1NTT launch, or one
+     G1BFLY launch a stage);
   3. multiplies element [k1, j2] by w^(k1 j2) (K1 over Fr in Montgomery
      form; G1SMUL over G1 with standard-form scalars);
   4. exchanges with one ``all_to_all_single``, after which it holds the

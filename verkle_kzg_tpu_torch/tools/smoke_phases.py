@@ -4,7 +4,12 @@ MSM with its stages, the config-5 MSM sweep and the lane-stream grid); a
 third argument lists others, e.g. ``3,5,6`` (the IPA at 256, the verkle
 tree, the multiproof; 6 runs 3 first for its data) or ``10`` (the mesh
 paths, which run 3, 5, 6 and 8 first, unprinted where not listed, for
-their data and the results they are held to). It times a parent
+their data and the results they are held to), or ``c``: one verkle
+commit of phase 5's tree under cProfile, after an unprofiled one, with its
+top entries by cumulative time (:func:`cprofile_top`). With ``g`` among
+them it also prints, for each staged step of the phases run (the
+checkout's ``_stage``), the collections of Python's cyclic garbage
+collector inside it, by generation, and their ms. It times a parent
 commit beside a change on one card in one call:
 
     mkdir -p _archive/parent && git archive <parent> | tar -x -C _archive/parent
@@ -22,6 +27,66 @@ import json
 import os
 import sys
 import time
+
+#: Functions whose cProfile rows :func:`cprofile_top` adds to the top
+#: entries: the host conversions of the verkle commit.
+NAMED = ("projective_to_host_points", "affine_words", "words_to_ints", "ints_to_words", "g1_to_data_item",
+         "<built-in method builtins.pow>", "_internal_vector", "_ext_leaf_dicts")
+
+
+def cprofile_top(fn, top: int = 25) -> tuple:
+    """``fn()`` under cProfile -> (its result, rows [function, calls, own
+    s, cumulative s] of the ``top`` entries by cumulative time and of the
+    :data:`NAMED` functions). cProfile adds a cost to every Python call,
+    so the rows are shares to rank, not times."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    out = prof.runcall(fn)
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (prim calls, calls, own s, cum s, callers)
+    ranked = sorted(stats.items(), key=lambda kv: -kv[1][3])
+    rows = [kv for i, kv in enumerate(ranked) if i < top or kv[0][2] in NAMED]
+    return out, [[f"{os.path.basename(f)}:{line}({name})", v[1], round(v[2], 4), round(v[3], 4)]
+                 for (f, line, name), v in rows]
+
+
+def gc_by_stage(S):
+    """Record the cyclic collector's collections and time them inside each
+    call of the checkout's ``chip_smoke._stage`` -> a function giving
+    {stage: {generation: [collections, ms]}}."""
+    import gc
+
+    events, spans, began = [], [], []
+
+    def collected(phase, info):
+        if phase == "start":
+            began.append(time.perf_counter())
+        else:
+            events.append((info["generation"], began.pop(), time.perf_counter()))
+
+    gc.callbacks.append(collected)
+    inner = S._stage
+
+    def staged(name, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(name, *args, **kwargs)
+        spans.append((name, t0, time.perf_counter()))
+        return out
+
+    S._stage = staged
+
+    def report():
+        out = {}
+        for name, t0, t1 in spans:
+            row = out.setdefault(name, {})
+            for g, a, b in events:
+                if t0 <= a and b <= t1:
+                    n, ms = row.get(g, [0, 0.0])
+                    row[g] = [n + 1, round(ms + (b - a) * 1e3, 3)]
+        return out
+
+    return report
 
 
 def main() -> int:
@@ -45,6 +110,7 @@ def main() -> int:
     cuda_lib.lib()
     print(tag, f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     crs = ipa_setup(256, device=dev)
+    gc_report = gc_by_stage(S) if "g" in phases else None
 
     def run(phase, fn, show=json.dumps):
         if phase not in phases:
@@ -69,11 +135,24 @@ def main() -> int:
     run("7", lambda: S.phase_sweep(dev, card), launches)
     kzg = run("8", lambda: S.phase_kzg(dev, card))
     run("9", lambda: S.phase_group(dev, card), launches)
+
+    def commit_profile():
+        inputs = S._verkle_inputs(10_000)
+        S._verkle_build(crs, *inputs).commitment()
+        tree = S._verkle_build(crs, *inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rows = cprofile_top(tree.commitment)
+        return {"profiled_wall_ms": (time.perf_counter() - t0) * 1e3, "rows": rows}
+
+    run("c", commit_profile)
     if "10" in phases:
         mp = mp or S.phase_multiproof(dev, crs, ipa_data)
         ref = {"root": (verkle or S.phase_verkle(dev, crs))["root"], "d": mp["d"],
                "mp_sha256": mp.get("digest"), "fk_sha256": (kzg or S.phase_kzg(dev, card))["fk_sha256"]}
         run("10", lambda: S.phase_mesh(dev, card, crs, ipa_data, ref), launches)
+    if gc_report is not None:
+        print(tag, "gc by stage:", json.dumps(gc_report()), f"[{card}]", flush=True)
     return 0
 
 
