@@ -30,7 +30,11 @@ and no JAX. Phases, each of which raises on failure:
      1, 2 and 256, its host points also against the host-int conversion it
      replaced, on the CPU copy; K1NTT at 256 and 512 both ways, the
      four-step's 16 segments of 16 and 2^14, above its shared-memory tile,
-     against the K1 chain it replaced); K5
+     against the K1 chain it replaced); K2 and K11 at 1, 32, 256, 4,096,
+     32,768 and 2^20 points and at their regime switch +- 1 (the identity,
+     P + P and P + (-P) among the lanes), each in the regime the wrapper
+     picks and beside the one-thread kernel, with the kernel alone from
+     the profiler, both bounds and the dependent chain in products; K5
      in both regimes, with ptxas's registers and spills for each: many
      lanes (2^12 edge lanes, the commit's 40,000) and few (1, 19, 32 and
      51 lanes), and at the regime switch +- 1 both regimes timed, each
@@ -237,7 +241,8 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_k1inv(dev, random.Random(2)))  # its own seed: the other shapes' draws stay as they were
 
     # K2: the IPA MSM's first segment fold, 32 x 8 x 128 point pairs, with
-    # infinity, P + P and P + (-P) among them.
+    # infinity, P + P and P + (-P) among them; pz, their sums (Z is not 1;
+    # the identity at slot 3), feeds K11, K12 and the records below.
     base = [hc.g1_mul(hc.g1_generator(), rng.getrandbits(128)) for _ in range(64)]
     n2 = 32 * 8 * 128
     ps = [base[i % 64] for i in range(n2)]
@@ -245,28 +250,14 @@ def phase_kernels(dev, crs) -> dict:
     ps[0], qs[1], ps[2], qs[2], qs[3] = None, None, base[5], base[5], hc.g1_neg(ps[3])
     p = C.from_affine(C.host_points_to_affine(ps, dev))
     q = C.from_affine(C.host_points_to_affine(qs, dev))
-    got = cuda_curve.add(p, q)
-    plain_out, plain_ms = timed_once(lambda: cuda_curve.plain(p, q))
-    rec["K2"] = {"max_abs_err": max_abs_err(got, plain_out), "shape": "32768 point adds"}
-    assert rec["K2"]["max_abs_err"] == 0
-    assert C.projective_to_host_points(got[:4]) == [hc.g1_add(a_, b_) for a_, b_ in zip(ps[:4], qs[:4])]
-    rec["K2"]["ms"] = cuda_ms(lambda: cuda_curve.add(p, q), 20)
-    rec["K2"]["plain_ms"] = plain_ms
-    rec["K2"].update(bound(3 * p.numel() * 4, n2 * ADD_FMULS))
-
-    # K11 and K12 at K2's shape, on the K2 sums p + q (Z is not 1; the
-    # identity at slot 3): doubling them, and adding the affine qs to them
-    # (the (0, 0) sentinel at slot 1, identity + (-P) at slot 3).
-    pz = got
+    pz = cuda_curve.add(p, q)
+    assert C.projective_to_host_points(pz[:4]) == [hc.g1_add(a_, b_) for a_, b_ in zip(ps[:4], qs[:4])]
     sums = C.projective_to_host_points(pz[:6])
-    got = cuda_curve.double(pz)
-    plain_out, plain_ms = timed_once(lambda: cuda_curve.plain_double(pz))
-    rec["K11"] = {"max_abs_err": max_abs_err(got, plain_out), "shape": "32768 point doublings"}
-    assert rec["K11"]["max_abs_err"] == 0
-    assert C.projective_to_host_points(got[:6]) == [hc.g1_add(a_, a_) for a_ in sums]
-    rec["K11"]["ms"] = cuda_ms(lambda: cuda_curve.double(pz), 20)
-    rec["K11"]["plain_ms"] = plain_ms
-    rec["K11"].update(bound(2 * pz.numel() * 4, n2 * DOUBLE_FMULS))
+    assert C.projective_to_host_points(cuda_curve.double(pz)[:6]) == [hc.g1_add(a_, a_) for a_ in sums]
+    rec.update(_kernels_k2_k11(dev, p, q, pz))
+
+    # K12 at K2's shape: the affine qs added to the K2 sums (the (0, 0)
+    # sentinel at slot 1, identity + (-P) at slot 3).
     qa = C.host_points_to_affine(qs, dev)
     got = cuda_curve.mixed_add(pz, qa)
     plain_out, plain_ms = timed_once(lambda: cuda_curve.plain_mixed_add(pz, qa))
@@ -277,20 +268,6 @@ def phase_kernels(dev, crs) -> dict:
     rec["K12"]["plain_ms"] = plain_ms
     live = int((~C.affine_is_infinity(qa)).sum())  # sentinel lanes do no products
     rec["K12"].update(bound((pz.numel() * 2 + qa.numel()) * 4, live * MIXED_FMULS))
-    # K11 and K2 at the width of a G1 NTT stage of FK at domain 256 (256
-    # lanes: the launches of one bit of the chain that G1SMUL replaced)
-    w = pz[:256].contiguous()
-    for name, run, plain_fn, nbytes, fmuls in (
-        ("K11@256", lambda: cuda_curve.double(w), lambda: cuda_curve.plain_double(w), 2 * w.numel() * 4,
-         256 * DOUBLE_FMULS),
-        ("K2@256", lambda: cuda_curve.add(w, w.flip(0)), lambda: cuda_curve.plain(w, w.flip(0)), 3 * w.numel() * 4,
-         256 * ADD_FMULS),
-    ):
-        out = run()
-        plain_out, plain_ms = timed_once(plain_fn)
-        rec[name] = {"max_abs_err": max_abs_err(out, plain_out), "ms": cuda_ms(run, 50), "plain_ms": plain_ms,
-                     "shape": "256 points, one G1 NTT stage at domain 256", **bound(nbytes, fmuls)}
-        assert rec[name]["max_abs_err"] == 0, name
 
     # K3 + K4: the 257-point IPA basis shape and 2^12 points, with zero
     # scalars, r - 1 and a (0, 0) point.
@@ -332,6 +309,102 @@ def phase_kernels(dev, crs) -> dict:
     rec.update(_kernels_k1quo_k1mp(dev, random.Random(15)))
     rec.update(_kernels_k1aff(dev, crs, random.Random(16)))
     rec.update(_kernels_k1ntt(dev, random.Random(17)))
+    return rec
+
+
+# K2's and K11's shapes in phase 2: one point, a warp's, one G1 NTT stage
+# at domain 256, 4,096, the IPA MSM's fold (32,768, the "K2" / "K11"
+# records) and 2^20; with the regime switch +- 1 beside them.
+K2_K11_POINTS = (1, 32, 256, 4096, 32768, 1 << 20)
+#: Points of the strided slice held against the plain version above it.
+PLAIN_SLICE = 1 << 15
+
+
+def _k2_k11_pairs(pz, n: int) -> tuple:
+    """(p, q), n points each from the K2 sums ``pz`` (Z != 1), repeated
+    past their count, q rolled by 7; lane 0 the identity + q, lane 1 p + the
+    identity, lane 2 P + P, lane 3 P + (-P), where n reaches them."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import curve as C
+
+    reps = -(-n // pz.shape[0])
+    src = pz.roll(-4, 0)  # pz[3] is the identity
+    p = src.repeat(reps, 1, 1)[:n].clone()
+    q = src.roll(7, 0).repeat(reps, 1, 1)[:n].clone()
+    inf = C.infinity((), pz.device)
+    p[0] = inf
+    if n > 1:
+        q[1] = inf
+    if n > 3:
+        q[2] = p[2]
+        q[3] = C.neg(p[3])
+    return p.contiguous(), q.contiguous()
+
+
+def point_chain(op: str, group: int) -> int:
+    """Montgomery products on one point's dependent chain: each level's
+    independent products on separate threads of a group (two passes a
+    level for the add on 4 threads), all of them on one thread."""
+    if group == 1:
+        return ADD_FMULS if op == "K2" else DOUBLE_FMULS
+    return 2 * -(-(6 if op == "K2" else 4) // group)
+
+
+def _kernels_k2_k11(dev, p, q, pz, points=K2_K11_POINTS) -> dict:
+    """K2 and K11 at ``points`` and at the regime switch +- 1, in the regime
+    the wrapper picks, exact against their plain versions (above
+    PLAIN_SLICE points a strided slice of that many) and against the
+    one-thread kernel on the whole output. K2 at 32,768 adds (p, q) (the
+    host edge lanes), K11 doubles pz; the other shapes come from pz with
+    the edge lanes of ``_k2_k11_pairs``. Each record: the regime and its
+    group, the ms a call by CUDA events, the kernel alone (profiler), the
+    one-thread kernel's both, the bound by bytes and by operations, and the
+    dependent chain in products."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_curve as KC
+
+    rec = {}
+    for n in sorted(set(points) | {KC.SWITCH - 1, KC.SWITCH, KC.SWITCH + 1}):
+        for key, fn in (("K2", "vkzg_point_add"), ("K11", "vkzg_point_double")):
+            if key == "K2":
+                a, b = (p, q) if n == p.shape[0] else _k2_k11_pairs(pz, n)
+                run, plain_fn, ins = (lambda a=a, b=b: KC.add(a, b)), KC.plain, (a, b)
+            else:
+                a = pz if n == pz.shape[0] else _k2_k11_pairs(pz, n)[0]
+                run, plain_fn, ins = (lambda a=a: KC.double(a)), (lambda x, *_: KC.plain_double(x)), (a,)
+            mode = KC.regime(n)
+            KC.reset_regimes()
+            out = run()
+            assert KC.regime_launches[key][mode] == 1, (key, n, KC.regime_launches)
+            one = lambda a=a, ins=ins: KC._launch(fn, key, torch.empty_like(a), *ins, group=1)  # noqa: E731
+            idx = torch.arange(0, n, max(1, n // PLAIN_SLICE), device=a.device)
+            plain_out, plain_ms = timed_once(lambda: plain_fn(*(t[idx] for t in ins)))
+            err = max(max_abs_err(out[idx], plain_out), max_abs_err(out, one()))
+            assert err == 0, (key, n)
+            group = KC.GROUP[mode]
+            nbytes, fmuls = (len(ins) + 1) * a.numel() * 4, n * (ADD_FMULS if key == "K2" else DOUBLE_FMULS)
+            name = key if n == 32768 else f"{key}@{n}"
+            rec[name] = {
+                "max_abs_err": err,
+                "ms": cuda_ms(run, 20),
+                "kernel_ms": device_ms(run, 10),
+                "one_thread_ms": cuda_ms(one, 20),
+                "one_thread_kernel_ms": device_ms(one, 10),
+                "plain_ms": plain_ms,
+                "plain_points": len(idx),
+                "library_ms": None,
+                "regime": mode,
+                "group": group,
+                "chain_products": point_chain(key, group),
+                "one_thread_chain_products": point_chain(key, 1),
+                "bound_bytes_ms": bound(nbytes, 0)["bound_ms"],
+                "bound_ops_ms": bound(0, fmuls)["bound_ms"],
+                "shape": f"{n} point {'adds' if key == 'K2' else 'doublings'}",
+                **bound(nbytes, fmuls),
+            }
+            print("phase 2 k2/k11:", name, json.dumps(rec[name]), flush=True)
     return rec
 
 
@@ -1582,6 +1655,7 @@ def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0)
     from verkle_kzg_tpu_torch.hostmath import curve as hc
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_g1_chain as G
+    from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import ntt as N
@@ -1612,7 +1686,11 @@ def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0)
                       4 * (2 * x.numel() + tw.numel()), _smul_fmuls(pairs) + n * ADD_FMULS))
     rec = {}
     for name, shape, run, plain, chain, nbytes, fmuls in cases:
+        before = dict(cuda_lib.launches)
         out = run()
+        launched = {k: cuda_lib.launches[k] - before[k] for k in ("G1SMUL", "G1BFLY", "K2", "K11")}
+        kind = name.split("@")[0]
+        assert launched == {k: int(k == kind) for k in launched}, (name, launched)  # one launch, no K2 or K11
         plain_out, plain_ms = timed_once(plain)
         chain_out, _ = timed_once(chain)
         errs = {"plain": max_abs_err(out, plain_out), "chain": max_abs_err(out, chain_out)}

@@ -442,3 +442,72 @@ def test_g1_butterfly_kernel_matches_plain_and_chain(cuda, n, stage):
         assert torch.equal(got[u_idx + half], cuda_curve.add(x[u_idx], C.neg(v)))
         for block in (32, 128):
             assert torch.equal(G.butterfly(x, tw, stage, block), got)
+
+
+def _regime_pairs(n, seed):
+    """(p, q) n card points each, sums of two points (Z != 1), with the
+    identity on either side and on both, P + P and P + (-P) in the first
+    lanes."""
+    pts, _ = _inputs(n + 8, seed)
+    a = C.from_affine(C.host_points_to_affine(pts, "cpu"))
+    p = cuda_curve.plain(a, a.roll(1, 0))
+    q = p.roll(5, 0)[:n].clone()
+    p = p[:n].clone()
+    inf = C.infinity((), "cpu")
+    for i, (ep, eq) in enumerate([(inf, None), (None, inf), (inf, inf)][:n]):
+        if ep is not None:
+            p[i] = ep
+        if eq is not None:
+            q[i] = eq
+    if n > 4:
+        q[3], q[4] = p[3], C.neg(p[4])
+    return p.to("cuda"), q.to("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", sorted({1, 5, 33, cuda_curve.SWITCH - 1, cuda_curve.SWITCH, cuda_curve.SWITCH + 1}))
+def test_point_regimes_match_plain_on_card(cuda, n):
+    """K2 and K11 in the regime the switch picks, one launch each counted
+    under it, and at every group size the C entry points take, against
+    their plain versions: at 1 point, around the switch, and with the edge
+    lanes (the identity, P + P, P + (-P))."""
+    p, q = _regime_pairs(n, 170 + n)
+    want_add, want_double = cuda_curve.plain(p, q), cuda_curve.plain_double(p)
+    mode = cuda_curve.regime(n)
+    assert mode == ("few" if n <= cuda_curve.SWITCH else "many")
+    cuda_lib.reset_launches()
+    cuda_curve.reset_regimes()
+    assert torch.equal(cuda_curve.add(p, q), want_add)
+    assert torch.equal(cuda_curve.double(p), want_double)
+    assert cuda_lib.launches["K2"] == cuda_lib.launches["K11"] == 1
+    assert cuda_curve.regime_launches == {k: {"few": int(mode == "few"), "many": int(mode == "many")}
+                                          for k in ("K2", "K11")}
+    for g in cuda_curve.GROUPS:
+        out = cuda_curve._launch("vkzg_point_add", "K2", torch.empty_like(p), p, q, group=g)
+        assert torch.equal(out, want_add), g
+        out = cuda_curve._launch("vkzg_point_double", "K11", torch.empty_like(p), p, group=g)
+        assert torch.equal(out, want_double), g
+    if n <= 8:
+        host_p, host_q = C.projective_to_host_points(p), C.projective_to_host_points(q)
+        assert C.projective_to_host_points(want_add) == [hc.g1_add(a, b) for a, b in zip(host_p, host_q)]
+
+
+@pytest.mark.gpu
+def test_point_regime_refuses_other_groups(cuda):
+    p, q = _regime_pairs(4, 190)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cuda_curve._launch("vkzg_point_add", "K2", torch.empty_like(p), p, q, group=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 51, cuda_scalar_mul.SWITCH + 1])
+def test_lazy_warp_callers_match_plain_on_card(cuda, lanes):
+    """The lazy callers of warp_double / warp_add (K5 in its regime, and
+    the K4 tail's Horner at c = 8) keep their plain versions' words."""
+    pts, ks = _inputs(lanes + 3, 200 + lanes)
+    pa, sc = C.host_points_to_affine(pts[:lanes], cuda), F.ints_to_words(ks[:lanes], cuda)
+    cuda_scalar_mul.reset_regimes()
+    assert torch.equal(cuda_scalar_mul.scalar_mul_affine(pa, sc), cuda_scalar_mul.plain(pa, sc))
+    assert cuda_scalar_mul.regime_launches["few" if lanes <= cuda_scalar_mul.SWITCH else "many"] == 1
+    bk = _tail_buckets(8, True, 1, 210 + lanes)[:, 0].contiguous()
+    assert torch.equal(K.tail(bk, 8), K.plain_tail(bk, 8))

@@ -1,11 +1,20 @@
 // K2, K11, K12: element-wise complete projective group law in the reduced
-// domain, one point per thread: K2 adds (RCB16 algorithm 7), K11 doubles
-// (algorithm 9), K12 adds an affine point (algorithm 8, the (0, 0)
-// sentinel selecting p). K2FOLD sums rows of points by K2's halving tree in
-// one launch. See ops/cuda_curve.py.
+// domain: K2 adds (RCB16 algorithm 7), K11 doubles (algorithm 9), K12 adds
+// an affine point (algorithm 8, the (0, 0) sentinel selecting p). K2 and
+// K11 run one point a thread or a group of 4, 8 or 32 threads a point (the
+// warp point operations of warp_point.cuh in the reduced domain), as the
+// wrapper's regime asks; K12 one point a thread. K2FOLD sums rows of
+// points by K2's halving tree in one launch. See ops/cuda_curve.py.
+//
+// A few points are bound by one point's chain of dependent products (12
+// for the add, 8 for the doubling, ~0.68 us each on one thread): a group
+// spreads each level's independent products over its threads, so the
+// chain is 2 products and the sums between them. Many points are bound by
+// the products' throughput, which one point a thread spends best
+// (tools/point_regimes.py; numbers in ops/cuda_curve.py and PERF.md).
 #include <cuda_runtime.h>
 
-#include "bn254_curve.cuh"
+#include "warp_point.cuh"
 
 using namespace vkzg;
 
@@ -29,6 +38,50 @@ __global__ void __launch_bounds__(128) point_double_kernel(const uint32_t* p, ui
   point_double<false>(a);
   store_point(out + 24 * i, a);
 }
+
+// Inside vkzg, as warp_point.cuh's unnamed namespace is (scalar_mul.cu).
+namespace vkzg {
+namespace {
+
+// K2 (ADD) and K11 with G threads a point (G = 4, 8 or 32), 128 threads a
+// block: a group loads its point (and addend) into its WarpScratch, runs
+// warp_add / warp_double in the reduced domain and stores acc. Every
+// thread of a warp takes each __syncwarp, so a warp whose first point is
+// past n returns whole, and a group of a live warp past n runs on the last
+// point and stores nothing.
+template <bool ADD, int G>
+__global__ void __launch_bounds__(128) point_group_kernel(const uint32_t* __restrict__ p,
+                                                          const uint32_t* __restrict__ q,
+                                                          uint32_t* __restrict__ out, int64_t n) {
+  constexpr int PER_BLOCK = 128 / G;
+  __shared__ WarpScratch scratch[PER_BLOCK];
+  const int slot = threadIdx.x / G, t = threadIdx.x % G;
+  const int64_t first = (int64_t)blockIdx.x * PER_BLOCK;
+  if (first + (threadIdx.x / 32) * (32 / G) >= n) return;
+  const int64_t g = first + slot;
+  const int64_t i = g < n ? g : n - 1;
+  WarpScratch& s = scratch[slot];
+  uint4* acc = reinterpret_cast<uint4*>(s.acc);
+  const uint4* src = reinterpret_cast<const uint4*>(p + 24 * i);
+  for (int j = t; j < 6; j += G) acc[j] = src[j];
+  if constexpr (ADD) {
+    uint4* dq = reinterpret_cast<uint4*>(s.q);
+    const uint4* srq = reinterpret_cast<const uint4*>(q + 24 * i);
+    for (int j = t; j < 6; j += G) dq[j] = srq[j];
+    __syncwarp();
+    warp_add<false, G>(s, t);
+  } else {
+    __syncwarp();
+    warp_double<false>(s, t);
+  }
+  if (g < n) {
+    uint4* dst = reinterpret_cast<uint4*>(out + 24 * g);
+    for (int j = t; j < 6; j += G) dst[j] = acc[j];
+  }
+}
+
+}  // namespace
+}  // namespace vkzg
 
 __global__ void __launch_bounds__(128) point_mixed_add_kernel(const uint32_t* p,
                                                               const uint32_t* q_aff,
@@ -83,17 +136,44 @@ static unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-extern "C" int vkzg_point_add(const void* p, const void* q, void* out, int64_t n,
-                              void* stream) {
-  point_add_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+// K2 (ADD) or K11 over n points with `group` threads a point: 1 (one
+// point a thread) or 4, 8, 32 (point_group_kernel); any other is refused.
+template <bool ADD>
+static int point_op(const void* p, const void* q, void* out, int64_t n, int group, void* stream) {
+  const uint32_t* a = (const uint32_t*)p;
+  const uint32_t* b = (const uint32_t*)q;
+  uint32_t* o = (uint32_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (group) {
+    case 1:
+      if constexpr (ADD) {
+        point_add_kernel<<<blocks_for(n, 128), 128, 0, st>>>(a, b, o, n);
+      } else {
+        point_double_kernel<<<blocks_for(n, 128), 128, 0, st>>>(a, o, n);
+      }
+      break;
+    case 4:
+      vkzg::point_group_kernel<ADD, 4><<<blocks_for(n, 32), 128, 0, st>>>(a, b, o, n);
+      break;
+    case 8:
+      vkzg::point_group_kernel<ADD, 8><<<blocks_for(n, 16), 128, 0, st>>>(a, b, o, n);
+      break;
+    case 32:
+      vkzg::point_group_kernel<ADD, 32><<<blocks_for(n, 4), 128, 0, st>>>(a, b, o, n);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-extern "C" int vkzg_point_double(const void* p, void* out, int64_t n, void* stream) {
-  point_double_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (uint32_t*)out, n);
-  return (int)cudaGetLastError();
+extern "C" int vkzg_point_add(const void* p, const void* q, void* out, int64_t n, int group,
+                              void* stream) {
+  return point_op<true>(p, q, out, n, group, stream);
+}
+
+extern "C" int vkzg_point_double(const void* p, void* out, int64_t n, int group, void* stream) {
+  return point_op<false>(p, nullptr, out, n, group, stream);
 }
 
 extern "C" int vkzg_point_mixed_add(const void* p, const void* q_aff, void* out, int64_t n,

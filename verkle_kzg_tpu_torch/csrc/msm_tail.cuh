@@ -81,8 +81,8 @@ __device__ void warp_horner(const uint32_t* sums, uint32_t* out, int nwin, int c
   __syncwarp();
   for (int w = nwin - 2; w >= 0; --w) {
     if (lane < 24) s.q[lane] = __ldcg(sums + w * 24 + lane);
-    for (int i = 0; i < c; ++i) warp_double(s, lane);
-    warp_add(s, lane);
+    for (int i = 0; i < c; ++i) warp_double<true>(s, lane);
+    warp_add<true, 32>(s, lane);
   }
   if (lane < 3) {
     uint32_t a[8];

@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(32 * WARPS) scalar_mul_kernel(
   for (int w = top >> 5; top >= 0 && w >= 0; --w) {
     const uint32_t word = pick_word(k, w);
     for (int b = (w == top >> 5) ? (top & 31) : 31; b >= 0; --b) {
-      if (doubling) warp_double(s, t);
+      if (doubling) warp_double<true>(s, t);
       doubling = true;
       const bool bit = (word >> b) & 1u;
       if (G < 32 || bit) warp_mixed_add<G>(s, t, bit);

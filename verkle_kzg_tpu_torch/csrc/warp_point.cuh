@@ -2,15 +2,18 @@
 // independent Montgomery products on separate threads of the group, the
 // operands in the group's WarpScratch in shared memory, __syncwarp()
 // between the levels, and every thread that takes a product forming the
-// lazy sums between the levels itself. The same field operations in the
-// same order as bn254_curve.cuh's point_double / point_add /
-// point_mixed_add (LAZY = true) give the same words.
+// sums between the levels itself. warp_double and warp_add run in either
+// domain: the same field operations in the same order as
+// bn254_curve.cuh's point_double / point_add give the same words, lazy
+// (LAZY = true; warp_mixed_add is lazy only) or reduced (LAZY = false).
 //
 // Shared by the MSM tail's Horner (msm_tail.cuh: one warp a lane, the warp
-// the group) and K5 (scalar_mul.cu: one warp a lane below the regime
-// switch, groups of 4 threads above it). A group has at least 4
-// threads (6 for warp_add); groups sharing a warp run the same steps
-// together, so every thread of the warp calls each operation.
+// the group, lazy), K5 (scalar_mul.cu: one warp a lane below the regime
+// switch, groups of 4 threads above it, lazy) and K2 / K11 (curve.cu: a
+// group of 4, 8 or 32 threads a point, reduced). A group has at least 4
+// threads; warp_add runs a level's six products in two passes on 4 of
+// them. Groups sharing a warp run the same steps together, so every thread
+// of the warp calls each operation.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -102,14 +105,47 @@ __device__ __forceinline__ void mul9_lazy(uint32_t r[8], const uint32_t x[8]) {
   add_lazy(r, t, x);
 }
 
-// acc = 2 acc (RCB16 algorithm 9, lazy), products on threads 0-3 of the group.
+// The sums of a domain: LAZY = true the carry-chain forms above, LAZY =
+// false bn254_field.cuh's fadd / fsub / fmul9<Fq, false>, whose results are
+// canonical whatever the order, so they are point_add<false>'s and
+// point_double<false>'s words.
+template <bool LAZY>
+__device__ __forceinline__ void dom_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  if constexpr (LAZY) {
+    add_lazy(r, a, b);
+  } else {
+    fadd<Fq, false>(r, a, b);
+  }
+}
+
+template <bool LAZY>
+__device__ __forceinline__ void dom_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  if constexpr (LAZY) {
+    sub_lazy(r, a, b);
+  } else {
+    fsub<Fq, false>(r, a, b);
+  }
+}
+
+template <bool LAZY>
+__device__ __forceinline__ void dom_mul9(uint32_t r[8], const uint32_t x[8]) {
+  if constexpr (LAZY) {
+    mul9_lazy(r, x);
+  } else {
+    fmul9<Fq, false>(r, x);
+  }
+}
+
+// acc = 2 acc (RCB16 algorithm 9) in the lazy (LAZY = true) or the reduced
+// domain, products on threads 0-3 of the group.
+template <bool LAZY>
 __device__ __forceinline__ void warp_double(WarpScratch& s, int t) {
   const uint32_t *X = s.acc, *Y = s.acc + 8, *Z = s.acc + 16;
   if (t < 4) {  // Y Y, Y Z, Z Z, X Y
     uint32_t a[8], b[8];
     load8(a, t == 3 ? X : (t == 2 ? Z : Y));
     load8(b, t == 0 || t == 3 ? Y : Z);
-    fmul<Fq, true>(a, a, b);
+    fmul<Fq, LAZY>(a, a, b);
     store8(s.p1 + 8 * t, a);
   }
   __syncwarp();
@@ -117,14 +153,14 @@ __device__ __forceinline__ void warp_double(WarpScratch& s, int t) {
     uint32_t t0[8], t2[8], z3[8], y3[8], u[8], a[8], b[8];
     load8(t0, s.p1);
     load8(t2, s.p1 + 16);
-    add_lazy(z3, t0, t0);
-    add_lazy(z3, z3, z3);
-    add_lazy(z3, z3, z3);  // Z3 = 8 t0
-    mul9_lazy(t2, t2);     // t2 = 9 t2
-    add_lazy(y3, t0, t2);  // Y3 = t0 + t2
-    add_lazy(u, t2, t2);
-    add_lazy(u, u, t2);
-    sub_lazy(t0, t0, u);   // t0 = t0 - 3 t2
+    dom_add<LAZY>(z3, t0, t0);
+    dom_add<LAZY>(z3, z3, z3);
+    dom_add<LAZY>(z3, z3, z3);  // Z3 = 8 t0
+    dom_mul9<LAZY>(t2, t2);     // t2 = 9 t2
+    dom_add<LAZY>(y3, t0, t2);  // Y3 = t0 + t2
+    dom_add<LAZY>(u, t2, t2);
+    dom_add<LAZY>(u, u, t2);
+    dom_sub<LAZY>(t0, t0, u);   // t0 = t0 - 3 t2
     uint32_t t1[8], txy[8];
     load8(t1, s.p1 + 8);
     load8(txy, s.p1 + 24);
@@ -134,7 +170,7 @@ __device__ __forceinline__ void warp_double(WarpScratch& s, int t) {
       a[j] = t == 0 ? t2[j] : (t == 1 ? t1[j] : t0[j]);
       b[j] = t < 2 ? z3[j] : (t == 2 ? y3[j] : txy[j]);
     }
-    fmul<Fq, true>(a, a, b);
+    fmul<Fq, LAZY>(a, a, b);
     store8(s.p2 + 8 * t, a);
   }
   __syncwarp();
@@ -147,62 +183,71 @@ __device__ __forceinline__ void warp_double(WarpScratch& s, int t) {
     } else {
       load8(b, s.p2 + 8 * (t == 0 ? 3 : 2));
     }
-    add_lazy(a, a, b);
+    dom_add<LAZY>(a, a, b);
     store8(s.acc + 8 * t, a);
   }
   __syncwarp();
 }
 
-// acc = acc + q (RCB16 algorithm 7, lazy), products on threads 0-5 of the group.
+// acc = acc + q (RCB16 algorithm 7) in the lazy or the reduced domain: each
+// level's six products on the group's G threads, one pass when G >= 6 (the
+// products on threads 0-5), two when G = 4.
+template <bool LAZY, int G>
 __device__ __forceinline__ void warp_add(WarpScratch& s, int t) {
+  static_assert(G >= 4, "a group has at least 4 threads");
   // X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2)
-  if (t < 6) {
-    const int i = t < 3 ? t : (t == 4 ? 1 : 0);
-    const int k = t == 3 ? 1 : 2;
+  for (int p = t; p < 6; p += G) {
+    const int i = p < 3 ? p : (p == 4 ? 1 : 0);
+    const int k = p == 3 ? 1 : 2;
     uint32_t a[8], b[8];
     load8(a, s.acc + 8 * i);
     load8(b, s.q + 8 * i);
-    if (t >= 3) {
+    if (p >= 3) {
       uint32_t u[8];
       load8(u, s.acc + 8 * k);
-      add_lazy(a, a, u);
+      dom_add<LAZY>(a, a, u);
       load8(u, s.q + 8 * k);
-      add_lazy(b, b, u);
+      dom_add<LAZY>(b, b, u);
     }
-    fmul<Fq, true>(a, a, b);
-    store8(s.p1 + 8 * t, a);
+    fmul<Fq, LAZY>(a, a, b);
+    store8(s.p1 + 8 * p, a);
+    if (G >= 6) break;
   }
   __syncwarp();
   if (t < 6) {
-    uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], y3[8], z3[8], u[8], a[8], b[8];
+    uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], y3[8], z3[8], u[8];
     load8(t0, s.p1);
     load8(t1, s.p1 + 8);
     load8(t2, s.p1 + 16);
     load8(t3, s.p1 + 24);
     load8(t4, s.p1 + 32);
     load8(y3, s.p1 + 40);
-    add_lazy(u, t0, t1);
-    sub_lazy(t3, t3, u);  // t3 = t3 - (t0 + t1)
-    add_lazy(u, t1, t2);
-    sub_lazy(t4, t4, u);  // t4 = t4 - (t1 + t2)
-    add_lazy(u, t0, t2);
-    sub_lazy(y3, y3, u);
-    mul9_lazy(y3, y3);    // Y3 = 9 (X3 - (t0 + t2))
-    add_lazy(u, t0, t0);
-    add_lazy(t0, u, t0);  // t0 = 3 t0
-    mul9_lazy(t2, t2);
-    add_lazy(z3, t1, t2);  // Z3 = t1 + 9 t2
-    sub_lazy(t1, t1, t2);  // t1 = t1 - 9 t2
-    // t 0: t4 Y3, 1: t3 t1, 2: Y3 t0, 3: t1 Z3, 4: t0 t3, 5: Z3 t4
+    dom_add<LAZY>(u, t0, t1);
+    dom_sub<LAZY>(t3, t3, u);  // t3 = t3 - (t0 + t1)
+    dom_add<LAZY>(u, t1, t2);
+    dom_sub<LAZY>(t4, t4, u);  // t4 = t4 - (t1 + t2)
+    dom_add<LAZY>(u, t0, t2);
+    dom_sub<LAZY>(y3, y3, u);
+    dom_mul9<LAZY>(y3, y3);    // Y3 = 9 (X3 - (t0 + t2))
+    dom_add<LAZY>(u, t0, t0);
+    dom_add<LAZY>(t0, u, t0);  // t0 = 3 t0
+    dom_mul9<LAZY>(t2, t2);
+    dom_add<LAZY>(z3, t1, t2);  // Z3 = t1 + 9 t2
+    dom_sub<LAZY>(t1, t1, t2);  // t1 = t1 - 9 t2
+    // 0: t4 Y3, 1: t3 t1, 2: Y3 t0, 3: t1 Z3, 4: t0 t3, 5: Z3 t4
+    for (int p = t; p < 6; p += G) {
+      uint32_t a[8], b[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      a[j] = t == 0 ? t4[j] : t == 1 ? t3[j] : t == 2 ? y3[j] : t == 3 ? t1[j]
-           : t == 4 ? t0[j] : z3[j];
-      b[j] = t == 0 ? y3[j] : t == 1 ? t1[j] : t == 2 ? t0[j] : t == 3 ? z3[j]
-           : t == 4 ? t3[j] : t4[j];
+      for (int j = 0; j < 8; ++j) {
+        a[j] = p == 0 ? t4[j] : p == 1 ? t3[j] : p == 2 ? y3[j] : p == 3 ? t1[j]
+             : p == 4 ? t0[j] : z3[j];
+        b[j] = p == 0 ? y3[j] : p == 1 ? t1[j] : p == 2 ? t0[j] : p == 3 ? z3[j]
+             : p == 4 ? t3[j] : t4[j];
+      }
+      fmul<Fq, LAZY>(a, a, b);
+      store8(s.p2 + 8 * p, a);
+      if (G >= 6) break;
     }
-    fmul<Fq, true>(a, a, b);
-    store8(s.p2 + 8 * t, a);
   }
   __syncwarp();
   if (t < 3) {  // X = t3 t1 - t4 Y3, Y = t1 Z3 + Y3 t0, Z = Z3 t4 + t0 t3
@@ -210,15 +255,14 @@ __device__ __forceinline__ void warp_add(WarpScratch& s, int t) {
     load8(a, s.p2 + 8 * (2 * t + 1));
     load8(b, s.p2 + 8 * (2 * t));
     if (t == 0) {
-      sub_lazy(a, a, b);
+      dom_sub<LAZY>(a, a, b);
     } else {
-      add_lazy(a, a, b);
+      dom_add<LAZY>(a, a, b);
     }
     store8(s.acc + 8 * t, a);
   }
   __syncwarp();
 }
-
 
 // acc = acc + (x, y), the affine addend in q[0..15] fully reduced and not
 // the (0, 0) sentinel (RCB16 algorithm 8, lazy): level 1's five products

@@ -5,7 +5,7 @@ Replaces ``verkle_kzg_tpu/ops/pallas_curve.py``: the launch ``_point_call``
 line 350, body ``k_point_double``) and ``mixed_add`` (K12, line 358, body
 ``k_point_mixed_add``), all in the reduced domain. K2 runs ``curve.add``;
 no path of the port calls it since K2FOLD took its last callers. K11 runs
-``curve.double``. Their device
+``curve.double``. Their one-thread device
 functions are also every bit of ``curve.scalar_mul`` and of the G1 NTT's
 butterflies, which run as one launch a call (G1SMUL, G1BFLY in
 ``cuda_g1_chain.py``), no longer as a K11 and a K2 launch a bit. K12 has no
@@ -14,16 +14,34 @@ the card.
 The lazy group law that K3-K10 inline lives beside them in
 ``csrc/bn254_curve.cuh``.
 
-On the card: one point (pair) per thread. K2 does 12 Montgomery products and
-21 modular add/subs on 48 words of input, K11 8 products and 11 add/subs on
-24 words, K12 11 products on 40 words. At the widths of the MSM folds and of
-the NTT stages they are bound by integer throughput and by register
-pressure, since RCB16 keeps about a dozen 8-word temporaries alive: the
-kernels pin 128 threads per block with ``__launch_bounds__`` and the build
-prints their registers and spills. Each runs the same sequence of field
-operations as its Pallas body, so kernel, plain version and the JAX package
-agree bit for bit. K12's (0, 0) sentinel lanes keep p, as the Pallas
-kernel's final select does.
+K2 does 12 Montgomery products and 21 modular add/subs on 48 words of
+input, K11 8 products and 11 add/subs on 24 words, K12 11 products on 40
+words. A product is about 500 dependent instructions (0.68 us on one
+thread), so one thread's add is a chain of 12 of them, a doubling of 8.
+K2 and K11 run in two regimes (:data:`SWITCH`, :data:`GROUP`):
+
+- few points: a group of threads a point, the operation's independent
+  products on separate threads (``csrc/warp_point.cuh``'s ``warp_add`` /
+  ``warp_double`` in the reduced domain, operands in shared memory): 6 + 6
+  products for the add, 4 + 4 for the doubling, so a point's dependent
+  chain is 2 products and the sums between them;
+- many points: one point a thread (``point_add<false>`` /
+  ``point_double<false>``, the bodies G1SMUL and G1BFLY run). Once the card
+  is full the products' throughput sets the time, and a group's idle
+  threads and repeated sums cost more than the chain they hide: groups of
+  4 with two passes a level were slower at 32,768 points and at 2^20. At
+  2^20 the add takes 2.7x its multiply bound, the port's Montgomery
+  products' usual pace (the sorted sums run at 2.6x).
+
+Every intermediate of the reduced domain is canonical, so both regimes
+give the one-thread functions' words (``point_add<false>`` /
+``point_double<false>``) and the plain versions'. Neither regime is a
+fallback for the other: a CUDA tensor runs one of them or raises. K12 runs
+one point a thread. The kernels pin 128 threads a block with
+``__launch_bounds__`` and the build prints their registers and spills.
+Each runs the same sequence of field operations as its Pallas body, so
+kernel, plain version and the JAX package agree bit for bit. K12's (0, 0)
+sentinel lanes keep p, as the Pallas kernel's final select does.
 
 Kernel K2FOLD (:func:`fold`): ``ops/msm.py::fold_reduce_lanes``, the sum of
 each row of points by a halving tree, which ran as one K2 launch a level
@@ -123,16 +141,62 @@ def fold(p: torch.Tensor) -> torch.Tensor:
     return work[:, :1]
 
 
-def _launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor) -> torch.Tensor:
-    """Run kernel entry ``fn`` over the points of ``out`` and count it."""
+# Set from tools/point_regimes.py on an NVIDIA H100 80GB HBM3 at 700 W,
+# the kernel alone (torch.profiler), its first pass: K2 at 1-1,024 points
+# 4.0-4.6 us with 8 threads a point (4.0-6.0 with 32, 5.8-6.7 with 4,
+# 11.2-12.4 one a thread), K11 3.3-3.4 (7.0-8.0 one a thread); at 8,192 K2
+# 10.5 us against 13.4 one a thread, K11 8.0 against 9.0; at 16,384 18.9
+# against 13.7 and 14.1 against 9.2. At 2^20 one point a thread takes
+# 0.545 ms (K2) and 0.309 (K11), groups of 4 0.818 and 0.388. Right after
+# 2^20-point launches the few-point rows read about 0.6x as long, and
+# K11's crossing falls below 8,192. Each output is exact in every group
+# size. A call by CUDA events costs 0.02-0.07 ms at any count up to 32,768
+# in either regime: there the enqueue sets it, not the kernel.
+#: Points at or below which K2 and K11 run the few-point regime.
+SWITCH = 8192
+#: Threads a point in each regime (1: one point a thread).
+GROUP = {"few": 8, "many": 1}
+#: The group sizes the C entry points take.
+GROUPS = (1, 4, 8, 32)
+
+#: Launches of each regime of K2 and K11 since the last :func:`reset_regimes`
+#: (``cuda_lib.launches["K2"]`` and ``["K11"]`` count both).
+regime_launches = {"K2": {"few": 0, "many": 0}, "K11": {"few": 0, "many": 0}}
+
+
+def reset_regimes() -> None:
+    for counts in regime_launches.values():
+        for k in counts:
+            counts[k] = 0
+
+
+def regime(n: int) -> str:
+    """The regime K2 and K11 run ``n`` points in."""
+    return "few" if n <= SWITCH else "many"
+
+
+def _launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor, group: int | None = None) -> torch.Tensor:
+    """Run kernel entry ``fn`` over the points of ``out`` and count it; K2
+    and K11 take ``group`` threads a point (one of :data:`GROUPS`)."""
     cuda_lib.require_cuda("curve." + fn, out, *ins)
     n = out.numel() // (3 * F.WORDS)
     if n:
+        extra = () if group is None else (group,)
         err = getattr(cuda_lib.lib(), fn)(
-            *(t.data_ptr() for t in ins), out.data_ptr(), n, cuda_lib.stream(out)
+            *(t.data_ptr() for t in ins), out.data_ptr(), n, *extra, cuda_lib.stream(out)
         )
         cuda_lib.check(err, fn)
         cuda_lib.launches[key] += 1
+    return out
+
+
+def _regime_launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor) -> torch.Tensor:
+    """K2 or K11 in the regime that the point count picks, counted."""
+    n = out.numel() // (3 * F.WORDS)
+    mode = regime(n)
+    _launch(fn, key, out, *ins, group=GROUP[mode])
+    if n:
+        regime_launches[key][mode] += 1
     return out
 
 
@@ -141,14 +205,14 @@ def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         return plain(p, q)
     p, q = torch.broadcast_tensors(p, q)
     p, q = p.contiguous(), q.contiguous()
-    return _launch("vkzg_point_add", "K2", torch.empty_like(p), p, q)
+    return _regime_launch("vkzg_point_add", "K2", torch.empty_like(p), p, q)
 
 
 def double(p: torch.Tensor) -> torch.Tensor:
     if p.device.type == "cpu":
         return plain_double(p)
     p = p.contiguous()
-    return _launch("vkzg_point_double", "K11", torch.empty_like(p), p)
+    return _regime_launch("vkzg_point_double", "K11", torch.empty_like(p), p)
 
 
 def mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:

@@ -63,8 +63,8 @@ _I = ctypes.c_int64
 # C signatures: every pointer and the stream as void*, sizes as int64.
 _SIGNATURES = {
     "vkzg_field_binop": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _I, _P],
-    "vkzg_point_add": [_P, _P, _P, _I, _P],
-    "vkzg_point_double": [_P, _P, _I, _P],
+    "vkzg_point_add": [_P, _P, _P, _I, ctypes.c_int, _P],
+    "vkzg_point_double": [_P, _P, _I, ctypes.c_int, _P],
     "vkzg_point_mixed_add": [_P, _P, _P, _I, _P],
     "vkzg_point_fold": [_P, _P, _I, _I, _P],
     "vkzg_ipa_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

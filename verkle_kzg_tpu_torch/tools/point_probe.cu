@@ -1,0 +1,121 @@
+// Variants of K2 and K11, built and timed by tools/point_regimes.py beside
+// the path's kernels (csrc/curve.cu); no path runs them.
+//
+// - one point a thread with a floor of MINB blocks of 128 threads an SM in
+//   __launch_bounds__ (so at most 65,536 / (128 MINB) registers a thread),
+//   in the reduced domain (the path's body) or the lazy one (point_add /
+//   point_double<true>, then one reduction);
+// - a group of G threads a point on the warp point operations in the lazy
+//   domain, reduced once at the end.
+//
+// Every intermediate of the lazy domain lies in [0, 2m) and is congruent
+// to the reduced domain's, so one final reduction gives the reduced
+// domain's canonical words: the variants differ in time, not in words.
+#include <cuda_runtime.h>
+
+#include "warp_point.cuh"
+
+namespace vkzg {
+namespace {
+
+template <bool ADD, bool LAZY, int MINB>
+__global__ void __launch_bounds__(128, MINB) probe_thread_kernel(const uint32_t* __restrict__ p,
+                                                                 const uint32_t* __restrict__ q,
+                                                                 uint32_t* __restrict__ out,
+                                                                 int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Point a;
+  load_point(a, p + 24 * i);
+  if constexpr (ADD) {
+    Point b;
+    load_point(b, q + 24 * i);
+    point_add<LAZY>(a, a, b);
+  } else {
+    point_double<LAZY>(a);
+  }
+  if (LAZY) reduce_point(a);
+  store_point(out + 24 * i, a);
+}
+
+template <bool ADD, int G>
+__global__ void __launch_bounds__(128) probe_lazy_group_kernel(const uint32_t* __restrict__ p,
+                                                               const uint32_t* __restrict__ q,
+                                                               uint32_t* __restrict__ out,
+                                                               int64_t n) {
+  constexpr int PER_BLOCK = 128 / G;
+  __shared__ WarpScratch scratch[PER_BLOCK];
+  const int slot = threadIdx.x / G, t = threadIdx.x % G;
+  const int64_t first = (int64_t)blockIdx.x * PER_BLOCK;
+  if (first + (threadIdx.x / 32) * (32 / G) >= n) return;
+  const int64_t g = first + slot;
+  const int64_t i = g < n ? g : n - 1;
+  WarpScratch& s = scratch[slot];
+  for (int j = t; j < 24; j += G) s.acc[j] = p[24 * i + j];
+  if constexpr (ADD) {
+    for (int j = t; j < 24; j += G) s.q[j] = q[24 * i + j];
+    __syncwarp();
+    warp_add<true, G>(s, t);
+  } else {
+    __syncwarp();
+    warp_double<true>(s, t);
+  }
+  if (g < n && t < 3) {
+    uint32_t a[8];
+    load8(a, s.acc + 8 * t);
+    cond_sub<Fq, false>(a);
+    store8(out + 24 * g + 8 * t, a);
+  }
+}
+
+template <bool ADD, bool LAZY, int MINB>
+int thread_launch(const uint32_t* p, const uint32_t* q, uint32_t* o, int64_t n, cudaStream_t st) {
+  probe_thread_kernel<ADD, LAZY, MINB><<<(unsigned)((n + 127) / 128), 128, 0, st>>>(p, q, o, n);
+  return (int)cudaGetLastError();
+}
+
+template <bool ADD, bool LAZY>
+int thread_minb(int minb, const uint32_t* p, const uint32_t* q, uint32_t* o, int64_t n,
+                cudaStream_t st) {
+  switch (minb) {
+    case 1: return thread_launch<ADD, LAZY, 1>(p, q, o, n, st);
+    case 4: return thread_launch<ADD, LAZY, 4>(p, q, o, n, st);
+    case 6: return thread_launch<ADD, LAZY, 6>(p, q, o, n, st);
+    case 8: return thread_launch<ADD, LAZY, 8>(p, q, o, n, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool ADD>
+int probe(int lazy, int group, int minb, const uint32_t* p, const uint32_t* q, uint32_t* o,
+          int64_t n, cudaStream_t st) {
+  if (group == 1) {
+    return lazy ? thread_minb<ADD, true>(minb, p, q, o, n, st)
+                : thread_minb<ADD, false>(minb, p, q, o, n, st);
+  }
+  if (!lazy) return (int)cudaErrorInvalidValue;
+  if (group == 8) {
+    probe_lazy_group_kernel<ADD, 8><<<(unsigned)((n + 15) / 16), 128, 0, st>>>(p, q, o, n);
+  } else if (group == 32) {
+    probe_lazy_group_kernel<ADD, 32><<<(unsigned)((n + 3) / 4), 128, 0, st>>>(p, q, o, n);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace vkzg
+
+// add: 1 for K2's add, 0 for K11's doubling (q unused); lazy: 0 or 1;
+// group: 1 (one point a thread, minb in {1, 4, 6, 8}) or, lazy only, 8 or
+// 32 (minb unused).
+extern "C" int point_probe(int add, int lazy, int group, int minb, const void* p, const void* q,
+                           void* out, int64_t n, void* stream) {
+  const uint32_t* a = (const uint32_t*)p;
+  const uint32_t* b = (const uint32_t*)q;
+  uint32_t* o = (uint32_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  return add ? vkzg::probe<true>(lazy, group, minb, a, b, o, n, st)
+             : vkzg::probe<false>(lazy, group, minb, a, b, o, n, st);
+}
