@@ -30,10 +30,13 @@ and no JAX. Phases, each of which raises on failure:
      1, 2 and 256, its host points also against the host-int conversion it
      replaced, on the CPU copy; K1NTT at 256 and 512 both ways, the
      four-step's 16 segments of 16 and 2^14, above its shared-memory tile,
-     against the K1 chain it replaced); K2 and K11 at 1, 32, 256, 4,096,
-     32,768 and 2^20 points and at their regime switch +- 1 (the identity,
-     P + P and P + (-P) among the lanes), each in the regime the wrapper
-     picks and beside the one-thread kernel, with the kernel alone from
+     against the K1 chain it replaced); K2, K11 and K12 at 1, 32, 256,
+     4,096, 32,768 and 2^20 points and at their regime switch +- 1 (the
+     identity, P + P and P + (-P) among the lanes, and K12's (0, 0)
+     sentinels in warps with live lanes), each in the regime the wrapper
+     picks and beside the one-thread kernel (K12 also beside its
+     reduced-domain one-thread design of before, built from
+     tools/point_probe.cu beside the library), with the kernel alone from
      the profiler, both bounds and the dependent chain in products; K5
      in both regimes, with ptxas's registers and spills for each: many
      lanes (2^12 edge lanes, the commit's 40,000) and few (1, 19, 32 and
@@ -201,9 +204,13 @@ def bound(nbytes: float, fmuls: float) -> dict:
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def phase_kernels(dev, crs) -> dict:
-    """K1-K13 against their plain versions on the card, exact."""
+def phase_kernels(dev, crs, probe=None) -> dict:
+    """K1-K13 against their plain versions on the card, exact; ``probe``
+    the built ``tools/point_probe.cu`` (K12's one-thread design before its
+    lazy regimes), built here when not given."""
     import torch
+
+    from verkle_kzg_tpu_torch.tools import point_regimes as PR
 
     from verkle_kzg_tpu_torch.hostmath import curve as hc
     from verkle_kzg_tpu_torch.params import FQ, FR, R
@@ -254,20 +261,12 @@ def phase_kernels(dev, crs) -> dict:
     assert C.projective_to_host_points(pz[:4]) == [hc.g1_add(a_, b_) for a_, b_ in zip(ps[:4], qs[:4])]
     sums = C.projective_to_host_points(pz[:6])
     assert C.projective_to_host_points(cuda_curve.double(pz)[:6]) == [hc.g1_add(a_, a_) for a_ in sums]
-    rec.update(_kernels_k2_k11(dev, p, q, pz))
-
     # K12 at K2's shape: the affine qs added to the K2 sums (the (0, 0)
     # sentinel at slot 1, identity + (-P) at slot 3).
     qa = C.host_points_to_affine(qs, dev)
     got = cuda_curve.mixed_add(pz, qa)
-    plain_out, plain_ms = timed_once(lambda: cuda_curve.plain_mixed_add(pz, qa))
-    rec["K12"] = {"max_abs_err": max_abs_err(got, plain_out), "shape": "32768 mixed adds"}
-    assert rec["K12"]["max_abs_err"] == 0
     assert C.projective_to_host_points(got[:6]) == [hc.g1_add(a_, b_) for a_, b_ in zip(sums, qs[:6])]
-    rec["K12"]["ms"] = cuda_ms(lambda: cuda_curve.mixed_add(pz, qa), 20)
-    rec["K12"]["plain_ms"] = plain_ms
-    live = int((~C.affine_is_infinity(qa)).sum())  # sentinel lanes do no products
-    rec["K12"].update(bound((pz.numel() * 2 + qa.numel()) * 4, live * MIXED_FMULS))
+    rec.update(_kernels_group_law(dev, p, q, pz, qa, probe or PR.Probe(PR.probe_build())))
 
     # K3 + K4: the 257-point IPA basis shape and 2^12 points, with zero
     # scalars, r - 1 and a (0, 0) point.
@@ -312,12 +311,16 @@ def phase_kernels(dev, crs) -> dict:
     return rec
 
 
-# K2's and K11's shapes in phase 2: one point, a warp's, one G1 NTT stage
-# at domain 256, 4,096, the IPA MSM's fold (32,768, the "K2" / "K11"
-# records) and 2^20; with the regime switch +- 1 beside them.
-K2_K11_POINTS = (1, 32, 256, 4096, 32768, 1 << 20)
+# K2's, K11's and K12's shapes in phase 2: one point, a warp's, one G1 NTT
+# stage at domain 256, 4,096, the IPA MSM's fold (32,768, the "K2" / "K11"
+# / "K12" records) and 2^20; with the regime switch +- 1 beside them.
+GROUP_LAW_POINTS = (1, 32, 256, 4096, 32768, 1 << 20)
 #: Points of the strided slice held against the plain version above it.
 PLAIN_SLICE = 1 << 15
+# Montgomery products a level of each operation's group schedule, and on
+# one thread.
+GROUP_LAW_LEVELS = {"K2": (6, 6), "K11": (4, 4), "K12": (5, 6)}
+GROUP_LAW_FMULS = {"K2": ADD_FMULS, "K11": DOUBLE_FMULS, "K12": MIXED_FMULS}
 
 
 def _k2_k11_pairs(pz, n: int) -> tuple:
@@ -342,56 +345,87 @@ def _k2_k11_pairs(pz, n: int) -> tuple:
     return p.contiguous(), q.contiguous()
 
 
-def point_chain(op: str, group: int) -> int:
+def _k12_pairs(pz, qa, n: int) -> tuple:
+    """(p, q): p as :func:`_k2_k11_pairs` makes it (lane 0 the identity), q
+    n affine points of ``qa`` repeated past their count, with the (0, 0)
+    sentinel at lane 1 and every 37 lanes from lane 9 (in warps whose other
+    groups are live), P + P at lane 2 and P + (-P) at lane 3, where n
+    reaches them."""
+    from verkle_kzg_tpu_torch.hostmath import curve as hc
+    from verkle_kzg_tpu_torch.ops import curve as C
+
+    p = _k2_k11_pairs(pz, n)[0]
+    q = qa.roll(-5, 0).repeat(-(-n // qa.shape[0]), 1, 1)[:n].clone()
+    q[1:2] = 0
+    q[9::37] = 0
+    if n > 3:
+        h2, h3 = C.projective_to_host_points(p[2:4])
+        q[2:4] = C.host_points_to_affine([h2, hc.g1_neg(h3)], p.device)
+    return p, q.contiguous()
+
+
+def point_chain(key: str, group: int) -> int:
     """Montgomery products on one point's dependent chain: each level's
     independent products on separate threads of a group (two passes a
-    level for the add on 4 threads), all of them on one thread."""
+    level on 4 threads), all of them on one thread."""
     if group == 1:
-        return ADD_FMULS if op == "K2" else DOUBLE_FMULS
-    return 2 * -(-(6 if op == "K2" else 4) // group)
+        return GROUP_LAW_FMULS[key]
+    return sum(-(-k // group) for k in GROUP_LAW_LEVELS[key])
 
 
-def _kernels_k2_k11(dev, p, q, pz, points=K2_K11_POINTS) -> dict:
-    """K2 and K11 at ``points`` and at the regime switch +- 1, in the regime
-    the wrapper picks, exact against their plain versions (above
+def _kernels_group_law(dev, p, q, pz, qa, probe, points=GROUP_LAW_POINTS) -> dict:
+    """K2, K11 and K12 at ``points`` and at the regime switch +- 1, in the
+    regime the wrapper picks, exact against their plain versions (above
     PLAIN_SLICE points a strided slice of that many) and against the
-    one-thread kernel on the whole output. K2 at 32,768 adds (p, q) (the
-    host edge lanes), K11 doubles pz; the other shapes come from pz with
-    the edge lanes of ``_k2_k11_pairs``. Each record: the regime and its
-    group, the ms a call by CUDA events, the kernel alone (profiler), the
-    one-thread kernel's both, the bound by bytes and by operations, and the
-    dependent chain in products."""
+    one-thread kernel on the whole output (K12 also against its one-thread
+    design before its lazy regimes, ``probe``'s reduced variant). K2 at
+    32,768 adds (p, q) (the host edge lanes), K11 doubles pz, K12 adds the
+    affine ``qa`` to pz; the other shapes come from pz (and qa) with the
+    edge lanes of ``_k2_k11_pairs`` / ``_k12_pairs``. Each record: the
+    regime and its group, the ms a call by CUDA events, the kernel alone
+    (profiler), the one-thread kernel's both (K12: also the old design's
+    both), the bound by bytes and by operations (K12: live lanes, those
+    whose q is not the sentinel), and the dependent chain in products."""
     import torch
 
     from verkle_kzg_tpu_torch.ops import cuda_curve as KC
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.tools import point_regimes as PR
 
+    entries = {"K2": ("vkzg_point_add", KC.add, KC.plain, "adds"),
+               "K11": ("vkzg_point_double", KC.double, lambda x: KC.plain_double(x), "doublings"),
+               "K12": ("vkzg_point_mixed_add", KC.mixed_add, KC.plain_mixed_add, "mixed adds")}
     rec = {}
-    for n in sorted(set(points) | {KC.SWITCH - 1, KC.SWITCH, KC.SWITCH + 1}):
-        for key, fn in (("K2", "vkzg_point_add"), ("K11", "vkzg_point_double")):
+    for n in PR.with_switch(points):
+        for key, (fn, wrapper, plain_fn, what) in entries.items():
             if key == "K2":
-                a, b = (p, q) if n == p.shape[0] else _k2_k11_pairs(pz, n)
-                run, plain_fn, ins = (lambda a=a, b=b: KC.add(a, b)), KC.plain, (a, b)
+                ins = (p, q) if n == p.shape[0] else _k2_k11_pairs(pz, n)
+            elif key == "K11":
+                ins = (pz if n == pz.shape[0] else _k2_k11_pairs(pz, n)[0],)
             else:
-                a = pz if n == pz.shape[0] else _k2_k11_pairs(pz, n)[0]
-                run, plain_fn, ins = (lambda a=a: KC.double(a)), (lambda x, *_: KC.plain_double(x)), (a,)
+                ins = (pz, qa) if n == pz.shape[0] else _k12_pairs(pz, qa, n)
+            a = ins[0]
+            run = lambda ins=ins, wrapper=wrapper: wrapper(*ins)  # noqa: E731
             mode = KC.regime(n)
             KC.reset_regimes()
             out = run()
             assert KC.regime_launches[key][mode] == 1, (key, n, KC.regime_launches)
-            one = lambda a=a, ins=ins: KC._launch(fn, key, torch.empty_like(a), *ins, group=1)  # noqa: E731
+            one = lambda a=a, ins=ins, fn=fn, key=key: KC._launch(fn, key, torch.empty_like(a), *ins, group=1)  # noqa: E731
             idx = torch.arange(0, n, max(1, n // PLAIN_SLICE), device=a.device)
             plain_out, plain_ms = timed_once(lambda: plain_fn(*(t[idx] for t in ins)))
             err = max(max_abs_err(out[idx], plain_out), max_abs_err(out, one()))
-            assert err == 0, (key, n)
             group = KC.GROUP[mode]
-            nbytes, fmuls = (len(ins) + 1) * a.numel() * 4, n * (ADD_FMULS if key == "K2" else DOUBLE_FMULS)
+            live = n if key != "K12" else int((~C.affine_is_infinity(ins[1])).sum())
+            nbytes, fmuls = 4 * (sum(t.numel() for t in ins) + a.numel()), live * GROUP_LAW_FMULS[key]
             name = key if n == 32768 else f"{key}@{n}"
-            rec[name] = {
+            (kernel, seen), (one_kernel, one_seen) = PR.kernel_ms(run), PR.kernel_ms(one)
+            r = rec[name] = {
                 "max_abs_err": err,
                 "ms": cuda_ms(run, 20),
-                "kernel_ms": device_ms(run, 10),
+                "kernel_ms": kernel,
                 "one_thread_ms": cuda_ms(one, 20),
-                "one_thread_kernel_ms": device_ms(one, 10),
+                "one_thread_kernel_ms": one_kernel,
+                "kernel_records": [seen, one_seen],
                 "plain_ms": plain_ms,
                 "plain_points": len(idx),
                 "library_ms": None,
@@ -401,10 +435,20 @@ def _kernels_k2_k11(dev, p, q, pz, points=K2_K11_POINTS) -> dict:
                 "one_thread_chain_products": point_chain(key, 1),
                 "bound_bytes_ms": bound(nbytes, 0)["bound_ms"],
                 "bound_ops_ms": bound(0, fmuls)["bound_ms"],
-                "shape": f"{n} point {'adds' if key == 'K2' else 'doublings'}",
+                "shape": f"{n} point {what}",
                 **bound(nbytes, fmuls),
             }
-            print("phase 2 k2/k11:", name, json.dumps(rec[name]), flush=True)
+            if key == "K12":
+                old_design = lambda ins=ins: probe("mixed", 0, 1, 1, *ins)  # noqa: E731
+                r["max_abs_err"] = err = max(err, max_abs_err(out, old_design()))
+                old_kernel, old_seen = PR.kernel_ms(old_design)
+                r["kernel_records"].append(old_seen)
+                r.update({"live_lanes": live, "old_design_ms": cuda_ms(old_design, 20),
+                          "old_design_kernel_ms": old_kernel,
+                          "ptxas": ptxas_of(f"point_group_kernelILi2ELi{group}E" if group > 1
+                                            else "point_mixed_add_kernel")})
+            assert err == 0, (key, n)
+            print("phase 2 group law:", name, json.dumps(r), flush=True)
     return rec
 
 
@@ -1152,11 +1196,25 @@ def tail_work(w: int, rows: int, c: int, lanes: int = 1) -> tuple:
     return lanes * (adds * ADD_FMULS + dbls * DOUBLE_FMULS), depth
 
 
-def _tail_record(key: str, bk, c: int, plain_out_ms: tuple, reps: int) -> dict:
+#: Bucket rows (windows x rows a window) above which a tail's exact
+#: comparison takes the leading windows only (at least 2, so Horner runs):
+#: its launches depend on the rows a window, not on the windows.
+TAIL_PLAIN_ROWS = 1 << 16
+
+
+def tail_plain_windows(w: int, rows: int) -> int:
+    """Leading windows of a (W, rows) tail that its plain version is held to."""
+    return w if w * rows <= TAIL_PLAIN_ROWS else min(w, max(2, TAIL_PLAIN_ROWS // rows))
+
+
+def _tail_record(key: str, bk, c: int, plain_out_ms: tuple, reps: int, windows: int | None = None) -> dict:
     """Time and bound of one tail (K4 on (W, rows, 3, 8), K7 on (W, B, rows,
     3, 8) buckets), its CUDA launches and dependent chain; where the window
     sums take their own launches, the sums and Horner timed apart, with
-    Horner's microseconds a dependent point operation."""
+    Horner's microseconds a dependent point operation. ``plain_out_ms``
+    holds the plain version's output over the leading ``windows`` windows
+    (all when None), which the same tail launches over those windows match;
+    the timed call takes them all."""
     from verkle_kzg_tpu_torch.ops import cuda_msm as K
     from verkle_kzg_tpu_torch.ops import cuda_msm_batched as KB
 
@@ -1164,11 +1222,15 @@ def _tail_record(key: str, bk, c: int, plain_out_ms: tuple, reps: int) -> dict:
     w, lanes, rows = b5.shape[:3]
     run = (lambda: K.tail(bk, c)) if key == "K4" else (lambda: KB.tail(bk, c))
     out, (plain_out, plain_ms) = run(), plain_out_ms
+    if windows is not None and windows < w:
+        out = K.launch_tail(b5[:windows], c, key)[0]
+        out = out[0] if bk.dim() == 4 else out
     design_fmuls, depth = tail_work(w, rows, c, lanes)
     rec = {
         "max_abs_err": max_abs_err(out, plain_out),
         "ms": cuda_ms(run, reps),
         "plain_ms": plain_ms,
+        "plain_windows": w if windows is None else windows,
         "library_ms": None,
         "cuda_launches": K.tail_launches(rows),
         "design_fmuls": design_fmuls,
@@ -1338,8 +1400,9 @@ def _kernels_windows(dev, base, rng, n: int = 1 << 16, n_wide: int = 1 << 12) ->
         if name.endswith("equal-scalars"):
             continue
         sign = "" if signed else "-unsigned"
+        part = bk[:tail_plain_windows(*bk.shape[:2])]
         rec[f"K4@c{c}{sign}"] = {
-            **_tail_record("K4", bk, c, timed_once(lambda: K.plain_tail(bk, c)), 5),
+            **_tail_record("K4", bk, c, timed_once(lambda: K.plain_tail(part, c)), 5, part.shape[0]),
             "shape": f"{bk.shape[0]} x {bk.shape[1]} buckets, c = {c}{'' if signed else ', unsigned'}",
         }
         assert rec[f"K4@c{c}{sign}"]["max_abs_err"] == 0, (c, signed)
@@ -1360,10 +1423,16 @@ def _k5_work(pa, ks) -> float:
     return total
 
 
+#: Lanes of a K5 call above which its plain version is held to a strided
+#: slice of about this many (lanes are independent).
+K5_PLAIN_LANES = 1 << 12
+
+
 def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
     """K5 on 2^12 edge-case lanes and at the shape of the verkle commit's
     c1/c2 launch (40,000 lanes over the basis, half of them zero-scalar pad
-    lanes, 128-bit leaf halves in the others); K6 (the sorted accumulation,
+    lanes, 128-bit leaf halves in the others; the plain version on every
+    ninth lane, 4,445 of them); K6 (the sorted accumulation,
     one basis shared by the lanes) and K7 at the dense verkle level (width
     256, c = 5, 40 lanes), at width 64 (c = 4) and at c = 1."""
     import torch
@@ -1393,8 +1462,9 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
             pa[3:9] = 0  # (0, 0) lanes, one with a zero scalar
         sc = F.ints_to_words(ks, dev)
         out = K5.scalar_mul_affine(pa, sc)
-        plain_out, plain_ms = timed_once(lambda: K5.plain(pa, sc))
-        errs.append(max_abs_err(out, plain_out))
+        lane = torch.arange(0, n, max(1, n // K5_PLAIN_LANES), device=dev)  # lanes are independent
+        plain_out, plain_ms = timed_once(lambda: K5.plain(pa[lane], sc[lane]))
+        errs.append(max_abs_err(out[lane], plain_out))
         assert errs[-1] == 0, n
     hp = C.projective_to_host_points(out[:8])
     gx = [crs.g_host[i] for i in idx[:8].tolist()]
@@ -1407,6 +1477,7 @@ def _kernels_k5_k7(dev, crs, rng, lanes: int = 40000, batch: int = 40) -> dict:
         "ms": cuda_ms(lambda: K5.scalar_mul_affine(pa, sc), 5),
         "ptxas": ptxas_of("scalar_mul_kernelILi4E"),
         "plain_ms": plain_ms,
+        "plain_lanes": len(lane),
         "library_ms": None,
         "regime": "many",
         "shape": f"{lanes} lanes, 128-bit scalars on half",
@@ -2885,12 +2956,22 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    from verkle_kzg_tpu_torch.tools import point_regimes as PR
+
     t0 = time.perf_counter()
-    cuda_lib.lib()
+    building = PR.probe_build()  # beside the library's sources, one nvcc each
+    try:
+        cuda_lib.lib()
+    except BaseException:
+        building.kill()
+        building.wait()
+        raise
+    probe = PR.Probe(building)
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in (cuda_lib.BUILD / "ptxas.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Function properties" in line:
             print("  ptxas:", line.strip(), flush=True)
+    print("  probe ptxas:", json.dumps(probe.ptxas), flush=True)
 
     from verkle_kzg_tpu_torch.schemes import ipa_setup
 
@@ -2900,7 +2981,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cuda_lib.reset_launches()
-    kern = phase_kernels(dev, crs)
+    kern = phase_kernels(dev, crs, probe)
     phase2_launches = dict(cuda_lib.launches)
     print(f"phase 2 kernels vs plain (exact, tolerance 0; {time.perf_counter() - t0:.1f} s):", json.dumps(kern),
           flush=True)

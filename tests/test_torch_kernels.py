@@ -480,8 +480,8 @@ def test_point_regimes_match_plain_on_card(cuda, n):
     assert torch.equal(cuda_curve.add(p, q), want_add)
     assert torch.equal(cuda_curve.double(p), want_double)
     assert cuda_lib.launches["K2"] == cuda_lib.launches["K11"] == 1
-    assert cuda_curve.regime_launches == {k: {"few": int(mode == "few"), "many": int(mode == "many")}
-                                          for k in ("K2", "K11")}
+    assert {k: cuda_curve.regime_launches[k] for k in ("K2", "K11")} == {
+        k: {"few": int(mode == "few"), "many": int(mode == "many")} for k in ("K2", "K11")}
     for g in cuda_curve.GROUPS:
         out = cuda_curve._launch("vkzg_point_add", "K2", torch.empty_like(p), p, q, group=g)
         assert torch.equal(out, want_add), g
@@ -497,6 +497,47 @@ def test_point_regime_refuses_other_groups(cuda):
     p, q = _regime_pairs(4, 190)
     with pytest.raises(RuntimeError, match="cudaError"):
         cuda_curve._launch("vkzg_point_add", "K2", torch.empty_like(p), p, q, group=16)
+    qa = C.host_points_to_affine(_inputs(4, 191)[0], cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cuda_curve._launch("vkzg_point_mixed_add", "K12", torch.empty_like(p), p, qa, group=16)
+
+
+def _mixed_pairs(n, seed):
+    """(p, q_affine) n card points each: p sums of two points (Z != 1) with
+    the identity in lane 0; q affine with the (0, 0) sentinel in lane 1 and
+    every 7 lanes after it (groups of a warp whose other groups are live),
+    P + P in lane 2 and P + (-P) in lane 3."""
+    p, _ = _regime_pairs(n, seed)
+    host = C.projective_to_host_points(p)
+    pts, _ = _inputs(n + 3, seed + 1)
+    qs = [pts[(5 * i + 3) % len(pts)] for i in range(n)]
+    for i in range(1, n, 7):
+        qs[i] = None
+    if n > 3:
+        qs[2], qs[3] = host[2], hc.g1_neg(host[3])
+    return p, C.host_points_to_affine(qs, "cuda"), host, qs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", sorted({1, 32, cuda_curve.SWITCH - 1, cuda_curve.SWITCH + 1, 32768}))
+def test_mixed_add_regimes_match_plain_on_card(cuda, n):
+    """K12 in the regime the switch picks, one K12 launch counted under it,
+    and in every group size the C entry point takes, against its plain
+    version, with (0, 0) sentinel lanes in warps that also hold live lanes,
+    the identity + Q, P + P and P + (-P)."""
+    p, qa, host_p, host_q = _mixed_pairs(n, 220 + n % 97)
+    want = cuda_curve.plain_mixed_add(p, qa)
+    mode = cuda_curve.regime(n)
+    cuda_lib.reset_launches()
+    cuda_curve.reset_regimes()
+    assert torch.equal(cuda_curve.mixed_add(p, qa), want)
+    assert cuda_lib.launches["K12"] == 1
+    assert cuda_curve.regime_launches["K12"] == {"few": int(mode == "few"), "many": int(mode == "many")}
+    for g in cuda_curve.GROUPS:
+        out = cuda_curve._launch("vkzg_point_mixed_add", "K12", torch.empty_like(p), p, qa, group=g)
+        assert torch.equal(out, want), g
+    m = min(n, 40)
+    assert C.projective_to_host_points(want[:m]) == [hc.g1_add(a, b) for a, b in zip(host_p[:m], host_q[:m])]
 
 
 @pytest.mark.gpu

@@ -160,7 +160,7 @@ def test_regime_choice():
         "few", "few", "few", "many", "many"]
     assert set(KC.GROUP) == {"few", "many"} and set(KC.GROUP.values()) <= set(KC.GROUPS)
     assert KC.GROUP["few"] >= 6 and KC.GROUP["many"] < KC.GROUP["few"]
-    assert set(KC.regime_launches) == {"K2", "K11"}
+    assert set(KC.regime_launches) == {"K2", "K11", "K12"}
 
 
 def test_cpu_takes_plain_and_counts_nothing(points):
@@ -170,7 +170,7 @@ def test_cpu_takes_plain_and_counts_nothing(points):
     assert torch.equal(KC.add(pp, pq), KC.plain(pp, pq))
     assert torch.equal(KC.double(pp), KC.plain_double(pp))
     assert cuda_lib.launches["K2"] == cuda_lib.launches["K11"] == 0
-    assert KC.regime_launches == {"K2": {"few": 0, "many": 0}, "K11": {"few": 0, "many": 0}}
+    assert KC.regime_launches == {k: {"few": 0, "many": 0} for k in ("K2", "K11", "K12")}
 
 
 @pytest.mark.parametrize("op", ["add", "double"])

@@ -1,17 +1,20 @@
-// K2, K11, K12: element-wise complete projective group law in the reduced
-// domain: K2 adds (RCB16 algorithm 7), K11 doubles (algorithm 9), K12 adds
-// an affine point (algorithm 8, the (0, 0) sentinel selecting p). K2 and
-// K11 run one point a thread or a group of 4, 8 or 32 threads a point (the
-// warp point operations of warp_point.cuh in the reduced domain), as the
-// wrapper's regime asks; K12 one point a thread. K2FOLD sums rows of
-// points by K2's halving tree in one launch. See ops/cuda_curve.py.
+// K2, K11, K12: element-wise complete projective group law, reduced words
+// out: K2 adds (RCB16 algorithm 7), K11 doubles (algorithm 9), K12 adds an
+// affine point (algorithm 8, the (0, 0) sentinel selecting p). Each runs
+// one point a thread or a group of 4, 8 or 32 threads a point (the warp
+// point operations of warp_point.cuh), as the wrapper's regime asks: K2
+// and K11 in the reduced domain, K12 in the lazy one reduced once at the
+// end (every lazy intermediate lies below 2m and is congruent to the
+// reduced one, so the words are the same). K2FOLD sums rows of points by
+// K2's halving tree in one launch. See ops/cuda_curve.py.
 //
 // A few points are bound by one point's chain of dependent products (12
-// for the add, 8 for the doubling, ~0.68 us each on one thread): a group
-// spreads each level's independent products over its threads, so the
-// chain is 2 products and the sums between them. Many points are bound by
-// the products' throughput, which one point a thread spends best
-// (tools/point_regimes.py; numbers in ops/cuda_curve.py and PERF.md).
+// for the add, 11 for the mixed add, 8 for the doubling, ~0.68 us each on
+// one thread): a group spreads each level's independent products over its
+// threads, so the chain is 2 products and the sums between them. Many
+// points are bound by the products' throughput, which one point a thread
+// spends best (tools/point_regimes.py; numbers in ops/cuda_curve.py and
+// PERF.md).
 #include <cuda_runtime.h>
 
 #include "warp_point.cuh"
@@ -43,13 +46,19 @@ __global__ void __launch_bounds__(128) point_double_kernel(const uint32_t* p, ui
 namespace vkzg {
 namespace {
 
-// K2 (ADD) and K11 with G threads a point (G = 4, 8 or 32), 128 threads a
-// block: a group loads its point (and addend) into its WarpScratch, runs
-// warp_add / warp_double in the reduced domain and stores acc. Every
-// thread of a warp takes each __syncwarp, so a warp whose first point is
-// past n returns whole, and a group of a live warp past n runs on the last
-// point and stores nothing.
-template <bool ADD, int G>
+// The operation a point_group_kernel runs.
+constexpr int OP_DOUBLE = 0, OP_ADD = 1, OP_MIXED = 2;
+
+// K11 (OP_DOUBLE), K2 (OP_ADD) or K12 (OP_MIXED) with G threads a point (G = 4, 8
+// or 32), 128 threads a block: a group loads its point and its addend
+// (projective, or the affine x, y into q[0..15]) into its WarpScratch and
+// runs warp_double / warp_add in the reduced domain, or warp_mixed_add in
+// the lazy one, whose keep flag is false on the (0, 0) sentinel; threads
+// 0-2 then reduce a coordinate each once, where the add ran, and store it.
+// Every thread of a warp takes each __syncwarp, so a warp whose first
+// point is past n returns whole, and a group of a live warp past n runs on
+// the last point and stores nothing.
+template <int OP, int G>
 __global__ void __launch_bounds__(128) point_group_kernel(const uint32_t* __restrict__ p,
                                                           const uint32_t* __restrict__ q,
                                                           uint32_t* __restrict__ out, int64_t n) {
@@ -64,7 +73,15 @@ __global__ void __launch_bounds__(128) point_group_kernel(const uint32_t* __rest
   uint4* acc = reinterpret_cast<uint4*>(s.acc);
   const uint4* src = reinterpret_cast<const uint4*>(p + 24 * i);
   for (int j = t; j < 6; j += G) acc[j] = src[j];
-  if constexpr (ADD) {
+  bool keep = true;
+  if constexpr (OP == OP_MIXED) {
+    uint4* dq = reinterpret_cast<uint4*>(s.q);
+    const uint4* srq = reinterpret_cast<const uint4*>(q + 16 * i);
+    for (int j = t; j < 4; j += G) dq[j] = srq[j];
+    __syncwarp();
+    keep = !(is_zero(s.q) && is_zero(s.q + 8));
+    warp_mixed_add<G>(s, t, keep);
+  } else if constexpr (OP == OP_ADD) {
     uint4* dq = reinterpret_cast<uint4*>(s.q);
     const uint4* srq = reinterpret_cast<const uint4*>(q + 24 * i);
     for (int j = t; j < 6; j += G) dq[j] = srq[j];
@@ -74,7 +91,15 @@ __global__ void __launch_bounds__(128) point_group_kernel(const uint32_t* __rest
     __syncwarp();
     warp_double<false>(s, t);
   }
-  if (g < n) {
+  if (g >= n) return;
+  if constexpr (OP == OP_MIXED) {
+    if (t < 3) {
+      uint32_t a[8];
+      load8(a, s.acc + 8 * t);
+      if (keep) cond_sub<Fq, false>(a);
+      store8(out + 24 * g + 8 * t, a);
+    }
+  } else {
     uint4* dst = reinterpret_cast<uint4*>(out + 24 * g);
     for (int j = t; j < 6; j += G) dst[j] = acc[j];
   }
@@ -83,6 +108,8 @@ __global__ void __launch_bounds__(128) point_group_kernel(const uint32_t* __rest
 }  // namespace
 }  // namespace vkzg
 
+// K12 one point a thread: the sorted sums' body (msm_sorted.cu), lazy,
+// reduced once; a (0, 0) sentinel lane stores p as it was.
 __global__ void __launch_bounds__(128) point_mixed_add_kernel(const uint32_t* p,
                                                               const uint32_t* q_aff,
                                                               uint32_t* out, int64_t n) {
@@ -93,7 +120,10 @@ __global__ void __launch_bounds__(128) point_mixed_add_kernel(const uint32_t* p,
   load_point(a, p + 24 * i);
   load8(ax, q_aff + 16 * i);
   load8(ay, q_aff + 16 * i + 8);
-  if (!(is_zero(ax) && is_zero(ay))) point_mixed_add<false>(a, ax, ay);
+  if (!(is_zero(ax) && is_zero(ay))) {
+    point_mixed_add<true>(a, ax, ay);
+    reduce_point(a);
+  }
   store_point(out + 24 * i, a);
 }
 
@@ -136,9 +166,10 @@ static unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-// K2 (ADD) or K11 over n points with `group` threads a point: 1 (one
-// point a thread) or 4, 8, 32 (point_group_kernel); any other is refused.
-template <bool ADD>
+// K2 (OP_ADD), K11 (OP_DOUBLE) or K12 (OP_MIXED) over n points with `group`
+// threads a point: 1 (one point a thread) or 4, 8, 32 (point_group_kernel);
+// any other is refused.
+template <int OP>
 static int point_op(const void* p, const void* q, void* out, int64_t n, int group, void* stream) {
   const uint32_t* a = (const uint32_t*)p;
   const uint32_t* b = (const uint32_t*)q;
@@ -146,20 +177,22 @@ static int point_op(const void* p, const void* q, void* out, int64_t n, int grou
   cudaStream_t st = (cudaStream_t)stream;
   switch (group) {
     case 1:
-      if constexpr (ADD) {
+      if constexpr (OP == vkzg::OP_ADD) {
         point_add_kernel<<<blocks_for(n, 128), 128, 0, st>>>(a, b, o, n);
+      } else if constexpr (OP == vkzg::OP_MIXED) {
+        point_mixed_add_kernel<<<blocks_for(n, 128), 128, 0, st>>>(a, b, o, n);
       } else {
         point_double_kernel<<<blocks_for(n, 128), 128, 0, st>>>(a, o, n);
       }
       break;
     case 4:
-      vkzg::point_group_kernel<ADD, 4><<<blocks_for(n, 32), 128, 0, st>>>(a, b, o, n);
+      vkzg::point_group_kernel<OP, 4><<<blocks_for(n, 32), 128, 0, st>>>(a, b, o, n);
       break;
     case 8:
-      vkzg::point_group_kernel<ADD, 8><<<blocks_for(n, 16), 128, 0, st>>>(a, b, o, n);
+      vkzg::point_group_kernel<OP, 8><<<blocks_for(n, 16), 128, 0, st>>>(a, b, o, n);
       break;
     case 32:
-      vkzg::point_group_kernel<ADD, 32><<<blocks_for(n, 4), 128, 0, st>>>(a, b, o, n);
+      vkzg::point_group_kernel<OP, 32><<<blocks_for(n, 4), 128, 0, st>>>(a, b, o, n);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -169,18 +202,16 @@ static int point_op(const void* p, const void* q, void* out, int64_t n, int grou
 
 extern "C" int vkzg_point_add(const void* p, const void* q, void* out, int64_t n, int group,
                               void* stream) {
-  return point_op<true>(p, q, out, n, group, stream);
+  return point_op<vkzg::OP_ADD>(p, q, out, n, group, stream);
 }
 
 extern "C" int vkzg_point_double(const void* p, void* out, int64_t n, int group, void* stream) {
-  return point_op<false>(p, nullptr, out, n, group, stream);
+  return point_op<vkzg::OP_DOUBLE>(p, nullptr, out, n, group, stream);
 }
 
-extern "C" int vkzg_point_mixed_add(const void* p, const void* q_aff, void* out, int64_t n,
+extern "C" int vkzg_point_mixed_add(const void* p, const void* q_aff, void* out, int64_t n, int group,
                                     void* stream) {
-  point_mixed_add_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint32_t*)q_aff, (uint32_t*)out, n);
-  return (int)cudaGetLastError();
+  return point_op<vkzg::OP_MIXED>(p, q_aff, out, n, group, stream);
 }
 
 // in (rows, n, 3, 8), work (rows, ceil(n / 2), 3, 8); n >= 2. Row r's sum

@@ -3,7 +3,7 @@
 Replaces ``verkle_kzg_tpu/ops/pallas_curve.py``: the launch ``_point_call``
 (line 328) behind ``add`` (K2, body ``k_point_add``), ``double`` (K11,
 line 350, body ``k_point_double``) and ``mixed_add`` (K12, line 358, body
-``k_point_mixed_add``), all in the reduced domain. K2 runs ``curve.add``;
+``k_point_mixed_add``), all with reduced words out. K2 runs ``curve.add``;
 no path of the port calls it since K2FOLD took its last callers. K11 runs
 ``curve.double``. Their one-thread device
 functions are also every bit of ``curve.scalar_mul`` and of the G1 NTT's
@@ -17,31 +17,37 @@ The lazy group law that K3-K10 inline lives beside them in
 K2 does 12 Montgomery products and 21 modular add/subs on 48 words of
 input, K11 8 products and 11 add/subs on 24 words, K12 11 products on 40
 words. A product is about 500 dependent instructions (0.68 us on one
-thread), so one thread's add is a chain of 12 of them, a doubling of 8.
-K2 and K11 run in two regimes (:data:`SWITCH`, :data:`GROUP`):
+thread), so one thread's add is a chain of 12 of them, a mixed add of 11,
+a doubling of 8. All three run in two regimes (:data:`SWITCH`,
+:data:`GROUP`):
 
 - few points: a group of threads a point, the operation's independent
   products on separate threads (``csrc/warp_point.cuh``'s ``warp_add`` /
-  ``warp_double`` in the reduced domain, operands in shared memory): 6 + 6
-  products for the add, 4 + 4 for the doubling, so a point's dependent
-  chain is 2 products and the sums between them;
+  ``warp_double`` in the reduced domain, ``warp_mixed_add`` in the lazy
+  one, operands in shared memory): 6 + 6 products for the add, 5 + 6 for
+  the mixed add, 4 + 4 for the doubling, so a point's dependent chain is 2
+  products and the sums between them;
 - many points: one point a thread (``point_add<false>`` /
-  ``point_double<false>``, the bodies G1SMUL and G1BFLY run). Once the card
-  is full the products' throughput sets the time, and a group's idle
-  threads and repeated sums cost more than the chain they hide: groups of
-  4 with two passes a level were slower at 32,768 points and at 2^20. At
-  2^20 the add takes 2.7x its multiply bound, the port's Montgomery
-  products' usual pace (the sorted sums run at 2.6x).
+  ``point_double<false>``, the bodies G1SMUL and G1BFLY run;
+  ``point_mixed_add<true>``, the sorted sums' body). Once the card is
+  full the products' throughput sets the time, and a group's idle threads
+  and repeated sums cost more than the chain they hide: groups of 4 with
+  two passes a level were slower at 32,768 points and at 2^20. At 2^20
+  the add takes 2.7x its multiply bound, the port's Montgomery products'
+  usual pace (the sorted sums run at 2.6x).
 
-Every intermediate of the reduced domain is canonical, so both regimes
-give the one-thread functions' words (``point_add<false>`` /
-``point_double<false>``) and the plain versions'. Neither regime is a
-fallback for the other: a CUDA tensor runs one of them or raises. K12 runs
-one point a thread. The kernels pin 128 threads a block with
+K12 runs the lazy domain in both regimes and reduces each coordinate once
+at the end: every lazy intermediate lies below 2m and is congruent to the
+reduced one, so the words are the reduced domain's, at about a tenth less
+time (``tools/point_probe.cu``). Every intermediate of the reduced domain
+is canonical, so all regimes give the one-thread reduced functions' words
+and the plain versions'. Neither regime is a fallback for the other: a CUDA tensor runs
+one of them or raises. The kernels pin 128 threads a block with
 ``__launch_bounds__`` and the build prints their registers and spills.
 Each runs the same sequence of field operations as its Pallas body, so
 kernel, plain version and the JAX package agree bit for bit. K12's (0, 0)
-sentinel lanes keep p, as the Pallas kernel's final select does.
+sentinel lanes keep p, as the Pallas kernel's final select does (a
+group's ``keep`` flag; one thread skips the add).
 
 Kernel K2FOLD (:func:`fold`): ``ops/msm.py::fold_reduce_lanes``, the sum of
 each row of points by a halving tree, which ran as one K2 launch a level
@@ -147,21 +153,27 @@ def fold(p: torch.Tensor) -> torch.Tensor:
 # 11.2-12.4 one a thread), K11 3.3-3.4 (7.0-8.0 one a thread); at 8,192 K2
 # 10.5 us against 13.4 one a thread, K11 8.0 against 9.0; at 16,384 18.9
 # against 13.7 and 14.1 against 9.2. At 2^20 one point a thread takes
-# 0.545 ms (K2) and 0.309 (K11), groups of 4 0.818 and 0.388. Right after
-# 2^20-point launches the few-point rows read about 0.6x as long, and
-# K11's crossing falls below 8,192. Each output is exact in every group
-# size. A call by CUDA events costs 0.02-0.07 ms at any count up to 32,768
-# in either regime: there the enqueue sets it, not the kernel.
-#: Points at or below which K2 and K11 run the few-point regime.
+# 0.545 ms (K2) and 0.309 (K11), groups of 4 0.818 and 0.388. A second
+# pass right after 2^20-point launches reads the same, once each row counts
+# the kernel records the profiler kept (0-10 of 10 there). K12 at 1-1,024
+# points 3.1-3.2 us with 8 threads a point (3.1-4.5 with 32, 4.5-4.7 with
+# 4, 9.4-10.3 one a thread); at 8,192 7.5 against 11.4, at 16,384 13.2
+# against 11.6: its crossing falls where K2's does, so it shares SWITCH and
+# GROUP. At 2^20 one point a thread takes 0.439 ms, groups of 4 0.579.
+# Each output is exact in every group size. A call by CUDA events costs
+# 0.02-0.13 ms at any count up to 32,768 in either regime: there the
+# enqueue sets it, not the kernel.
+#: Points at or below which K2, K11 and K12 run the few-point regime.
 SWITCH = 8192
 #: Threads a point in each regime (1: one point a thread).
 GROUP = {"few": 8, "many": 1}
 #: The group sizes the C entry points take.
 GROUPS = (1, 4, 8, 32)
 
-#: Launches of each regime of K2 and K11 since the last :func:`reset_regimes`
-#: (``cuda_lib.launches["K2"]`` and ``["K11"]`` count both).
-regime_launches = {"K2": {"few": 0, "many": 0}, "K11": {"few": 0, "many": 0}}
+#: Launches of each regime of K2, K11 and K12 since the last
+#: :func:`reset_regimes` (``cuda_lib.launches["K2"]``, ``["K11"]`` and
+#: ``["K12"]`` count both).
+regime_launches = {key: {"few": 0, "many": 0} for key in ("K2", "K11", "K12")}
 
 
 def reset_regimes() -> None:
@@ -171,19 +183,18 @@ def reset_regimes() -> None:
 
 
 def regime(n: int) -> str:
-    """The regime K2 and K11 run ``n`` points in."""
+    """The regime K2, K11 and K12 run ``n`` points in."""
     return "few" if n <= SWITCH else "many"
 
 
-def _launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor, group: int | None = None) -> torch.Tensor:
-    """Run kernel entry ``fn`` over the points of ``out`` and count it; K2
-    and K11 take ``group`` threads a point (one of :data:`GROUPS`)."""
+def _launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor, group: int) -> torch.Tensor:
+    """Run kernel entry ``fn`` over the points of ``out`` with ``group``
+    threads a point (one of :data:`GROUPS`) and count it."""
     cuda_lib.require_cuda("curve." + fn, out, *ins)
     n = out.numel() // (3 * F.WORDS)
     if n:
-        extra = () if group is None else (group,)
         err = getattr(cuda_lib.lib(), fn)(
-            *(t.data_ptr() for t in ins), out.data_ptr(), n, *extra, cuda_lib.stream(out)
+            *(t.data_ptr() for t in ins), out.data_ptr(), n, group, cuda_lib.stream(out)
         )
         cuda_lib.check(err, fn)
         cuda_lib.launches[key] += 1
@@ -191,7 +202,7 @@ def _launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor, group: int
 
 
 def _regime_launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor) -> torch.Tensor:
-    """K2 or K11 in the regime that the point count picks, counted."""
+    """K2, K11 or K12 in the regime that the point count picks, counted."""
     n = out.numel() // (3 * F.WORDS)
     mode = regime(n)
     _launch(fn, key, out, *ins, group=GROUP[mode])
@@ -221,7 +232,7 @@ def mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
     lead = torch.broadcast_shapes(p.shape[:-2], q_aff.shape[:-2])
     p = p.expand(lead + p.shape[-2:]).contiguous()
     q_aff = q_aff.expand(lead + q_aff.shape[-2:]).contiguous()
-    return _launch("vkzg_point_mixed_add", "K12", torch.empty_like(p), p, q_aff)
+    return _regime_launch("vkzg_point_mixed_add", "K12", torch.empty_like(p), p, q_aff)
 
 
 def affine_row(n: int, sms: int) -> int:

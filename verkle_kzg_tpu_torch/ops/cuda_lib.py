@@ -65,7 +65,7 @@ _SIGNATURES = {
     "vkzg_field_binop": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _I, _P],
     "vkzg_point_add": [_P, _P, _P, _I, ctypes.c_int, _P],
     "vkzg_point_double": [_P, _P, _I, ctypes.c_int, _P],
-    "vkzg_point_mixed_add": [_P, _P, _P, _I, _P],
+    "vkzg_point_mixed_add": [_P, _P, _P, _I, ctypes.c_int, _P],
     "vkzg_point_fold": [_P, _P, _I, _I, _P],
     "vkzg_ipa_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vkzg_ipa_inner": [_P, _P, _P, _I, _P],

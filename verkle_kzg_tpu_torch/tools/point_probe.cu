@@ -1,12 +1,14 @@
-// Variants of K2 and K11, built and timed by tools/point_regimes.py beside
-// the path's kernels (csrc/curve.cu); no path runs them.
+// Variants of K2, K11 and K12, built and timed by tools/point_regimes.py
+// beside the path's kernels (csrc/curve.cu); no path runs them.
 //
 // - one point a thread with a floor of MINB blocks of 128 threads an SM in
 //   __launch_bounds__ (so at most 65,536 / (128 MINB) registers a thread),
-//   in the reduced domain (the path's body) or the lazy one (point_add /
-//   point_double<true>, then one reduction);
+//   in the reduced domain (K2's and K11's body; K12's before its lazy
+//   regimes, a (0, 0) sentinel lane keeping p) or the lazy one (point_add
+//   / point_double / point_mixed_add<true>, then one reduction);
 // - a group of G threads a point on the warp point operations in the lazy
-//   domain, reduced once at the end.
+//   domain, reduced once at the end (K2 and K11; K12's few-point regime is
+//   this on the path).
 //
 // Every intermediate of the lazy domain lies in [0, 2m) and is congruent
 // to the reduced domain's, so one final reduction gives the reduced
@@ -18,7 +20,8 @@
 namespace vkzg {
 namespace {
 
-template <bool ADD, bool LAZY, int MINB>
+// The operation: 0 doubles p, 1 adds projective q, 2 adds affine q.
+template <int OP, bool LAZY, int MINB>
 __global__ void __launch_bounds__(128, MINB) probe_thread_kernel(const uint32_t* __restrict__ p,
                                                                  const uint32_t* __restrict__ q,
                                                                  uint32_t* __restrict__ out,
@@ -27,7 +30,16 @@ __global__ void __launch_bounds__(128, MINB) probe_thread_kernel(const uint32_t*
   if (i >= n) return;
   Point a;
   load_point(a, p + 24 * i);
-  if constexpr (ADD) {
+  if constexpr (OP == 2) {
+    uint32_t ax[8], ay[8];
+    load8(ax, q + 16 * i);
+    load8(ay, q + 16 * i + 8);
+    if (is_zero(ax) && is_zero(ay)) {
+      store_point(out + 24 * i, a);
+      return;
+    }
+    point_mixed_add<LAZY>(a, ax, ay);
+  } else if constexpr (OP == 1) {
     Point b;
     load_point(b, q + 24 * i);
     point_add<LAZY>(a, a, b);
@@ -68,54 +80,62 @@ __global__ void __launch_bounds__(128) probe_lazy_group_kernel(const uint32_t* _
   }
 }
 
-template <bool ADD, bool LAZY, int MINB>
+template <int OP, bool LAZY, int MINB>
 int thread_launch(const uint32_t* p, const uint32_t* q, uint32_t* o, int64_t n, cudaStream_t st) {
-  probe_thread_kernel<ADD, LAZY, MINB><<<(unsigned)((n + 127) / 128), 128, 0, st>>>(p, q, o, n);
+  probe_thread_kernel<OP, LAZY, MINB><<<(unsigned)((n + 127) / 128), 128, 0, st>>>(p, q, o, n);
   return (int)cudaGetLastError();
 }
 
-template <bool ADD, bool LAZY>
+template <int OP, bool LAZY>
 int thread_minb(int minb, const uint32_t* p, const uint32_t* q, uint32_t* o, int64_t n,
                 cudaStream_t st) {
   switch (minb) {
-    case 1: return thread_launch<ADD, LAZY, 1>(p, q, o, n, st);
-    case 4: return thread_launch<ADD, LAZY, 4>(p, q, o, n, st);
-    case 6: return thread_launch<ADD, LAZY, 6>(p, q, o, n, st);
-    case 8: return thread_launch<ADD, LAZY, 8>(p, q, o, n, st);
+    case 1: return thread_launch<OP, LAZY, 1>(p, q, o, n, st);
+    case 4: return thread_launch<OP, LAZY, 4>(p, q, o, n, st);
+    case 6: return thread_launch<OP, LAZY, 6>(p, q, o, n, st);
+    case 8: return thread_launch<OP, LAZY, 8>(p, q, o, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool ADD>
+template <int OP>
 int probe(int lazy, int group, int minb, const uint32_t* p, const uint32_t* q, uint32_t* o,
           int64_t n, cudaStream_t st) {
   if (group == 1) {
-    return lazy ? thread_minb<ADD, true>(minb, p, q, o, n, st)
-                : thread_minb<ADD, false>(minb, p, q, o, n, st);
+    return lazy ? thread_minb<OP, true>(minb, p, q, o, n, st)
+                : thread_minb<OP, false>(minb, p, q, o, n, st);
   }
-  if (!lazy) return (int)cudaErrorInvalidValue;
-  if (group == 8) {
-    probe_lazy_group_kernel<ADD, 8><<<(unsigned)((n + 15) / 16), 128, 0, st>>>(p, q, o, n);
-  } else if (group == 32) {
-    probe_lazy_group_kernel<ADD, 32><<<(unsigned)((n + 3) / 4), 128, 0, st>>>(p, q, o, n);
+  if constexpr (OP == 2) {
+    return (int)cudaErrorInvalidValue;  // K12's lazy groups are the path's (vkzg_point_mixed_add)
   } else {
-    return (int)cudaErrorInvalidValue;
+    if (!lazy) return (int)cudaErrorInvalidValue;
+    if (group == 8) {
+      probe_lazy_group_kernel<OP == 1, 8><<<(unsigned)((n + 15) / 16), 128, 0, st>>>(p, q, o, n);
+    } else if (group == 32) {
+      probe_lazy_group_kernel<OP == 1, 32><<<(unsigned)((n + 3) / 4), 128, 0, st>>>(p, q, o, n);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace vkzg
 
-// add: 1 for K2's add, 0 for K11's doubling (q unused); lazy: 0 or 1;
-// group: 1 (one point a thread, minb in {1, 4, 6, 8}) or, lazy only, 8 or
-// 32 (minb unused).
-extern "C" int point_probe(int add, int lazy, int group, int minb, const void* p, const void* q,
+// op: 0 for K11's doubling (q unused), 1 for K2's add, 2 for K12's mixed
+// add (q affine, (n, 2, 8)); lazy: 0 or 1; group: 1 (one point a thread,
+// minb in {1, 4, 6, 8}) or, lazy only and not K12, 8 or 32 (minb unused).
+extern "C" int point_probe(int op, int lazy, int group, int minb, const void* p, const void* q,
                            void* out, int64_t n, void* stream) {
   const uint32_t* a = (const uint32_t*)p;
   const uint32_t* b = (const uint32_t*)q;
   uint32_t* o = (uint32_t*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  return add ? vkzg::probe<true>(lazy, group, minb, a, b, o, n, st)
-             : vkzg::probe<false>(lazy, group, minb, a, b, o, n, st);
+  switch (op) {
+    case 0: return vkzg::probe<0>(lazy, group, minb, a, b, o, n, st);
+    case 1: return vkzg::probe<1>(lazy, group, minb, a, b, o, n, st);
+    case 2: return vkzg::probe<2>(lazy, group, minb, a, b, o, n, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
