@@ -16,7 +16,9 @@ and no JAX. Phases, each of which raises on failure:
      against the K1 or K2 chain each replaces, timed in the same run (K1QUO
      and K1MP at phase 6's shape (the grouped pass, g, each row's quotient,
      h and h - g), the KZG prove's one row at index 17 and 1,024 queries at
-     one point; K1INV with its dependent chain:
+     one point; K1MP's grouped pass also at 32,768 queries over 256 points
+     (3 levels of power tables, several chunks a segment) and 40,000 over
+     16 (4 levels), against its plain version only; K1INV with its dependent chain:
      products and the inverse's loop steps; K1IPA a round at 8, 256 and
      1,024 elements with and without b, x and w read from device memory,
      and <a, b> at 256; FSX, a Fiat-Shamir challenge, in each mode at
@@ -74,8 +76,11 @@ and no JAX. Phases, each of which raises on failure:
      sampled commitments against the native C++ oracle, a 150-leaf tree on
      the card against the CPU plain path, a profile of the commit and a
      cProfile of another (the host's share, by function);
-  6. the multiproof of 1,024 queries at domain 256 (BASELINE.json config 3),
-     and its twin made through the plain versions of K1MP and K1QUO;
+  6. the multiproof at domain 256 (BASELINE.json config 3) at 1,024 queries
+     and at the reference harness's 4,096, 16,384 and 32,768, each proved
+     and verified with its launches, a wrong y rejected, the grouped pass's
+     plan and the transcript's host time recorded, each also against its
+     twin made through the plain versions of K1MP and K1QUO;
   7. the single-MSM sweep of BASELINE.json config 5, 2^16-2^22 points, at
      c = 8, 4, 12 and 16 signed, and at 2^20 also unsigned c = 8 and 16 and
      signed c = 5, 10 and 13, each run exact against an oracle, with the
@@ -102,13 +107,32 @@ and no JAX. Phases, each of which raises on failure:
      (width 256, 40 lanes), the Fr and G1 four-step NTTs and their inverses
      at 256 and 512, FK at 256, phase 5's tree and phase 6's multiproof,
      each with mesh=, against its unsharded twin and the earlier phase's
-     result, and timed beside its twin (what the mesh costs at d = 1).
+     result, and timed beside its twin (what the mesh costs at d = 1);
+ 11. config 4 over KZG as benchmarks/bench_all.py builds it: kzg_setup(256)
+     on the card, 10,000 leaves at key_len 3 (the harness's default) and 32
+     (the Ethereum geometry), each tree committed, 16 present and 3 absent
+     keys proved with one KZG multiproof and verified (the shares of the
+     host's verify_point and of its pairing timed apart), sampled commitments against the native C++ oracle
+     over the Lagrange SRS, at key_len 3 a 150-leaf tree on the card against
+     the CPU path;
+ 12. the re-commit's branches: a seeded set of writes that reaches each
+     branch of an insert into a committed tree (1,000 updates, 100 new
+     units in present extensions, 100 new stems splitting an extension, 50
+     new root children; a coverage mix, not a measured block of a public
+     chain) into phase 5's committed tree and phase 11's key_len-32 one,
+     each committed again:
+     only the nodes on the written paths (the dirty counters), every node
+     equal to a tree built from scratch with the final contents, sampled
+     re-committed nodes against the native oracle, a proof of 16 written
+     and 3 absent keys verified.
 
-Each of phases 2, 3, 5, 6, 8 and 10, and each run of phases 7 and 9, sets the
-launch counts to 0 just before its path and reads them just after; phases
+Each of phases 2, 3, 5, 8, 10 and 12, each size of phase 6, each tree of
+phase 11, and each run of phases 7 and 9, sets the launch counts to 0 just
+before its path and reads them just after; phases
 5, 6 and 8 print K1's, K1INV's, K1IPA's, K1QUO's, K1MP's and FSX's launches
 stage by stage and assert those of the proves exactly (a multiproof: 2
-K1MP, 1 K1QUO, 2 K1 for the commits, no K1INV over the IPA),
+K1MP, 1 K1QUO, 2 K1 for the commits, no K1INV over the IPA; over KZG, as
+in phases 8 and 11, also 4 K1 and 1 K1INV for the prove at t),
 phases 5 and 6 assert that no K2 ran (K2FOLD sums the folds), and phases 5
 and 6 the launches of each K5 regime and the lanes of each K5 call;
 phases 5, 8 and 10 assert one K1AFF launch a conversion of card points to
@@ -708,7 +732,9 @@ def _kernels_k1quo_k1mp(dev, rng) -> dict:
     pass, g summed over the distinct points, each row's quotient, h and
     h - g), the KZG prove's (one row at index 17) and a skewed one (1,024
     queries at one point: the grouped pass, g of one row, h). Each record:
-    ms, the kernel's own time (``device_ms``), the plain version's and the
+    ms, the kernel's own time (``kernel_ms``: the profiler's records of
+    that kernel over 10 calls, divided by the records it kept, which
+    ``kernel_records`` counts), the plain version's and the
     chain's ms and K1 / K1INV launches, launches a call, the bound (each
     input read once, each output written once; the products the function
     needs: 3 an element of a quotient, a product a query and column and
@@ -722,6 +748,7 @@ def _kernels_k1quo_k1mp(dev, rng) -> dict:
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.poly import Domain
     from verkle_kzg_tpu_torch.poly.lagrange import _quotient_in_domain_table, quotient_in_domain
+    from verkle_kzg_tpu_torch.tools import point_regimes as PR
 
     n = 256
     dom = Domain(n)
@@ -732,24 +759,30 @@ def _kernels_k1quo_k1mp(dev, rng) -> dict:
         vals[rng.randrange(n)], vals[rng.randrange(n)] = 0, R - 1
         return F.ints_to_mont(vals, "fr", dev)
 
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
     def record(kind, name, fn, plain_fn, chain_fn, shape, nbytes, products):
         before = dict(cuda_lib.launches)
         out = fn()
         launched = cuda_lib.launches[kind] - before[kind]
         plain_out, plain_ms = timed_once(plain_fn)
-        before = dict(cuda_lib.launches)
-        chain_out, chain_first_ms = timed_once(chain_fn)
-        chain = {k: cuda_lib.launches[k] - before[k] for k in ("K1", "K1INV", kind)}
-        outs = out if isinstance(out, tuple) else (out,)
-        err = max(_words_err(outs, plain_out if isinstance(plain_out, tuple) else (plain_out,)),
-                  _words_err(outs, chain_out if isinstance(chain_out, tuple) else (chain_out,)))
-        assert err == 0 and launched == 1 and chain[kind] == 0, (name, err, launched, chain)
+        err = _words_err(as_tuple(out), as_tuple(plain_out))
+        chain = dict.fromkeys(("K1", "K1INV", kind))
+        if chain_fn is not None:  # the shapes of before K1MP: also the chain it replaced
+            before = dict(cuda_lib.launches)
+            chain_out, _ = timed_once(chain_fn)
+            chain = {k: cuda_lib.launches[k] - before[k] for k in chain}
+            err = max(err, _words_err(as_tuple(out), as_tuple(chain_out)))
+        assert err == 0 and launched == 1 and not chain[kind], (name, err, launched, chain)
+        kernel, records = PR.kernel_ms(fn, 10, 1, KERNEL_NAMES[kind])
         rec = {
             "max_abs_err": err,
             "ms": cuda_ms(fn, 20),
-            "device_ms": device_ms(fn, 10),
+            "kernel_ms": kernel,
+            "kernel_records": records,
             "plain_ms": plain_ms,
-            "chain_ms": cuda_ms(chain_fn, 3),
+            "chain_ms": None if chain_fn is None else cuda_ms(chain_fn, 3),
             "chain_k1_launches": chain["K1"],
             "chain_k1inv_launches": chain["K1INV"],
             "launches_per_call": launched,
@@ -809,7 +842,28 @@ def _kernels_k1quo_k1mp(dev, rng) -> dict:
         lambda: _quotient_in_domain_table(row, torch.tensor([17], device=dev), omegas, table),
         lambda: _chain_quotient(row, [17], dom, False),
         f"one row at index 17 (the KZG prove), N = {n}", 4 * n * 32 + 4, 3 * n)
+    # the grouped pass at the reference harness's largest count (3 levels of
+    # power tables, every segment several chunks) and past it (4 levels,
+    # 16 segments of some 80 chunks), over 4 vectors
+    stack = torch.stack([vec() for _ in range(4)])
+    for m, points in K1MP_LARGE:
+        zs = [rng.randrange(points) for _ in range(m)]
+        sel = [rng.randrange(4) for _ in range(m)]
+        distinct, plan = KM.plan_segments(zs, sel)
+        zq, levels = len(distinct), KM.power_levels(plan)
+        name = f"K1MP@{m}x{points}"
+        rec[name] = record(
+            "K1MP", name, lambda: KM.segment_sum(stack, r, plan, 0), lambda: KM.plain_segment_sum(stack, r, plan, 0),
+            None, f"grouped pass: {m} queries of 4 vectors at {zq} points, N = {n}, {plan.chunk_seg.size} chunks, "
+            f"{levels} levels", stack.numel() * 4 + 32 + 4 * plan.packed().size + zq * n * 32, m * n + m)
+        rec[name]["levels"] = levels
     return rec
+
+
+#: Phase 2's K1MP records past phase 6's first count, (queries, points).
+K1MP_LARGE = ((32768, 256), (40000, 16))
+#: The CUDA kernel of each wrapper, as the profiler names its records.
+KERNEL_NAMES = {"K1MP": "segment_sum_kernel", "K1QUO": "quotient_kernel"}
 
 
 K1AFF_CASES = (  # record, points: about the verkle commit's node commitments, then a KZG proof's one
@@ -2316,32 +2370,67 @@ def _stage(name, fn, ms, counts, k5_lanes=None):
     return out
 
 
-def _verkle_keys(n: int) -> list:
+def _verkle_keys(n: int, key_len: int = 32) -> list:
     """``benchmarks/bench_all.py:142-143``: distinct (unit 0, unit 1) pairs
-    with a fixed tail, so sibling stems diverge one level below their parent."""
-    tail = tuple((11 * j) % 256 for j in range(32 - 3))
+    with a fixed tail of ``key_len`` - 3 units (none at the harness's
+    default of 3), so sibling stems diverge one level below their parent."""
+    tail = tuple((11 * j) % 256 for j in range(key_len - 3))
     return [(i // 256, i % 256, (i * 7) % 256) + tail for i in range(n)]
 
 
-def _verkle_inputs(leaves: int) -> tuple:
+def _verkle_inputs(leaves: int, key_len: int = 32) -> tuple:
     """Phase 5's keys, their values, and the stem of an extension holding
     only unit 7 (absence mode L)."""
-    keys = _verkle_keys(leaves)
+    keys = _verkle_keys(leaves, key_len)
     rng = random.Random(10_000)
     values = {k: rng.randrange(1 << 256) for k in keys}
     return keys, values, (100, 0, 0) + keys[0][3:]
 
 
-def _verkle_build(crs, keys, values, absent_l, mesh=None):
-    """Phase 5's tree, not yet committed (its node commits sharded over ``mesh``)."""
-    from verkle_kzg_tpu_torch.schemes import IPA
+def _verkle_absent(keys, absent_l) -> list:
+    """Three keys the trees of ``_verkle_inputs`` do not hold: no root child
+    200 (mode E), (0, 0, 0)'s extension reached by another stem (mode O),
+    and the unit-7 extension's own key (mode L)."""
+    tail = keys[0][3:]
+    return [(200, 0, 0) + tail, (0, 0, 1) + tail, absent_l]
+
+
+def _verkle_build(scheme, params, key_len, keys, values, absent_l, mesh=None):
+    """A tree of config 4 (``benchmarks/bench_all.py:126-158``) over
+    ``scheme`` and ``params``, width 256, ``key_len``-unit keys, not yet
+    committed (its node commits sharded over ``mesh``)."""
     from verkle_kzg_tpu_torch.verkle import VerkleTree
 
-    tree = VerkleTree(IPA, crs, key_len=32, ext_width=256, mesh=mesh)
+    tree = VerkleTree(scheme, params, key_len=key_len, ext_width=256, mesh=mesh)
     for k in keys:
         tree.insert_single(k, values[k])
     tree._insert(tree.root, absent_l, [(7, 77)], 0)  # the multi-value insert surface
     return tree
+
+
+def oracle_msm(points, scalars):
+    """``native.g1_msm`` with its window fitted to the point count: c = 5 at
+    a node's 256 points, 2 at an extension's 4 (its default c = 12 walks 2 x
+    4,095 buckets a window, about 90 ms a call at either size)."""
+    from verkle_kzg_tpu_torch import native
+
+    return native.g1_msm(points, scalars, c=max(1, (len(points).bit_length() + 1) // 2))
+
+
+def _check_verkle_oracle(tree, root, g, exts=None) -> None:
+    """The root, up to 4 depth-1 internal nodes and 64 sampled extensions
+    (or of ``exts``; their c1, c2 and extension commitments) against the
+    native C++ Pippenger over the basis ``g`` of host points."""
+    assert root == oracle_msm(g, tree._internal_vector(tree.root)), "root != native oracle"
+    inner = [node for node in tree.root.children.values() if hasattr(node, "children")]
+    for node in inner[:: max(1, len(inner) // 4)][:4]:
+        assert node.commit == oracle_msm(g, tree._internal_vector(node)), "depth-1 node != native oracle"
+    if exts is None:
+        exts = [ext for node in inner for ext in node.children.values() if hasattr(ext, "stem")]
+    for ext in random.Random(64).sample(exts, min(64, len(exts))):
+        c1, c2 = tree._ext_leaf_vectors(ext)
+        assert ext.c1_commit == oracle_msm(g, c1) and ext.c2_commit == oracle_msm(g, c2)
+        assert ext.commit == oracle_msm(g[:4], tree._ext_data_vector(ext)), "extension != native oracle"
 
 
 def _all_commits(tree) -> list:
@@ -2383,32 +2472,28 @@ def _device_busy_ms(prof) -> tuple:
     return busy / 1e3, top
 
 
-def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dict:
+def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150, keep=None) -> dict:
     """BASELINE.json config 4 at its published size: a verkle tree with
     32-unit keys and width-256 nodes, 10,000 leaves, committed, 16 present
-    and 3 absent keys proved with one multiproof and verified statelessly."""
+    and 3 absent keys proved with one multiproof and verified statelessly.
+    The committed tree is appended to ``keep`` when one is given."""
     import torch
 
-    from verkle_kzg_tpu_torch import native
     from verkle_kzg_tpu_torch.ops import cuda_lib
     from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
     from verkle_kzg_tpu_torch.schemes import IPA, IPAParams
-    from verkle_kzg_tpu_torch.verkle import VerkleTree
 
     keys, values, absent_l = _verkle_inputs(leaves)
-    tail = keys[0][3:]
-    absent_e = (200, 0, 0) + tail  # no root child 200: mode E
-    absent_o = (0, 0, 1) + tail  # reaches (0, 0, 0)'s extension: mode O
 
     def build():
-        return _verkle_build(crs, keys, values, absent_l)
+        return _verkle_build(IPA, crs, 32, keys, values, absent_l)
 
     t0 = time.perf_counter()
     tree = build()
     insert_s = time.perf_counter() - t0
 
     sample = keys[:: max(1, len(keys) // 16)][:16]  # bench_all.py:155
-    prove_keys = sample + [absent_e, absent_o, absent_l]
+    prove_keys = sample + _verkle_absent(keys, absent_l)
     claims = {k: values.get(k) for k in prove_keys}
 
     ms, counts, k5_lanes = {}, {}, {}
@@ -2442,16 +2527,7 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
         assert counts[name]["K1AFF"] == ms[name]["card_conversions"] > 0, (name, counts[name], ms[name])
 
     # sampled commitments against the native C++ Pippenger
-    g = crs.g_host
-    assert root == native.g1_msm(g, tree._internal_vector(tree.root)), "root != native oracle"
-    inner = [node for node in tree.root.children.values() if hasattr(node, "children")]
-    for node in inner[:: max(1, len(inner) // 4)][:4]:
-        assert node.commit == native.g1_msm(g, tree._internal_vector(node)), "depth-1 node != native oracle"
-    exts = [ext for node in inner for ext in node.children.values()]
-    for ext in random.Random(64).sample(exts, min(64, len(exts))):
-        c1, c2 = tree._ext_leaf_vectors(ext)
-        assert ext.c1_commit == native.g1_msm(g, c1) and ext.c2_commit == native.g1_msm(g, c2)
-        assert ext.commit == native.g1_msm(g[:4], tree._ext_data_vector(ext)), "extension != native oracle"
+    _check_verkle_oracle(tree, root, crs.g_host)
 
     # where the commit's time goes: a profiled commit of a second tree
     from torch.profiler import ProfilerActivity, profile
@@ -2474,18 +2550,11 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
 
     # a small tree of the same geometry (a sparse root, a dense depth-1
     # node), on the card and on the CPU path
-    small_keys = keys[:small_leaves]
     cpu = IPAParams(n=crs.n, g_host=crs.g_host, q_host=crs.q_host, domain=crs.domain, device="cpu")
-    small = [VerkleTree(IPA, p, key_len=32, ext_width=256) for p in (crs, cpu)]
-    for t in small:
-        for k in small_keys:
-            t.insert_single(k, values[k])
-    small[0].commitment()
-    t0 = time.perf_counter()
-    small[1].commitment()
-    cpu_small_s = time.perf_counter() - t0
-    assert _all_commits(small[0]) == _all_commits(small[1]), f"{small_leaves}-leaf tree: card != CPU"
+    cpu_small_s = _small_tree_card_vs_cpu(IPA, crs, cpu, 32, keys[:small_leaves], values)
 
+    if keep is not None:
+        keep.append(tree)
     return {
         "leaves": leaves,
         "insert_s": insert_s,
@@ -2505,6 +2574,261 @@ def phase_verkle(dev, crs, leaves: int = 10_000, small_leaves: int = 150) -> dic
     }
 
 
+def _small_tree_card_vs_cpu(scheme, params, cpu_params, key_len, keys, values) -> float:
+    """The tree of ``keys`` committed on the card (``params``) and on the
+    CPU path (``cpu_params``), every node commitment equal; returns the
+    CPU commit's seconds."""
+    from verkle_kzg_tpu_torch.verkle import VerkleTree
+
+    small = [VerkleTree(scheme, p, key_len=key_len, ext_width=256) for p in (params, cpu_params)]
+    for t in small:
+        for k in keys:
+            t.insert_single(k, values[k])
+    small[0].commitment()
+    t0 = time.perf_counter()
+    small[1].commitment()
+    cpu_s = time.perf_counter() - t0
+    assert _all_commits(small[0]) == _all_commits(small[1]), f"{len(keys)}-leaf tree: card != CPU"
+    return cpu_s
+
+
+def phase_verkle_kzg(dev, card: str, leaves: int = 10_000, small_leaves: int = 150, key_lens=(3, 32),
+                     keep=None) -> dict:
+    """Config 4 over KZG as ``benchmarks/bench_all.py:126-158`` builds it:
+    ``kzg_setup(256)`` on the card and a tree of ``leaves`` of its keys at
+    each of ``key_lens`` (3, the harness's default, an empty tail; 32, the
+    Ethereum geometry, phase 5's keys), each committed, its 16 sampled keys
+    (``bench_all.py:155``) and the E, O and L absent keys proved with one
+    KZG multiproof and verified, a wrong claim rejected; the root, depth-1
+    nodes and 64 extensions against the native C++ Pippenger over the
+    Lagrange SRS; at key_len 3 a ``small_leaves`` tree on the card against
+    the CPU path (30-45 s of the CPU's plain versions; key_len 32's would
+    differ from phase 5's, checked so over the IPA, only in the basis).
+    The launches start from 0 before each tree's commit and are read after
+    its verify. KZG's verify ends in ``KZG.verify_point`` on the host (a
+    G2 scalar multiplication, G1 operations and the pairing product): its
+    spans (``kzg.verify_point``, ``kzg.pairing`` in ``utils/metrics``)
+    give the verify's share of each. The committed key_len-32 tree is
+    appended to ``keep`` when one is given."""
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
+    from verkle_kzg_tpu_torch.schemes import KZG, KZGParams, kzg_setup
+    from verkle_kzg_tpu_torch.utils import metrics
+
+    ms, counts = {}, {}
+    _sync(dev)
+    cuda_lib.reset_launches()
+    params = _stage("setup", lambda: kzg_setup(256, device=dev), ms, counts)
+    cpu = KZGParams(size=params.size, lagrange_host=params.lagrange_host, g2=params.g2, domain=params.domain,
+                    device="cpu")
+    out = {"setup_ms": ms["setup"]}
+    for key_len in key_lens:
+        keys, values, absent_l = _verkle_inputs(leaves, key_len)
+        t0 = time.perf_counter()
+        tree = _verkle_build(KZG, params, key_len, keys, values, absent_l)
+        insert_s = time.perf_counter() - t0
+        sample = keys[:: max(1, len(keys) // 16)][:16]
+        prove_keys = sample + _verkle_absent(keys, absent_l)
+        claims = {k: values.get(k) for k in prove_keys}
+
+        ms, counts = {}, {}
+        _sync(dev)
+        cuda_lib.reset_launches()
+        K5.reset_regimes()
+        root = _stage("commit", tree.commitment, ms, counts)
+        proof = _stage("prove", lambda: tree.prove_keys(prove_keys), ms, counts)
+        before = metrics.counters()
+        ok = _stage("verify", lambda: tree.verify_keys(prove_keys, claims, proof), ms, counts)
+        spans = {k: (metrics.counters().get(f"{k}.seconds", 0.0) - before.get(f"{k}.seconds", 0.0)) * 1e3
+                 for k in ("kzg.verify_point", "kzg.pairing")}
+        path_launches = dict(cuda_lib.launches)
+        regimes = dict(K5.regime_launches)
+
+        assert ok, f"key_len {key_len}: the honest KZG verkle proof was rejected"
+        bad = dict(claims)
+        bad[sample[3]] += 1
+        assert not tree.verify_keys(prove_keys, bad, proof), f"key_len {key_len}: a wrong claim was accepted"
+        assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
+        assert min(counts["commit"][k] for k in ("K5", "K6", "K7")) > 0, counts["commit"]
+        assert path_launches["K2"] == 0, path_launches
+        # the KZG multiproof: its passes, the D and E commits' standard form,
+        # and the out-of-domain prove at t (a sub, the quotient's sub and
+        # product, the standard form, one K1INV), as phase 8's
+        c = counts["prove"]
+        assert (c["K1"], c["K1INV"], c["K1QUO"], c["K1MP"]) == (6, 1, 1, 2), (key_len, c)
+        assert regimes["many"] > 0 and regimes["few"] > 0, regimes
+        for name in ms:
+            assert counts[name]["K1AFF"] == ms[name]["card_conversions"] > 0, (name, counts[name], ms[name])
+        _check_verkle_oracle(tree, root, params.lagrange_host)
+        cpu_small_s = (_small_tree_card_vs_cpu(KZG, params, cpu, key_len, keys[:small_leaves], values)
+                       if key_len == 3 else None)
+        rec = {
+            "key_len": key_len, "leaves": leaves, "insert_s": insert_s, "ms": ms,
+            "leaves_per_s": leaves / (ms["commit"]["wall_ms"] / 1e3),
+            "verify_point_ms": spans["kzg.verify_point"], "pairing_ms": spans["kzg.pairing"],
+            "verify_point_share": spans["kzg.verify_point"] / ms["verify"]["wall_ms"],
+            "pairing_share": spans["kzg.pairing"] / ms["verify"]["wall_ms"],
+            "launches_per_stage": {name: {k: v for k, v in c.items() if v} for name, c in counts.items()},
+            "path_launches": path_launches, "k5_regime_launches": regimes, "queries": len(prove_keys),
+            "small_leaves": small_leaves if cpu_small_s is not None else None,
+            "cpu_plain_commit_small_s": cpu_small_s, "root": root,
+        }
+        print(f"phase 11 verkle over KZG, key_len {key_len}:", json.dumps(rec), f"[{card}]", flush=True)
+        out[f"key_len_{key_len}"] = rec
+        if keep is not None and key_len == 32:
+            keep.append(tree)
+    return out
+
+
+#: Phase 12's writes: new values of present keys, new units in present
+#: extensions, new stems splitting an extension, new root children. The
+#: counts reach each branch of an insert into a committed tree many times
+#: over; they are no source's block of state writes.
+WRITE_BLOCK = {"updates": 1000, "units": 100, "splits": 100, "roots": 50}
+
+
+def _write_block(keys, absent_l, block=WRITE_BLOCK, seed: int = 19) -> dict:
+    """A seeded block of writes into a tree of ``_verkle_inputs``' 32-unit
+    keys: each kind of ``block`` a list of (stem, unit, value) inserts,
+    applied in the order updates, units, splits, roots. Updates: new values
+    of present keys, spread over the tree. Units: new units in present
+    keys' extensions, four extensions taking five each above unit 127 (so
+    their c2 vectors turn dense), the rest one each. Splits: new stems,
+    each a new unit 2 under a present (unit 0, unit 1), which split that
+    depth-2 extension into a new internal node (``VerkleTree.
+    _next_diff_depth``). Roots: new stems under root children that did not
+    exist. The mode-E, -O and -L keys of ``_verkle_absent`` stay absent."""
+    rng = random.Random(seed)
+    tail, last = keys[0][3:], keys[0][-1]  # every key's unit is its tail's last
+
+    def value():
+        return rng.randrange(1 << 256)
+
+    out = {"updates": [(k, k[-1], value()) for k in rng.sample(keys, block["updates"])], "units": []}
+    hosts = rng.sample(keys[1:], block["units"] - 16)
+    for k in hosts[:-4]:
+        out["units"].append((k, rng.choice([u for u in range(256) if u != last]), value()))
+    for k in hosts[-4:]:
+        out["units"] += [(k, u, value()) for u in rng.sample(range(128, 256), 5)]
+    unit2 = {k[:2]: k[2] for k in keys}
+    pairs = rng.sample(sorted(unit2)[1:], block["splits"])  # not (0, 0): the mode-O key's extension
+    out["splits"] = [(s, s[-1], value()) for s in
+                     (p + (rng.choice([u for u in range(256) if u != unit2[p]]),) + tail for p in pairs)]
+    used = {k[0] for k in keys} | {absent_l[0], 200}  # 200: the mode-E key's root slot
+    out["roots"] = [(s, s[-1], value()) for s in
+                    ((u0, rng.randrange(256), rng.randrange(256)) + tail
+                     for u0 in rng.sample([u for u in range(256) if u not in used], block["roots"]))]
+    return out
+
+
+def _written_nodes(tree, stems) -> tuple:
+    """The internal nodes and extensions on the paths of ``stems``, each
+    once (what a commit after writes to those stems must commit again),
+    and the internal nodes' count by depth."""
+    internal, exts, depths = {}, {}, {}
+    for stem in stems:
+        node, depth = tree.root, 0
+        while hasattr(node, "children"):
+            if id(node) not in internal:
+                internal[id(node)] = node
+                depths[depth] = depths.get(depth, 0) + 1
+            node, depth = node.children[stem[depth]], depth + 1
+        assert node.stem == stem, (stem, node.stem)
+        exts[id(node)] = node
+    return list(internal.values()), list(exts.values()), depths
+
+
+def phase_writes(dev, card: str, trees, leaves: int = 10_000, block=WRITE_BLOCK) -> dict:
+    """Branch coverage of the re-commit: the writes of ``_write_block``
+    (each branch of an insert into a committed tree; a coverage mix, not a
+    workload) into committed trees of phase 5's keys: phase 5's over the
+    IPA and phase 11's key_len-32 one over KZG. Each is committed again: the dirty counters (``verkle.commit.
+    dirty_ext`` / ``dirty_internal``) equal the nodes on the written paths,
+    so no clean node is committed again; every node equals that of a tree
+    built from scratch with the final contents and committed once; the
+    root, depth-1 nodes, 8 re-committed internal nodes and 64 re-committed
+    extensions equal the native C++ Pippenger; 16 written keys and the
+    three absent ones prove and verify, a wrong claim rejected. The
+    launches start from 0 before the re-commit and are read after the
+    fresh tree's commit."""
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.schemes import IPA
+    from verkle_kzg_tpu_torch.utils import metrics
+    from verkle_kzg_tpu_torch.verkle import VerkleTree
+
+    keys, values, absent_l = _verkle_inputs(leaves)
+    block_writes = _write_block(keys, absent_l, block)
+    writes = [w for kind in ("updates", "units", "splits", "roots") for w in block_writes[kind]]
+    contents = {k: {k[-1]: values[k]} for k in keys}  # stem -> its leaves, in insertion order
+    contents[absent_l] = {7: 77}
+    for stem, unit, v in writes:
+        contents.setdefault(stem, {})[unit] = v
+    stems = list(dict.fromkeys(stem for stem, _, _ in writes))
+    # 6 updated keys, 5 split stems' and 5 new root children's keys; the absent three
+    updated = list(dict.fromkeys(stem for stem, _, _ in block_writes["updates"]))
+    prove_keys = (updated[:: max(1, len(updated) // 6)][:6]
+                  + [w[0] for w in block_writes["splits"][:: max(1, block["splits"] // 5)][:5]]
+                  + [w[0] for w in block_writes["roots"][:: max(1, block["roots"] // 5)][:5]]
+                  + _verkle_absent(keys, absent_l))
+    claims = {k: contents.get(k, {}).get(k[-1]) for k in prove_keys}
+    out = {}
+    for tree in trees:
+        name = "ipa" if tree.scheme is IPA else "kzg"
+        old_root = tree.root.commit
+        assert old_root is not None, f"{name}: the tree was not committed"
+        t0 = time.perf_counter()
+        for stem, unit, v in writes:
+            tree._insert(tree.root, stem, [(unit, v)], 0)
+        writes_ms = (time.perf_counter() - t0) * 1e3
+        internal, exts, depths = _written_nodes(tree, stems)
+        # the root, the depth-1 nodes written under, one new node a split
+        assert sorted(depths) == [0, 1, 2] and (depths[0], depths[2]) == (1, block["splits"]), depths
+
+        ms, counts = {}, {}
+        before = metrics.counters()
+        _sync(dev)
+        cuda_lib.reset_launches()
+        root = _stage("recommit", tree.commitment, ms, counts)
+        after = metrics.counters()
+        dirty = {k: int(after.get(f"verkle.commit.{k}", 0) - before.get(f"verkle.commit.{k}", 0))
+                 for k in ("dirty_ext", "dirty_internal")}
+        proof = _stage("prove", lambda: tree.prove_keys(prove_keys), ms, counts)
+        ok = _stage("verify", lambda: tree.verify_keys(prove_keys, claims, proof), ms, counts)
+        # the same contents, inserted into a new tree and committed once
+        fresh = VerkleTree(tree.scheme, tree.params, key_len=32, ext_width=256)
+        for stem, leaves_of in contents.items():
+            fresh._insert(fresh.root, stem, list(leaves_of.items()), 0)
+        fresh_root = _stage("fresh_commit", fresh.commitment, ms, counts)
+        path_launches = dict(cuda_lib.launches)
+
+        assert root != old_root, f"{name}: the root did not change"
+        assert dirty == {"dirty_ext": len(exts), "dirty_internal": len(internal)}, \
+            (name, dirty, len(exts), len(internal))
+        assert fresh_root == root and _all_commits(fresh) == _all_commits(tree), f"{name}: re-commit != fresh tree"
+        assert min(counts["recommit"][k] for k in ("K5", "K6", "K7")) > 0, (name, counts["recommit"])
+        assert ok, f"{name}: the honest proof after the writes was rejected"
+        bad = dict(claims)
+        bad[prove_keys[0]] += 1
+        assert not tree.verify_keys(prove_keys, bad, proof), f"{name}: a wrong claim was accepted"
+        assert sorted(m[0] for m in proof.modes.values()) == ["E", "L", "O"] + ["P"] * 16, proof.modes
+        for stage in ms:
+            assert counts[stage]["K1AFF"] == ms[stage]["card_conversions"] > 0, (stage, counts[stage], ms[stage])
+        g = tree.params.g_host if name == "ipa" else tree.params.lagrange_host
+        _check_verkle_oracle(tree, root, g, exts=exts)
+        for node in random.Random(8).sample(internal[1:], min(8, len(internal) - 1)):
+            assert node.commit == oracle_msm(g, tree._internal_vector(node)), "re-committed node != native"
+        rec = {
+            "writes": {kind: len(ws) for kind, ws in block_writes.items()}, "stems_written": len(stems),
+            "writes_applied_ms": writes_ms, "ms": ms, "dirty": dirty, "written_internal_by_depth": depths,
+            "nodes": len(_all_commits(tree)),
+            "launches_per_stage": {stage: {k: v for k, v in c.items() if v} for stage, c in counts.items()},
+            "path_launches": {k: v for k, v in path_launches.items() if v}, "root": root,
+        }
+        print(f"phase 12 block of writes, {name}:", json.dumps(rec), f"[{card}]", flush=True)
+        out[name] = rec
+    return out
+
+
 def _multiproof_queries(crs, ipa_data, m: int) -> list:
     """Phase 6's ``m`` queries at seeded domain points of phase 3's vector."""
     from verkle_kzg_tpu_torch.schemes import ProverQuery
@@ -2518,43 +2842,79 @@ def _multiproof_queries(crs, ipa_data, m: int) -> list:
     return queries
 
 
-def phase_multiproof(dev, crs, ipa_data, m: int = 1024) -> dict:
-    """BASELINE.json config 3 (``benchmarks/bench_all.py:103-123``, its first
-    size): 1,024 queries at random domain points of the phase-3 vector."""
+#: Phase 6's query counts: config 3's first size and the three of the
+#: reference harness (``benchmarks/bench_all.py:111-113``, from
+#: ``benches/ipa.rs:19,111-159``).
+MULTIPROOF_SIZES = (1024, 4096, 16384, 32768)
+
+
+def phase_multiproof(dev, crs, ipa_data, sizes=MULTIPROOF_SIZES) -> dict:
+    """BASELINE.json config 3 (``benchmarks/bench_all.py:103-123``) at each
+    of ``sizes``: that many queries at random domain points of the phase-3
+    vector, proved and verified. At each size the launches start from 0
+    and are read after its verify; the grouped pass's plan (levels of power
+    tables, segments, chunks) and the transcript's host time for the
+    queries are recorded beside the times. The first size's record is the
+    phase's own (phase 10 is held to its D and digest); every size's is
+    under ``by_m``."""
+    from verkle_kzg_tpu_torch.fiatshamir.transcript import Transcript
     from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_multiproof as KM
     from verkle_kzg_tpu_torch.ops import cuda_scalar_mul as K5
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.schemes import IPA, prove_multiproof, verify_multiproof
+    from verkle_kzg_tpu_torch.schemes import multiproof as MP
 
-    queries = _multiproof_queries(crs, ipa_data, m)
-    vq = [q.to_verifier_query() for q in queries]
-    prove_multiproof(IPA, crs, queries)  # warm-up
+    by_m = {}
+    for m in sizes:
+        queries = _multiproof_queries(crs, ipa_data, m)
+        vq = [q.to_verifier_query() for q in queries]
+        prove_multiproof(IPA, crs, queries)  # warm-up
 
-    ms, counts, k5_lanes = {}, {}, {}
-    cuda_lib.reset_launches()
-    K5.reset_regimes()
-    proof = _stage("prove", lambda: prove_multiproof(IPA, crs, queries), ms, counts, k5_lanes)
-    ok = _stage("verify", lambda: verify_multiproof(IPA, crs, vq, proof), ms, counts, k5_lanes)
-    path_launches = dict(cuda_lib.launches)
-    regimes = dict(K5.regime_launches)
-    assert ok, "the honest multiproof was rejected"
-    bad = [q.to_verifier_query() for q in queries]
-    bad[m // 2].y = (bad[m // 2].y + 1) % R
-    assert not verify_multiproof(IPA, crs, bad, proof), "a wrong y was accepted"
-    assert min(path_launches[k] for k in ("K1IPA", "FSX", "K3", "K4", "K5")) > 0, path_launches
-    assert path_launches["K2"] == 0, path_launches  # E's one lane is no fold
-    assert counts["verify"]["K5"] == regimes["few"] == 1, (counts["verify"], regimes)  # E's one lane
-    # the passes: two K1MP and one K1QUO; K1 only for the D and E commits
-    c = counts["prove"]
-    assert (c["K1"], c["K1INV"], c["K1QUO"], c["K1MP"]) == (2, 0, 1, 2), c
-    assert tuple(path_launches[k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == (2, 0, 1, 2), path_launches
-    # the same multiproof through the plain versions of the passes
-    with plain_passes():
-        twin = prove_multiproof(IPA, crs, queries)
-    digest = multiproof_digest(proof)
-    assert twin.d == proof.d and multiproof_digest(twin) == digest, "the multiproof != its plain-pass twin"
-    return {"m": len(queries), "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
-            "k5_regime_launches": regimes, "k5_lanes": k5_lanes, "d": proof.d, "digest": digest}
+        ms, counts, k5_lanes = {}, {}, {}
+        _sync(dev)
+        cuda_lib.reset_launches()
+        K5.reset_regimes()
+        proof = _stage("prove", lambda: prove_multiproof(IPA, crs, queries), ms, counts, k5_lanes)
+        ok = _stage("verify", lambda: verify_multiproof(IPA, crs, vq, proof), ms, counts, k5_lanes)
+        path_launches = dict(cuda_lib.launches)
+        regimes = dict(K5.regime_launches)
+        assert ok, f"the honest multiproof of {m} queries was rejected"
+        bad = [q.to_verifier_query() for q in queries]
+        bad[m // 2].y = (bad[m // 2].y + 1) % R
+        assert not verify_multiproof(IPA, crs, bad, proof), f"a wrong y was accepted at {m} queries"
+        assert min(path_launches[k] for k in ("K1IPA", "FSX", "K3", "K4", "K5")) > 0, (m, path_launches)
+        assert path_launches["K2"] == 0, (m, path_launches)  # E's one lane is no fold
+        assert counts["verify"]["K5"] == regimes["few"] == 1, (m, counts["verify"], regimes)  # E's one lane
+        # the passes: two K1MP and one K1QUO; K1 only for the D and E commits
+        c = counts["prove"]
+        assert (c["K1"], c["K1INV"], c["K1QUO"], c["K1MP"]) == (2, 0, 1, 2), (m, c)
+        assert tuple(path_launches[k] for k in ("K1", "K1INV", "K1QUO", "K1MP")) == (2, 0, 1, 2), (m, path_launches)
+        digest = multiproof_digest(proof)
+        with plain_passes():  # the same multiproof through the plain versions of the passes
+            twin = prove_multiproof(IPA, crs, queries)
+        assert twin.d == proof.d and multiproof_digest(twin) == digest, f"{m} queries: != the plain-pass twin"
+
+        # the grouped pass's plan, and the transcript's O(M) host work alone
+        _, plan = KM.plan_segments([q.z for q in queries], [0] * m)
+        t0 = time.perf_counter()
+        MP._absorb_queries(Transcript("multiproof"), queries)
+        absorb_ms = (time.perf_counter() - t0) * 1e3
+        by_m[m] = {
+            "m": m, "ms": ms, "launches_per_stage": counts, "path_launches": path_launches,
+            "k5_regime_launches": regimes, "k5_lanes": k5_lanes, "d": proof.d, "digest": digest,
+            "grouped_plan": {"levels": KM.power_levels(plan), "segments": int(plan.seg_len.size),
+                             "chunks": int(plan.chunk_seg.size), "longest_segment": int(plan.seg_len.max()),
+                             "multi_chunk_segments": int((plan.seg_count > 1).sum())},
+            "absorb_queries_wall_ms": absorb_ms,
+        }
+        summary = {"prove_events_ms": ms["prove"]["events_ms"], "prove_wall_ms": ms["prove"]["wall_ms"],
+                   "verify_events_ms": ms["verify"]["events_ms"], "verify_wall_ms": ms["verify"]["wall_ms"],
+                   "absorb_queries_wall_ms": absorb_ms, **by_m[m]["grouped_plan"]}
+        print(f"phase 6 multiproof: {m} queries", json.dumps(summary), flush=True)
+    first = by_m[sizes[0]]
+    return {**first, "by_m": {str(m): {k: v for k, v in r.items() if k not in ("d", "k5_lanes")}
+                              for m, r in by_m.items()}}
 
 
 def phase_kzg(dev, card: str, n: int = 256, fk_len: int = 200, small: int = 16, m: int = 1024) -> dict:
@@ -2839,7 +3199,7 @@ def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n,
                                  lambda: prove_multiproof(IPA, crs, queries))
 
     # the mesh paths once each, with fresh launch counts
-    tree = _verkle_build(crs, keys, values, absent_l, mesh=mesh)
+    tree = _verkle_build(IPA, crs, 32, keys, values, absent_l, mesh=mesh)
     ms, counts, out = {}, {}, {}
     _sync(dev)
     cuda_lib.reset_launches()
@@ -2909,7 +3269,7 @@ def _mesh_paths(dev, card, crs, ipa_data, ref, n, lanes, width, ntt_sizes, fk_n,
         times[name] = {"mesh_ms": [a, d2], "twin_ms": [b, c2]}
     trees = []
     for shard in (False, True, False):
-        t = _verkle_build(crs, keys, values, absent_l, mesh=mesh if shard else None)
+        t = _verkle_build(IPA, crs, 32, keys, values, absent_l, mesh=mesh if shard else None)
         _sync(dev)
         t0 = time.perf_counter()
         assert t.commitment() == ref["root"]
@@ -2995,7 +3355,8 @@ def main() -> int:
     print(f"phase 4 msm 2^20 ({time.perf_counter() - t0:.1f} s):", json.dumps(msm), f"[{card}]", flush=True)
 
     t0 = time.perf_counter()
-    verkle = phase_verkle(dev, crs)
+    committed = []  # phase 5's tree, then phase 11's key_len-32 tree: phase 12 writes into them
+    verkle = phase_verkle(dev, crs, keep=committed)
     print(f"phase 5 verkle, 10k leaves, Ethereum geometry ({time.perf_counter() - t0:.1f} s):", json.dumps(verkle),
           f"[{card}]", flush=True)
     print("phase 5 K1, K1INV, K1IPA, K1QUO, K1MP, K1AFF, K1NTT and FSX launches per stage:",
@@ -3005,8 +3366,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     mp = phase_multiproof(dev, crs, ipa_data)
-    print(f"phase 6 multiproof, 1024 queries at 256 ({time.perf_counter() - t0:.1f} s):", json.dumps(mp),
-          f"[{card}]", flush=True)
+    print(f"phase 6 multiproof, {', '.join(mp['by_m'])} queries at 256 ({time.perf_counter() - t0:.1f} s):",
+          json.dumps(mp), f"[{card}]", flush=True)
     print("phase 6 K1, K1INV, K1IPA, K1QUO, K1MP, K1AFF, K1NTT and FSX launches per stage:",
           json.dumps(k1_counts(mp)), flush=True)
     print("phase 6 K5 lanes of each call per stage:", json.dumps(mp["k5_lanes"]), flush=True)
@@ -3037,6 +3398,17 @@ def main() -> int:
     print(f"phase 10 mesh, world size 1 over NCCL ({time.perf_counter() - t0:.1f} s): launches",
           json.dumps(mesh["path_launches"]), f"communicator set-up {mesh['comm_init_ms']:.1f} ms", f"[{card}]",
           flush=True)
+
+    t0 = time.perf_counter()
+    kzg_tree = phase_verkle_kzg(dev, card, keep=committed)
+    print(f"phase 11 verkle over KZG, 10k leaves, key_len 3 and 32 ({time.perf_counter() - t0:.1f} s): launches",
+          json.dumps({k: r["path_launches"] for k, r in kzg_tree.items() if k.startswith("key_len")}), f"[{card}]",
+          flush=True)
+
+    t0 = time.perf_counter()
+    writes = phase_writes(dev, card, committed)
+    print(f"phase 12 the re-commit's branches, IPA and KZG ({time.perf_counter() - t0:.1f} s): dirty",
+          json.dumps({k: r["dirty"] for k, r in writes.items()}), f"[{card}]", flush=True)
 
     sources = {"K1": "field.cu", "K1INV": "field_inv.cu", "K1IPA": "ipa_round.cu", "K1QUO": "quotient.cu",
                "K1MP": "multiproof.cu", "K1AFF": "affine.cu", "K1NTT": "ntt_fr.cu", "K2": "curve.cu",

@@ -60,6 +60,7 @@ from . import field as F
 CHUNK = 32  # positions of a K1MP chunk at most (``csrc/multiproof.cu``)
 DIGIT = 5  # exponent bits of a power-table level
 QUO_ROWS = 4  # rows a K1QUO block sums in the summed mode
+PLAIN_ELEMENTS = 1 << 21  # elements a product of the plain version takes at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,22 +128,33 @@ def plain_powers(r: torch.Tensor, m: int) -> torch.Tensor:
 def plain_segment_sum(rows, weights, plan: SegmentPlan, mode: int, g=None):
     """K1MP's plain version on K1's plain version, on any device: each
     position's weight (mode 0: r^e from :func:`plain_powers`; mode 1:
-    ``weights[e]``) times its row, then a segmented Hillis-Steele scan of
-    adds over the positions (a position takes the partial sum k back only
-    within its own segment, while k is below the longest segment) whose
-    last position in each segment holds the segment's sum."""
+    ``weights[e]``) times its row (in pieces of at most
+    :data:`PLAIN_ELEMENTS` elements), then the positions of each segment
+    summed pairwise, a round halving every segment (an odd one's last
+    position passes), until one position a segment is left. Every sum is
+    reduced, so the words equal the kernel's whatever the order."""
     dev = rows.device
     e = torch.from_numpy(plan.pos_e).to(dev)
     w = plain_powers(weights, int(plan.pos_e.max()) + 1)[e] if mode == 0 else weights[e]
-    x = _k1("mul", rows[torch.from_numpy(plan.pos_row).to(dev)], w[:, None])
-    seg = torch.from_numpy(np.repeat(np.arange(plan.seg_len.size), plan.seg_len)).to(dev)
-    k = 1
-    while k < int(plan.seg_len.max()):
-        same = (seg[k:] == seg[:-k])[:, None, None]
-        x = torch.cat([x[:k], torch.where(same, _k1("add", x[k:], x[:-k]), x[k:])])
-        k *= 2
-    out = x[torch.from_numpy(plan.seg_start + plan.seg_len - 1).to(dev)]
-    return out if g is None else (out, _k1("sub", out[0], g))
+    pos_row = torch.from_numpy(plan.pos_row).to(dev)
+    step = max(1, PLAIN_ELEMENTS // rows.shape[1])  # positions a product call: its limb products stay a few GB
+    x = torch.cat([_k1("mul", rows[pos_row[s : s + step]], w[s : s + step, None])
+                   for s in range(0, pos_row.numel(), step)])
+    lens = plan.seg_len.astype(np.int64)
+    while lens.max() > 1:
+        starts, half = np.r_[0, np.cumsum(lens)[:-1]], lens // 2
+        new_lens = lens - half
+        new_starts = np.r_[0, np.cumsum(new_lens)[:-1]]
+        seg = np.repeat(np.arange(lens.size), half)  # each pair's segment and its index there
+        i = np.arange(seg.size) - np.repeat(np.cumsum(half) - half, half)
+        left = torch.from_numpy(starts[seg] + 2 * i).to(dev)
+        odd = np.flatnonzero(lens % 2)  # their last position passes
+        last = torch.from_numpy(starts[odd] + lens[odd] - 1).to(dev)
+        y = torch.empty((int(new_lens.sum()),) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
+        y[torch.from_numpy(new_starts[seg] + i).to(dev)] = _k1("add", x[left], x[left + 1])
+        y[torch.from_numpy(new_starts[odd] + half[odd]).to(dev)] = x[last]
+        x, lens = y, new_lens
+    return x if g is None else (x, _k1("sub", x[0], g))
 
 
 def segment_sum(rows: torch.Tensor, weights: torch.Tensor, plan: SegmentPlan, mode: int, g=None):
@@ -176,7 +188,7 @@ def segment_sum(rows: torch.Tensor, weights: torch.Tensor, plan: SegmentPlan, mo
     counters = torch.empty(segments * (n // tc), dtype=torch.int32, device=dev) if multi else None
     out = torch.empty((segments, n, F.WORDS), dtype=torch.int32, device=dev)
     out_minus = None if g is None else torch.empty((n, F.WORDS), dtype=torch.int32, device=dev)
-    levels = max(1, -(-int(plan.pos_e.max()).bit_length() // DIGIT)) if mode == 0 else 1
+    levels = power_levels(plan) if mode == 0 else 1
     err = cuda_lib.lib().vkzg_mp_segment_sum(
         rows.data_ptr(), weights.data_ptr(), plan_t.data_ptr(), _ptr(partials), _ptr(counters), out.data_ptr(),
         _ptr(out_minus), _ptr(g), positions, chunks, segments, n, levels, mode, cuda_lib.stream(rows),
@@ -184,6 +196,13 @@ def segment_sum(rows: torch.Tensor, weights: torch.Tensor, plan: SegmentPlan, mo
     cuda_lib.check(err, "vkzg_mp_segment_sum")
     cuda_lib.launches["K1MP"] += 1
     return out if g is None else (out, out_minus)
+
+
+def power_levels(plan: SegmentPlan) -> int:
+    """The power tables' levels that the grouped pass (mode 0) builds for
+    ``plan``: base-32 digits of the largest exponent, at least one (2 up to
+    1,024 queries, 3 up to 32,768, 4 up to 2^20)."""
+    return max(1, -(-int(plan.pos_e.max()).bit_length() // DIGIT))
 
 
 def _ptr(t):

@@ -14,7 +14,9 @@ on PyTorch tensors.
   quotients are ``poly/lagrange.py``'s K1 passes.
 * Verify's two pairings run as one 2-pairing product on the host
   (``hostmath/pairing.py``, native first), as the reference leans on
-  arkworks there (``kzg/mod.rs:182-186``).
+  arkworks there (``kzg/mod.rs:182-186``). Each verify adds its wall
+  seconds to the ``kzg.verify_point`` counters and the pairing product's
+  alone to ``kzg.pairing`` (``utils/metrics.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..ops import curve as C
 from ..ops import msm as M
 from ..params import R
 from ..poly import Domain, FrVector
+from ..utils import metrics
 from .generators import DEFAULT_KZG_SECRET, generator_multiples, kzg_g2
 
 
@@ -134,11 +137,13 @@ class KZG:
         checked as one 2-pairing product with the right side negated (one
         shared final exponentiation). In-domain points (< max_size) map to
         w^point."""
-        p = params.domain.element(point) if point < params.size else point
-        h = g2_generator()
-        lhs_g2 = g2_add(params.g2, g2_neg(g2_mul(h, p)))
-        rhs_g1 = g1_add(commitment, g1_neg(g1_mul(g1_generator(), proof.y)))
-        return multi_pairing([(proof.proof, lhs_g2), (g1_neg(rhs_g1), h)]) == Fq12.one()
+        with metrics.timed_region("kzg.verify_point"):
+            p = params.domain.element(point) if point < params.size else point
+            h = g2_generator()
+            lhs_g2 = g2_add(params.g2, g2_neg(g2_mul(h, p)))
+            rhs_g1 = g1_add(commitment, g1_neg(g1_mul(g1_generator(), proof.y)))
+            with metrics.timed_region("kzg.pairing"):
+                return multi_pairing([(proof.proof, lhs_g2), (g1_neg(rhs_g1), h)]) == Fq12.one()
 
     @staticmethod
     def prove_batch(params, commitment, indexes, data):

@@ -105,7 +105,7 @@ def events_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps: int = REPS, per_call: int | None = 1) -> tuple:
+def kernel_ms(fn, reps: int = REPS, per_call: int | None = 1, name: str | None = None) -> tuple:
     """(ms of kernel time a call, the CUDA kernel records seen) from
     torch.profiler over ``reps`` calls after one warm-up: the union of the
     recorded kernel intervals over the calls they cover. The profiler can
@@ -113,7 +113,9 @@ def kernel_ms(fn, reps: int = REPS, per_call: int | None = 1) -> tuple:
     so with ``per_call`` kernels a call the union is divided by the calls
     recorded, ``records / per_call``; with ``per_call`` None (a call of
     several kernels, some of them torch's) by ``reps``, and a short count
-    shows a reading too low."""
+    shows a reading too low. With ``name``, only the records whose kernel
+    name holds it are kept (a wrapper's own kernel among torch's copies
+    and fills)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -123,7 +125,7 @@ def kernel_ms(fn, reps: int = REPS, per_call: int | None = 1) -> tuple:
             fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in e.name))
     busy, lo, hi = 0.0, None, None
     for a, b in spans:
         if hi is None or a > hi:

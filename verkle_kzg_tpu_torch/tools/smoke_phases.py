@@ -4,8 +4,11 @@ MSM with its stages, the config-5 MSM sweep and the lane-stream grid); a
 third argument lists others, e.g. ``3,5,6`` (the IPA at 256, the verkle
 tree, the multiproof; 6 runs 3 first for its data) or ``10`` (the mesh
 paths, which run 3, 5, 6 and 8 first, unprinted where not listed, for
-their data and the results they are held to), or ``c``: one verkle
-commit of phase 5's tree under cProfile, after an unprofiled one, with its
+their data and the results they are held to), ``11`` (config 4 over
+KZG at key_len 3 and 32), ``12`` (the re-commit's branches: writes into phase 5's tree
+and phase 11's, which run first, unprinted where not listed), or
+``c``: one verkle commit of phase 5's tree under cProfile, after an
+unprofiled one, with its
 top entries by cumulative time (:func:`cprofile_top`). With ``g`` among
 them it also prints, for each staged step of the phases run (the
 checkout's ``_stage``), the collections of Python's cyclic garbage
@@ -99,7 +102,7 @@ def main() -> int:
 
     import chip_smoke as S
     from verkle_kzg_tpu_torch.ops import cuda_lib
-    from verkle_kzg_tpu_torch.schemes import ipa_setup
+    from verkle_kzg_tpu_torch.schemes import IPA, ipa_setup
 
     if not torch.cuda.is_available():
         print("smoke_phases: no CUDA device", file=sys.stderr)
@@ -127,7 +130,9 @@ def main() -> int:
     run("2", lambda: S.phase_kernels(dev, crs))
     ipa = run("3", lambda: S.phase_ipa(dev, crs), lambda out: json.dumps(out[0]))
     run("4", lambda: S.phase_msm(dev))
-    verkle = run("5", lambda: S.phase_verkle(dev, crs))
+    committed = []  # phase 5's tree and phase 11's key_len-32 one, for phase 12
+    keep = {"keep": committed} if "12" in phases else {}
+    verkle = run("5", lambda: S.phase_verkle(dev, crs, **keep))
     mp = None
     if phases & {"6", "10"}:
         ipa_data = (ipa or S.phase_ipa(dev, crs))[1]
@@ -138,8 +143,8 @@ def main() -> int:
 
     def commit_profile():
         inputs = S._verkle_inputs(10_000)
-        S._verkle_build(crs, *inputs).commitment()
-        tree = S._verkle_build(crs, *inputs)
+        S._verkle_build(IPA, crs, 32, *inputs).commitment()
+        tree = S._verkle_build(IPA, crs, 32, *inputs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, rows = cprofile_top(tree.commitment)
@@ -151,6 +156,14 @@ def main() -> int:
         ref = {"root": (verkle or S.phase_verkle(dev, crs))["root"], "d": mp["d"],
                "mp_sha256": mp.get("digest"), "fk_sha256": (kzg or S.phase_kzg(dev, card))["fk_sha256"]}
         run("10", lambda: S.phase_mesh(dev, card, crs, ipa_data, ref), launches)
+    if "12" in phases and verkle is None:
+        S.phase_verkle(dev, crs, keep=committed)
+    kzg_trees = run("11", lambda: S.phase_verkle_kzg(dev, card, **keep), lambda out: json.dumps(
+        {k: r["ms"] for k, r in out.items() if k.startswith("key_len")}))
+    if "12" in phases and kzg_trees is None:
+        S.phase_verkle_kzg(dev, card, keep=committed)
+    run("12", lambda: S.phase_writes(dev, card, committed), lambda out: json.dumps(
+        {k: {"dirty": r["dirty"], "ms": r["ms"]} for k, r in out.items()}))
     if gc_report is not None:
         print(tag, "gc by stage:", json.dumps(gc_report()), f"[{card}]", flush=True)
     return 0
