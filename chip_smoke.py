@@ -45,7 +45,10 @@ and no JAX. Phases, each of which raises on failure:
      51 lanes), and at the regime switch +- 1 both regimes timed, each
      few-lane record with its dependent chain in point operations;
      G1SMUL and G1BFLY also against the K11 + K2 + select chain they
-     replace, timed in the same run, at block sizes of 32, 64 and 128;
+     replace and the one-thread design before their groups (built from
+     tools/point_probe.cu), both timed in the same run, and in every group
+     size, with the path's group's registers and spills, the kernel alone
+     and the dependent chain in point operations;
      each K4 and K7 tail with its CUDA launches and dependent chain, and
      where its window sums take launches of their own, the sums and Horner
      timed apart; each call of the bucket-sorted accumulation (K3 at 257
@@ -290,7 +293,8 @@ def phase_kernels(dev, crs, probe=None) -> dict:
     qa = C.host_points_to_affine(qs, dev)
     got = cuda_curve.mixed_add(pz, qa)
     assert C.projective_to_host_points(got[:6]) == [hc.g1_add(a_, b_) for a_, b_ in zip(sums, qs[:6])]
-    rec.update(_kernels_group_law(dev, p, q, pz, qa, probe or PR.Probe(PR.probe_build())))
+    probe = probe or PR.Probe(PR.probe_build())
+    rec.update(_kernels_group_law(dev, p, q, pz, qa, probe))
 
     # K3 + K4: the 257-point IPA basis shape and 2^12 points, with zero
     # scalars, r - 1 and a (0, 0) point.
@@ -325,7 +329,7 @@ def phase_kernels(dev, crs, probe=None) -> dict:
     rec.update(_kernels_k5_k7(dev, crs, rng))
     rec.update(_kernels_windows(dev, base, rng))
     rec.update(_kernels_k13(dev, base, rng))
-    rec.update(_kernels_g1_chain(dev, pz, rng))
+    rec.update(_kernels_g1_chain(dev, pz, rng, probe))
     rec.update(_kernels_k1ipa(dev, random.Random(12)))  # own seeds: the draws above stay as they were
     rec.update(_kernels_k2fold(dev, pz, random.Random(13)))
     rec.update(_kernels_fsx(dev, random.Random(14)))
@@ -1765,18 +1769,24 @@ def ptxas_of(kernel: str) -> dict:
     return {}
 
 
-G1_BLOCKS = (32, 64, 128)
-
-
-def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0), (512, 8))) -> dict:
+def _kernels_g1_chain(dev, pz, rng, probe, sizes=(256, 512), stages=((256, 7), (512, 0), (512, 8))) -> dict:
     """G1SMUL at 256 and 512 lanes (intt_g1's 1/N at 256; FK's pointwise
     product and 1/N at 512) and G1BFLY at stage 7 of the size-256 forward
     transform and at stages 0 and 8 of the size-512 one (FK's NTTs), on the
     K2 sums ``pz`` (Z != 1, the identity at slot 3), exact against their
-    plain versions and against the K11 + K2 + select chain they replace.
-    Scalars: 0, 1, r - 1 and one with 200 leading zero bits among random
-    ones; the butterflies take the plan's twiddles. Times at each block
-    size; the chain's time in the same run."""
+    plain versions, the K11 + K2 + select chain they replace, the
+    one-thread design before the groups (``probe``'s ``g1``) and every group
+    size the C entry points take. Scalars: 0, 1, r - 1 and one with 200
+    leading zero bits among random ones; the butterflies take the plan's
+    twiddles. Each record: the path's group G, its registers and spills,
+    ms by events, the kernel alone (profiler, over the records of that
+    kernel kept), the one-thread design's times in the same run, the chain's,
+    the bound, and the dependent chain in point operations (from the warp's
+    top bit a doubling a round, an add a round where a lane of the warp has
+    the bit; two more adds a butterfly) with the us an operation, and the
+    regime the lane count picks."""
+    import torch
+
     from verkle_kzg_tpu_torch.hostmath import curve as hc
     from verkle_kzg_tpu_torch.params import R
     from verkle_kzg_tpu_torch.ops import cuda_g1_chain as G
@@ -1784,17 +1794,20 @@ def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0)
     from verkle_kzg_tpu_torch.ops import curve as C
     from verkle_kzg_tpu_torch.ops import field as F
     from verkle_kzg_tpu_torch.ops import ntt as N
+    from verkle_kzg_tpu_torch.tools import point_regimes as PR
 
-    regs = {"G1SMUL": ptxas_of("g1_scalar_mul_kernel"), "G1BFLY": ptxas_of("g1_butterfly_kernel")}
+    regs = PR.g1_ptxas((cuda_lib.BUILD / "ptxas.log").read_text())
     cases = []
     for n in sizes:
         ks = [rng.randrange(R) for _ in range(n)]
         ks[:4] = [0, 1, R - 1, rng.getrandbits(56) | 1 << 55]
         p, k = pz[:n].contiguous(), F.ints_to_words(ks, dev)
-        cases.append((f"G1SMUL@{n}", f"{n} lanes, scalars 0, 1, r - 1, 2^55 + ... among random ones",
-                      lambda b=None, p=p, k=k: G.scalar_mul(p, k, b), lambda p=p, k=k: G.plain_scalar_mul(p, k),
-                      lambda p=p, k=k: _chain_scalar_mul(p, k),
-                      4 * (p.numel() + k.numel() + p.numel()), _smul_fmuls(ks)))
+        run = (lambda g=None, p=p, k=k: G.scalar_mul(p, k) if g is None
+               else G._launch_scalar_mul(p, k, g))
+        cases.append((f"G1SMUL@{n}", f"{n} lanes, scalars 0, 1, r - 1, 2^55 + ... among random ones", run,
+                      lambda p=p, k=k: G.plain_scalar_mul(p, k), lambda p=p, k=k: _chain_scalar_mul(p, k),
+                      lambda p=p, k=k: probe.g1(p, k),
+                      4 * (p.numel() + k.numel() + p.numel()), _smul_fmuls(ks), ks, 0))
         if n == sizes[0]:
             host = C.projective_to_host_points(p[:8])
             want8 = [None if a is None else hc.g1_mul(a, s) for a, s in zip(host, ks[:8])]
@@ -1803,14 +1816,16 @@ def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0)
         x = pz[:n].contiguous()
         tw_ints = N._Plan(n, False).stages[stage][2][: 1 << stage]
         tw = F.ints_to_words(tw_ints, dev)
-        pairs = [tw_ints[j] for j in range(1 << stage) for _ in range(n >> (stage + 1))]
-        cases.append((f"G1BFLY@{n}-s{stage}", f"stage {stage} of the size-{n} forward G1 NTT",
-                      lambda b=None, x=x, tw=tw, s=stage: G.butterfly(x, tw, s, b),
+        pairs = [tw_ints[j] for j in range(1 << stage) for _ in range(n >> (stage + 1))]  # j-major, as launched
+        run = (lambda g=None, x=x, tw=tw, s=stage: G.butterfly(x, tw, s) if g is None
+               else G._launch_butterfly(x, tw, s, g))
+        cases.append((f"G1BFLY@{n}-s{stage}", f"stage {stage} of the size-{n} forward G1 NTT", run,
                       lambda x=x, tw=tw, s=stage: G.plain_butterfly(x, tw, s),
                       lambda x=x, tw=tw, s=stage: _chain_butterfly(x, tw, s),
-                      4 * (2 * x.numel() + tw.numel()), _smul_fmuls(pairs) + n * ADD_FMULS))
+                      lambda x=x, tw=tw, s=stage: probe.g1(x, tw, s),
+                      4 * (2 * x.numel() + tw.numel()), _smul_fmuls(pairs) + n * ADD_FMULS, pairs, 2))
     rec = {}
-    for name, shape, run, plain, chain, nbytes, fmuls in cases:
+    for name, shape, run, plain, chain, thread, nbytes, fmuls, lane_ks, extra in cases:
         before = dict(cuda_lib.launches)
         out = run()
         launched = {k: cuda_lib.launches[k] - before[k] for k in ("G1SMUL", "G1BFLY", "K2", "K11")}
@@ -1818,20 +1833,34 @@ def _kernels_g1_chain(dev, pz, rng, sizes=(256, 512), stages=((256, 7), (512, 0)
         assert launched == {k: int(k == kind) for k in launched}, (name, launched)  # one launch, no K2 or K11
         plain_out, plain_ms = timed_once(plain)
         chain_out, _ = timed_once(chain)
-        errs = {"plain": max_abs_err(out, plain_out), "chain": max_abs_err(out, chain_out)}
-        for b in G1_BLOCKS:
-            errs[f"block {b}"] = max_abs_err(run(b), out)
+        errs = {"plain": max_abs_err(out, plain_out), "chain": max_abs_err(out, chain_out),
+                "one-thread design": max_abs_err(thread(), out),
+                **{f"G={g}": max_abs_err(run(g), out) for g in G.GROUPS}}
         assert max(errs.values()) == 0, (name, errs)
-        by_block = {b: cuda_ms(lambda b=b: run(b), 10) for b in G1_BLOCKS}
+        tag = "g1_scalar_mul_" if kind == "G1SMUL" else "g1_butterfly_"
+        kern_ms, records = PR.kernel_ms(run, name=tag + "kernel")
+        thread_kern_ms, thread_records = PR.kernel_ms(thread, name=tag + "thread")
+        mode = G.regime(len(lane_ks))
+        group = G.GROUP[mode]
+        ops, thread_ops = PR.dependent_chain(lane_ks, group) + extra, PR.dependent_chain(lane_ks, 1) + extra
         rec[name] = {
             "max_abs_err": max(errs.values()),
-            "ms": by_block[G.BLOCK],
-            "ms_by_block": by_block,
-            "block": G.BLOCK,
+            "ms": cuda_ms(run, 10),
+            "kernel_ms": kern_ms,
+            "kernel_records": records,
+            "regime": mode,
+            "group": group,
+            "ptxas": regs[f"{kind}, G={group}"],
+            "dependent_chain": ops,
+            "us_per_op": None if kern_ms is None or not ops else kern_ms * 1e3 / ops,
+            "thread_ms": cuda_ms(thread, 10),
+            "thread_kernel_ms": thread_kern_ms,
+            "thread_kernel_records": thread_records,
+            "thread_ptxas": probe.ptxas.get(f"{kind}, thread"),
+            "thread_dependent_chain": thread_ops,
             "chain_ms": cuda_ms(chain, 3),
             "plain_ms": plain_ms,
             "library_ms": None,
-            "ptxas": regs[name.split("@")[0]],
             "shape": shape,
             **bound(nbytes, fmuls),
         }

@@ -407,27 +407,30 @@ def _chain_points(n, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lanes", [1, 33, 256, 512])
+@pytest.mark.parametrize("lanes", [1, 33, 256, 512, 1024, 1025])
 def test_g1_scalar_mul_kernel_matches_plain_and_chain(cuda, lanes):
-    """G1SMUL at every block size against its plain version and against the
-    K11 + K2 + select chain, one launch."""
+    """G1SMUL through its wrapper (one launch, in the regime the lane count
+    picks: up to the switch at 1,024 lanes and above it) against its plain
+    version and against the K11 + K2 + select chain, and in every group
+    size the C entry point takes."""
     p, k = _chain_points(lanes, 140 + lanes)
     cuda_lib.reset_launches()
     got = G.scalar_mul(p, k)
     assert cuda_lib.launches["G1SMUL"] == 1
     assert torch.equal(got, G.plain_scalar_mul(p, k))
     assert torch.equal(got, _chain_scalar_mul(p, k))
-    for block in (32, 64, 128):
-        assert torch.equal(G.scalar_mul(p, k, block), got)
+    for group in G.GROUPS:
+        assert torch.equal(G._launch_scalar_mul(p, k, group), got), group
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,stage", [(2, 0), (64, 0), (64, 2), (64, 5), (512, 3), (512, 8)])
+@pytest.mark.parametrize("n,stage", [(2, 0), (64, 0), (64, 2), (64, 5), (512, 3), (512, 8), (2048, 10), (4096, 11)])
 def test_g1_butterfly_kernel_matches_plain_and_chain(cuda, n, stage):
     """G1BFLY against its plain version and against the butterfly the chain
-    ran (K11 + K2 + select, then K2, a K1 negation and K2): stage 0 (every
-    twiddle 1), stages whose warps share a twiddle and mixed ones, with the
-    plan's twiddles and with edge twiddles."""
+    ran (K11 + K2 + select, then K2, a K1 negation and K2), and in every
+    group size: stage 0 (every twiddle 1), stages whose warps share a
+    twiddle and mixed ones, 1,024 and 2,048 butterflies either side of the
+    regime switch, with the plan's twiddles and with edge twiddles."""
     x, k = _chain_points(n, 150 + n + stage)
     half = 1 << stage
     plan_tw = F.ints_to_words(N._Plan(n, False).stages[stage][2][:half], "cuda")
@@ -440,8 +443,19 @@ def test_g1_butterfly_kernel_matches_plain_and_chain(cuda, n, stage):
         v = _chain_scalar_mul(x[u_idx + half], tw[j])
         assert torch.equal(got[u_idx], cuda_curve.add(x[u_idx], v))
         assert torch.equal(got[u_idx + half], cuda_curve.add(x[u_idx], C.neg(v)))
-        for block in (32, 128):
-            assert torch.equal(G.butterfly(x, tw, stage, block), got)
+        for group in G.GROUPS:
+            assert torch.equal(G._launch_butterfly(x, tw, stage, group), got), group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [1, 8, 16])
+def test_g1_chain_refuses_other_groups(cuda, group):
+    """G1SMUL's and G1BFLY's entry points take only the regimes' group sizes."""
+    p, k = _chain_points(4, 160)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        G._launch_scalar_mul(p, k, group)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        G._launch_butterfly(p, k[:2].contiguous(), 1, group)
 
 
 def _regime_pairs(n, seed):

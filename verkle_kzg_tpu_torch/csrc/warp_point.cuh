@@ -9,8 +9,9 @@
 //
 // Shared by the MSM tail's Horner (msm_tail.cuh: one warp a lane, the warp
 // the group, lazy), K5 (scalar_mul.cu: one warp a lane below the regime
-// switch, groups of 4 threads above it, lazy) and K2 / K11 (curve.cu: a
-// group of 4, 8 or 32 threads a point, reduced). A group has at least 4
+// switch, groups of 4 threads above it, lazy), K2 / K11 (curve.cu: a
+// group of 4, 8 or 32 threads a point, reduced) and G1SMUL / G1BFLY
+// (g1_chain.cu: a group of threads a lane, lazy). A group has at least 4
 // threads; warp_add runs a level's six products in two passes on 4 of
 // them. Groups sharing a warp run the same steps together, so every thread
 // of the warp calls each operation.
@@ -191,9 +192,11 @@ __device__ __forceinline__ void warp_double(WarpScratch& s, int t) {
 
 // acc = acc + q (RCB16 algorithm 7) in the lazy or the reduced domain: each
 // level's six products on the group's G threads, one pass when G >= 6 (the
-// products on threads 0-5), two when G = 4.
+// products on threads 0-5), two when G = 4. keep = false leaves acc as it
+// was (warp_mixed_add's flag): a group that does not take this add rides
+// along with the others of its warp.
 template <bool LAZY, int G>
-__device__ __forceinline__ void warp_add(WarpScratch& s, int t) {
+__device__ __forceinline__ void warp_add(WarpScratch& s, int t, bool keep = true) {
   static_assert(G >= 4, "a group has at least 4 threads");
   // X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2)
   for (int p = t; p < 6; p += G) {
@@ -250,7 +253,7 @@ __device__ __forceinline__ void warp_add(WarpScratch& s, int t) {
     }
   }
   __syncwarp();
-  if (t < 3) {  // X = t3 t1 - t4 Y3, Y = t1 Z3 + Y3 t0, Z = Z3 t4 + t0 t3
+  if (t < 3 && keep) {  // X = t3 t1 - t4 Y3, Y = t1 Z3 + Y3 t0, Z = Z3 t4 + t0 t3
     uint32_t a[8], b[8];
     load8(a, s.p2 + 8 * (2 * t + 1));
     load8(b, s.p2 + 8 * (2 * t));

@@ -5,10 +5,10 @@ Replaces ``verkle_kzg_tpu/ops/pallas_curve.py``: the launch ``_point_call``
 line 350, body ``k_point_double``) and ``mixed_add`` (K12, line 358, body
 ``k_point_mixed_add``), all with reduced words out. K2 runs ``curve.add``;
 no path of the port calls it since K2FOLD took its last callers. K11 runs
-``curve.double``. Their one-thread device
-functions are also every bit of ``curve.scalar_mul`` and of the G1 NTT's
-butterflies, which run as one launch a call (G1SMUL, G1BFLY in
-``cuda_g1_chain.py``), no longer as a K11 and a K2 launch a bit. K12 has no
+``curve.double``. ``curve.scalar_mul`` and the G1
+NTT's butterflies run as one launch a call (G1SMUL, G1BFLY in
+``cuda_g1_chain.py``, on the lazy warp point operations), no longer as a
+K11 and a K2 launch a bit. K12 has no
 caller on any path of either package; it makes ``curve.mixed_add`` run on
 the card.
 The lazy group law that K3-K10 inline lives beside them in
@@ -28,8 +28,8 @@ a doubling of 8. All three run in two regimes (:data:`SWITCH`,
   the mixed add, 4 + 4 for the doubling, so a point's dependent chain is 2
   products and the sums between them;
 - many points: one point a thread (``point_add<false>`` /
-  ``point_double<false>``, the bodies G1SMUL and G1BFLY run;
-  ``point_mixed_add<true>``, the sorted sums' body). Once the card is
+  ``point_double<false>``; ``point_mixed_add<true>``, the sorted sums'
+  body). Once the card is
   full the products' throughput sets the time, and a group's idle threads
   and repeated sums cost more than the chain they hide: groups of 4 with
   two passes a level were slower at 32,768 points and at 2^20. At 2^20

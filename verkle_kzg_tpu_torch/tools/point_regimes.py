@@ -41,7 +41,20 @@ through the same wrappers on either library in turns (parent, change,
 change, parent): K5 at 1, 51 and 1,024 lanes and at the verkle commit's
 40,000, the K4 and K7 tails at c = 8 and c = 5, and K12 at 1 and 32,768
 points (the parent's entry point through its own signature); the words of
-the two libraries must be equal. Needs a CUDA card.
+the two libraries must be equal.
+
+With ``--g1`` it times G1SMUL and G1BFLY instead, and nothing else: each
+group size of :data:`G1_GROUPS` (4 and 32 threads a lane from the
+library, ``cuda_g1_chain.GROUPS``; 8 from the probe's ``g1_group8_probe``,
+the same kernels) and the one-thread design before them (the probe's
+``g1_thread_probe``), at :data:`G1_LANES` lanes and the butterfly stages
+:data:`G1_STAGES`: the ms a call by CUDA events, the kernel alone (the
+profiler's records of that kernel), the dependent chain in point
+operations (:func:`dependent_chain`) and the us an operation, each output
+word for word equal to the plain version's. Then the registers, spills
+and shared memory of each instantiation and a summary: the fastest group
+over the path's range (up to 512 lanes) and at each count, and where the
+one-thread design is at least as fast. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -75,6 +88,17 @@ PROBE_VARIANTS = tuple((lazy, 1, minb) for lazy in (0, 1) for minb in (1, 4, 6, 
 #: The probe's code of each op.
 PROBE_OP = {"double": 0, "add": 1, "mixed": 2}
 _PROBE = cuda_lib._PKG / "tools" / "point_probe.cu"
+#: G1SMUL's lane counts: the path's (128-512: FK's pointwise product and
+#: the 1/N of ``intt_g1`` at 256 and 512) and four above it.
+G1_LANES = (128, 256, 512, 1024, 2048, 8192, 32768)
+#: G1BFLY's (n, stage): the path's (stage 7 of 256, stages 0 and 8 of
+#: 512) and the last stage at 1,024, 2,048, 8,192 and 32,768 butterflies,
+#: where every butterfly of a warp takes its own twiddle.
+G1_STAGES = ((256, 7), (512, 0), (512, 8), (2048, 10), (4096, 11), (16384, 13), (65536, 15))
+#: The lane counts of the path's G1 calls.
+G1_PATH_LANES = 512
+#: G1SMUL's and G1BFLY's group sizes timed: the library's two and the probe's 8.
+G1_GROUPS = (4, 8, 32)
 
 
 def card_line() -> str:
@@ -105,7 +129,7 @@ def events_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps: int = REPS, per_call: int | None = 1, name: str | None = None) -> tuple:
+def kernel_ms(fn, reps: int = REPS, per_call: int | None = 1, name: str | None = None, attempts: int = 3) -> tuple:
     """(ms of kernel time a call, the CUDA kernel records seen) from
     torch.profiler over ``reps`` calls after one warm-up: the union of the
     recorded kernel intervals over the calls they cover. The profiler can
@@ -115,17 +139,21 @@ def kernel_ms(fn, reps: int = REPS, per_call: int | None = 1, name: str | None =
     several kernels, some of them torch's) by ``reps``, and a short count
     shows a reading too low. With ``name``, only the records whose kernel
     name holds it are kept (a wrapper's own kernel among torch's copies
-    and fills)."""
+    and fills). A profile that kept no record is taken again, up to
+    ``attempts`` profiles in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in e.name))
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in e.name))
+        if spans:
+            break
     busy, lo, hi = 0.0, None, None
     for a, b in spans:
         if hi is None or a > hi:
@@ -285,10 +313,15 @@ def _probe_ptxas(log: str) -> dict:
             _, op, lazy, add, num = m.groups()
             key = (f"{ops[op]}, thread, {'lazy' if lazy == '1' else 'reduced'}, minb={num}" if op is not None
                    else f"{'add' if add == '1' else 'double'}, lazy group, G={num}")
-            spill = [int(v) for v in re.findall(r"(\d+) bytes", lines[i + 1])]
-            regs = re.search(r"Used (\d+) registers", lines[i + 2])
-            found[key] = {"registers": int(regs.group(1)) if regs else None,
-                          "spill_store_bytes": spill[1], "spill_load_bytes": spill[2]}
+        else:
+            m = re.search(r"Function properties for \S*probe_g1_(scalar_mul|butterfly)_thread_kernel", line)
+            if not m:
+                continue
+            key = f"G1{'SMUL' if m.group(1) == 'scalar_mul' else 'BFLY'}, thread"
+        spill = [int(v) for v in re.findall(r"(\d+) bytes", lines[i + 1])]
+        regs = re.search(r"Used (\d+) registers", lines[i + 2])
+        found[key] = {"registers": int(regs.group(1)) if regs else None,
+                      "spill_store_bytes": spill[1], "spill_load_bytes": spill[2]}
     return found
 
 
@@ -310,10 +343,15 @@ class Probe:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {_PROBE.name}:\n{log[-6000:]}")
-        self.ptxas = _probe_ptxas(log)
+        self.ptxas = {**_probe_ptxas(log), **g1_ptxas(log)}
         self._lib = ctypes.CDLL(str(cuda_lib.BUILD / "point_probe.so"))
         self._lib.point_probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
         self._lib.point_probe.restype = ctypes.c_int
+        self._lib.g1_thread_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                              ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        self._lib.g1_thread_probe.restype = ctypes.c_int
+        self._lib.g1_group8_probe.argtypes = self._lib.g1_thread_probe.argtypes
+        self._lib.g1_group8_probe.restype = ctypes.c_int
 
     def __call__(self, op: str, lazy: int, group: int, minb: int, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """One variant over (p, q) as :func:`run_group` takes them."""
@@ -321,6 +359,18 @@ class Probe:
         err = self._lib.point_probe(PROBE_OP[op], lazy, group, minb, p.data_ptr(), q.data_ptr(), out.data_ptr(),
                                     p.shape[0], cuda_lib.stream(p))
         cuda_lib.check(err, "point_probe")
+        return out
+
+    def g1(self, x: torch.Tensor, tw: torch.Tensor, stage: int | None = None, group: int = 1) -> torch.Tensor:
+        """G1SMUL (``stage`` None: x (n, 3, 8) points, tw (n, 8) scalars) or
+        G1BFLY (stage ``stage`` of x with the (2^stage, 8) twiddles tw) on
+        one thread a lane, the design before the path's groups (``group``
+        1), or on a group of 8 threads a lane (``group`` 8)."""
+        fn = {1: self._lib.g1_thread_probe, 8: self._lib.g1_group8_probe}[group]
+        out = torch.empty_like(x)
+        err = fn(0 if stage is None else 1, x.data_ptr(), tw.data_ptr(), out.data_ptr(), x.shape[0], stage or 0,
+                 cuda_lib.stream(x))
+        cuda_lib.check(err, fn.__name__)
         return out
 
 
@@ -479,12 +529,158 @@ def lazy_callers(root: pathlib.Path, card: str) -> None:
         print("lazy callers:", name, json.dumps(row), f"[{card}]", flush=True)
 
 
+def _g1_scalars(n: int, seed: int) -> list:
+    """n random scalars with 0, 1, r - 1 and a 56-bit one first."""
+    from ..params import R
+
+    rng = random.Random(seed)
+    ks = [rng.randrange(R) for _ in range(n)]
+    ks[:4] = [0, 1, R - 1, rng.getrandbits(56) | 1 << 55]
+    return ks
+
+
+def stage_twiddles(stage: int) -> list:
+    """The standard-form twiddles w^j, j < 2^stage, of a stage of the
+    forward G1 NTT (w of order 2^(stage + 1)), whatever n."""
+    from ..params import R, fr_root_of_unity
+
+    w, tw = fr_root_of_unity(1 << (stage + 1)), [1]
+    for _ in range((1 << stage) - 1):
+        tw.append(tw[-1] * w % R)
+    return tw
+
+
+def dependent_chain(scalars, group: int) -> int:
+    """Point operations in a row of the longest warp for these lane
+    scalars (ints, in launch order) at ``group`` threads a lane: from the
+    warp's highest set bit, a doubling each further round and an add each
+    round where any of its lanes has the bit set. What sets G1SMUL's time
+    at a few hundred lanes (G1BFLY's adds two more)."""
+    per, most = 32 // group, 0
+    for w in range(0, len(scalars), per):
+        bits = 0
+        for k in scalars[w : w + per]:
+            bits |= k
+        if bits:
+            most = max(most, bits.bit_length() - 1 + bin(bits).count("1"))
+    return most
+
+
+def g1_ptxas(log: str) -> dict:
+    """{G1SMUL / G1BFLY, G: registers, spill bytes and static shared
+    bytes} of the group instantiations in a ``-Xptxas -v`` log."""
+    lines, found = log.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for \S*g1_(scalar_mul|butterfly)_kernelILi(\d+)E", line)
+        if m:
+            spill = [int(v) for v in re.findall(r"(\d+) bytes", lines[i + 1])]
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            smem = re.search(r"(\d+) bytes smem", lines[i + 2])
+            found[f"G1{'SMUL' if m.group(1) == 'scalar_mul' else 'BFLY'}, G={m.group(2)}"] = {
+                "registers": int(regs.group(1)) if regs else None,
+                "spill_store_bytes": spill[1], "spill_load_bytes": spill[2],
+                "shared_bytes": int(smem.group(1)) if smem else 0}
+    return found
+
+
+def _g1_row(card: str, kind: str, n: int, stage, runs: dict, want: torch.Tensor, chains: dict) -> dict:
+    """Check each run against ``want``, time it, print and return its row."""
+    names = {"G1SMUL": "g1_scalar_mul_", "G1BFLY": "g1_butterfly_"}[kind]
+    for key, run in runs.items():
+        assert torch.equal(run(), want), (kind, n, stage, key)
+    kern = {key: kernel_ms(run, name=names + ("thread" if key == "thread" else "kernel"))
+            for key, run in runs.items()}
+    row = {"kernel": kind, "n": n, "stage": stage, "lanes": n if stage is None else n // 2,
+           "ms": {key: events_ms(run) for key, run in runs.items()},
+           "kernel_ms": {key: k[0] for key, k in kern.items()},
+           "kernel_records": {key: k[1] for key, k in kern.items()},
+           "chain": chains,
+           "us_per_op": {key: None if kern[key][0] is None or not chains[key] else kern[key][0] * 1e3 / chains[key]
+                         for key in runs},
+           **clocks()}
+    print("g1 regimes:", json.dumps(row), f"[{card}]", flush=True)
+    return row
+
+
+def g1_regimes(card: str, probe: Probe) -> list:
+    """G1SMUL at :data:`G1_LANES` and G1BFLY at :data:`G1_STAGES`, in
+    every group size and the one-thread design: one row each."""
+    from ..ops import cuda_g1_chain as G
+    from ..ops import field as F
+
+    dev = torch.device("cuda")
+    rows = []
+    for lanes in G1_LANES:
+        p = edge_pairs(lanes, 61 + lanes.bit_length(), dev)[0]
+        ks = _g1_scalars(lanes, 62 + lanes.bit_length())
+        k = F.ints_to_words(ks, dev)
+        runs = {g: (lambda g=g: G._launch_scalar_mul(p, k, g)) for g in G.GROUPS}
+        runs[8] = lambda: probe.g1(p, k, group=8)
+        runs["thread"] = lambda: probe.g1(p, k)
+        chains = {g: dependent_chain(ks, g) for g in G1_GROUPS}
+        chains["thread"] = dependent_chain(ks, 1)
+        rows.append(_g1_row(card, "G1SMUL", lanes, None, runs, G.plain_scalar_mul(p, k), chains))
+    for n, stage in G1_STAGES:
+        x = edge_pairs(n, 63 + stage, dev)[0]
+        tw_ints = stage_twiddles(stage)
+        tw = F.ints_to_words(tw_ints, dev)
+        lane_ks = [t for t in tw_ints for _ in range(n >> (stage + 1))]  # j-major
+        runs = {g: (lambda g=g: G._launch_butterfly(x, tw, stage, g)) for g in G.GROUPS}
+        runs[8] = lambda: probe.g1(x, tw, stage, group=8)
+        runs["thread"] = lambda: probe.g1(x, tw, stage)
+        chains = {g: dependent_chain(lane_ks, g) + 2 for g in G1_GROUPS}
+        chains["thread"] = dependent_chain(lane_ks, 1) + 2
+        rows.append(_g1_row(card, "G1BFLY", n, stage, runs, G.plain_butterfly(x, tw, stage), chains))
+    return rows
+
+
+def _g1_shape(row: dict) -> str:
+    return f"{row['n']} lanes" if row["stage"] is None else f"{row['n']}-s{row['stage']}"
+
+
+def g1_summary(rows: list, card: str) -> dict:
+    """For each kernel: the group fastest over the path's lane counts (up
+    to :data:`G1_PATH_LANES`) by the kernel alone, the fastest at each
+    shape and the group its regime runs, and the shapes where the
+    one-thread design is not slower than that group."""
+    from ..ops import cuda_g1_chain as G
+
+    def ms(row, key):
+        v = row["kernel_ms"][key]
+        return float("inf") if v is None else v
+
+    summary = {"card": card, "switch": G.SWITCH, "group": G.GROUP}
+    for kind in ("G1SMUL", "G1BFLY"):
+        mine = [r for r in rows if r["kernel"] == kind]
+        path = [r for r in mine if r["lanes"] <= G1_PATH_LANES]
+        best = min(G1_GROUPS, key=lambda g: sum(ms(r, g) for r in path))
+        summary[kind] = {
+            "fastest_on_path": best,
+            "fastest_by_shape": {_g1_shape(r): min((*G1_GROUPS, "thread"), key=lambda k, r=r: ms(r, k)) for r in mine},
+            "regime_group_by_shape": {_g1_shape(r): G.GROUP[G.regime(r["lanes"])] for r in mine},
+            "thread_not_slower_at": [_g1_shape(r) for r in mine
+                                     if ms(r, "thread") <= ms(r, G.GROUP[G.regime(r["lanes"])])],
+        }
+    print("g1 regimes summary:", json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="a checkout of the parent commit: time K5, the tails and K12 on both libraries")
+    ap.add_argument("--g1", action="store_true", help="time G1SMUL's and G1BFLY's group sizes, nothing else")
     args = ap.parse_args()
     card = card_line()
+    if args.g1:
+        building = probe_build()
+        cuda_lib.lib()
+        probe = Probe(building)
+        rows = g1_regimes(card, probe)
+        print("g1 ptxas:", json.dumps(g1_ptxas((cuda_lib.BUILD / "ptxas.log").read_text())),
+              "probe:", json.dumps({k: v for k, v in probe.ptxas.items() if k.startswith("G1")}), flush=True)
+        g1_summary(rows, card)
+        return
     cuda_lib.lib()
     if args.parent is not None:
         lazy_callers(args.parent.resolve(), card)
