@@ -2636,7 +2636,7 @@ def phase_verkle_kzg(dev, card: str, leaves: int = 10_000, small_leaves: int = 1
     The launches start from 0 before each tree's commit and are read after
     its verify. KZG's verify ends in ``KZG.verify_point`` on the host (a
     G2 scalar multiplication, G1 operations and the pairing product): its
-    spans (``kzg.verify_point``, ``kzg.pairing`` in ``utils/metrics``)
+    spans (``protocol.kzg.verify_point``, ``protocol.kzg.pairing``, ``utils/metrics.span``)
     give the verify's share of each. The committed key_len-32 tree is
     appended to ``keep`` when one is given."""
     from verkle_kzg_tpu_torch.ops import cuda_lib
@@ -2668,7 +2668,8 @@ def phase_verkle_kzg(dev, card: str, leaves: int = 10_000, small_leaves: int = 1
         proof = _stage("prove", lambda: tree.prove_keys(prove_keys), ms, counts)
         before = metrics.counters()
         ok = _stage("verify", lambda: tree.verify_keys(prove_keys, claims, proof), ms, counts)
-        spans = {k: (metrics.counters().get(f"{k}.seconds", 0.0) - before.get(f"{k}.seconds", 0.0)) * 1e3
+        spans = {k: (metrics.counters().get(f"span.protocol.{k}.s", 0.0) - before.get(f"span.protocol.{k}.s", 0.0))
+                 * 1e3
                  for k in ("kzg.verify_point", "kzg.pairing")}
         path_launches = dict(cuda_lib.launches)
         regimes = dict(K5.regime_launches)

@@ -2,8 +2,8 @@
 both directions: a ``.npz`` written by JAX's ``save_ipa_params``,
 ``save_kzg_params`` or ``save_tree`` loads in the port with equal points
 and an equal root commitment, and a file the port writes loads in JAX the
-same way; and the profiling hooks (``utils/profiling.py``) write a trace
-on the CPU."""
+same way; and the profiling hook (``utils/profiling.py``) writes a trace with
+the program's spans on the CPU."""
 
 import pytest
 import torch
@@ -111,19 +111,21 @@ def test_loads_default_to_the_card(tmp_path, monkeypatch):
 
 
 def test_device_trace_writes_a_trace(tmp_path):
-    from verkle_kzg_tpu_torch.utils.profiling import annotate, device_trace
+    from verkle_kzg_tpu_torch.utils.profiling import device_trace
 
     with device_trace(str(tmp_path)) as prof:
-        with annotate("vkzg.sum"):
+        with U.span("protocol", "test.sum"):
             torch.arange(1000).sum()
     traces = list(tmp_path.glob("*.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
-    assert "vkzg.sum" in traces[0].read_text()
-    assert any(e.key == "vkzg.sum" for e in prof.key_averages())
+    assert "vk.protocol.test.sum" in traces[0].read_text()
+    assert any(e.key == "vk.protocol.test.sum" for e in prof.key_averages())
 
 
 def test_utils_exports_what_jax_does():
+    """The JAX package's exports, with its ``timed_region`` replaced by the
+    port's ``span`` (``utils/metrics.py``)."""
     from verkle_kzg_tpu import utils as JU
 
-    assert U.__all__ == JU.__all__
+    assert U.__all__ == ["span" if name == "timed_region" else name for name in JU.__all__]
     assert all(callable(getattr(U, name)) for name in U.__all__)

@@ -114,7 +114,7 @@ def port_side(jax_side):
     tree = convert.verkle_tree_from_jax(jax_side["tree"], crs)
     metrics.reset_counters()
     tree.commitment()
-    dense_calls = metrics.counters().get("msm.fixed_base.calls", 0)
+    dense_calls = metrics.counters().get("span.orchestration.msm_fixed_base.calls", 0)
     return {
         "crs": crs, "queries": queries, "mproof": mproof, "state": bytes(made[0]._state),
         "tree": tree, "dense_calls": dense_calls, "kproof": tree.prove_keys(jax_side["prove"]),

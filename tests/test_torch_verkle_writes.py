@@ -135,7 +135,7 @@ def test_block_of_writes_recommits_as_jax_and_a_fresh_tree(scheme):
     jtree.commitment()
     tree = convert.verkle_tree_from_jax(jtree, params)
     _take_commits(tree, jtree)
-    dense_before = metrics.counters().get("msm.fixed_base.calls", 0)
+    dense_before = metrics.counters().get("span.orchestration.msm_fixed_base.calls", 0)
 
     writes = _writes(keys)
     for t in (jtree, tree):
@@ -150,7 +150,7 @@ def test_block_of_writes_recommits_as_jax_and_a_fresh_tree(scheme):
     dirty = {k: after.get(f"verkle.commit.{k}", 0) - before.get(f"verkle.commit.{k}", 0)
              for k in ("dirty_ext", "dirty_internal")}
     assert dirty == {"dirty_ext": n_ext, "dirty_internal": n_internal} and n_ext == len(stems)
-    assert after.get("msm.fixed_base.calls", 0) > dense_before  # the root and the dense c2 vector
+    assert after.get("span.orchestration.msm_fixed_base.calls", 0) > dense_before  # the root and the dense c2 vector
     assert root == jtree.commitment()
     assert _node_commits(tree) == _node_commits(jtree)
 

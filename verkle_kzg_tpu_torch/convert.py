@@ -17,30 +17,35 @@ from .ops import cuda_lib
 from .poly import Domain, FrVector
 from .schemes.ipa import IPA, IPAParams
 from .schemes.kzg import KZG, KZGParams
+from .utils.metrics import span, wait_for
 
 
+@span("orchestration", "convert.limb_planes_to_tensor")
 def limb_planes_to_tensor(planes, device) -> torch.Tensor:
     """(16, N) uint32 limb planes -> (N, 8) int32 words."""
     arr = np.asarray(planes, dtype=np.uint32)
     words = arr[0::2] | (arr[1::2] << np.uint32(16))
-    return torch.from_numpy(np.ascontiguousarray(words.T).view(np.int32)).to(device)
+    return wait_for("convert.upload", torch.from_numpy(np.ascontiguousarray(words.T).view(np.int32)).to, device)
 
 
+@span("orchestration", "convert.tensor_to_limb_planes")
 def tensor_to_limb_planes(t: torch.Tensor) -> np.ndarray:
     """(N, 8) int32 words -> (16, N) uint32 limb planes."""
-    w = np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32).T  # (8, N)
+    w = np.ascontiguousarray(wait_for("convert.read", t.detach().cpu).numpy()).view(np.uint32).T  # (8, N)
     out = np.empty((16, w.shape[1]), dtype=np.uint32)
     out[0::2] = w & np.uint32(0xFFFF)
     out[1::2] = w >> np.uint32(16)
     return out
 
 
+@span("orchestration", "convert.stream_to_words")
 def _stream_to_words(arr, device) -> torch.Tensor:
     """A lane stream (S, ..., 16, B) of uint32 limb planes -> (S, B, ..., 8)
     int32 words."""
     arr = np.asarray(arr, dtype=np.uint32)
     words = arr[..., 0::2, :] | (arr[..., 1::2, :] << np.uint32(16))  # (S, ..., 8, B)
-    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(words, -1, 1)).view(np.int32)).to(device)
+    return wait_for("convert.upload", torch.from_numpy(np.ascontiguousarray(np.moveaxis(words, -1, 1)).view(np.int32)).to,
+                    device)
 
 
 def pts_stream_from_jax(pts_stream, device) -> torch.Tensor:
@@ -53,11 +58,12 @@ def sc_stream_from_jax(sc_stream, device) -> torch.Tensor:
     return _stream_to_words(sc_stream, device)
 
 
+@span("orchestration", "convert.masks_from_jax")
 def masks_from_jax(masks, device) -> torch.Tensor:
     """The signed carry masks of a stream, (S, nwords, B) uint32 ->
     (S, B, nwords) int32."""
     arr = np.ascontiguousarray(np.swapaxes(np.asarray(masks, dtype=np.uint32), 1, 2))
-    return torch.from_numpy(arr.view(np.int32)).to(device)
+    return wait_for("convert.upload", torch.from_numpy(arr.view(np.int32)).to, device)
 
 
 def ipa_params_from_jax(params, device=None) -> IPAParams:

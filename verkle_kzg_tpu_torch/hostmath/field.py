@@ -15,6 +15,7 @@ Tower layout (standard BN254):
 from __future__ import annotations
 
 from ..params import Q, R
+from ..utils.metrics import span
 
 # ---------------------------------------------------------------------------
 # Prime fields as plain ints
@@ -50,6 +51,7 @@ def fq_sqrt(x: int):
     return root
 
 
+@span("protocol", "fr_batch_inverse")
 def fr_batch_inverse(xs):
     """Montgomery's trick, matching ark_ff::batch_inversion semantics:
     zero entries are left untouched (arkworks skips zeros)."""

@@ -92,6 +92,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_field as KF
 from . import cuda_lib
 from . import curve as C
@@ -127,6 +128,7 @@ def plain_fold(p: torch.Tensor) -> torch.Tensor:
     return p
 
 
+@span("kernels", "K2FOLD")
 def fold(p: torch.Tensor) -> torch.Tensor:
     """Kernel K2FOLD: the sum of each row of (rows, n, 3, 8) projective
     points -> (rows, 1, 3, 8), in one launch (none when n is 1)."""
@@ -211,6 +213,7 @@ def _regime_launch(fn: str, key: str, out: torch.Tensor, *ins: torch.Tensor) -> 
     return out
 
 
+@span("kernels", "K2")
 def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if p.device.type == "cpu" and q.device.type == "cpu":
         return plain(p, q)
@@ -219,6 +222,7 @@ def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return _regime_launch("vkzg_point_add", "K2", torch.empty_like(p), p, q)
 
 
+@span("kernels", "K11")
 def double(p: torch.Tensor) -> torch.Tensor:
     if p.device.type == "cpu":
         return plain_double(p)
@@ -226,6 +230,7 @@ def double(p: torch.Tensor) -> torch.Tensor:
     return _regime_launch("vkzg_point_double", "K11", torch.empty_like(p), p)
 
 
+@span("kernels", "K12")
 def mixed_add(p: torch.Tensor, q_aff: torch.Tensor) -> torch.Tensor:
     if p.device.type == "cpu" and q_aff.device.type == "cpu":
         return plain_mixed_add(p, q_aff)
@@ -256,6 +261,7 @@ def plain_affine_words(p: torch.Tensor) -> torch.Tensor:
     return KF.plain("mul", xy, F.const_words(1, p.device).expand_as(xy), "fq")  # by the plain 1: out of the form
 
 
+@span("kernels", "K1AFF")
 def affine_words(p: torch.Tensor) -> torch.Tensor:
     """Kernel K1AFF: (..., 3, 8) projective Montgomery words -> (N, 2, 8)
     standard-form canonical affine x and y, (0, 0) where Z = 0, N the

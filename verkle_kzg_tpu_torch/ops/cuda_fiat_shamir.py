@@ -44,6 +44,7 @@ import ctypes
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_lib
 from . import curve as C
 from . import field as F
@@ -160,6 +161,7 @@ def _check_msg(msg: torch.Tensor, name: str) -> torch.Tensor:
     return msg.contiguous()
 
 
+@span("kernels", "FSX")
 def challenge(state: torch.Tensor, dst: bytes, parts, label: bytes, pairs=None, slot: int = 0):
     """Kernel FSX: one Fiat-Shamir challenge, hash_to_fr(state || parts ||
     label, dst), and the transcript's new state.
@@ -188,6 +190,7 @@ def challenge(state: torch.Tensor, dst: bytes, parts, label: bytes, pairs=None, 
     return x, new_state
 
 
+@span("kernels", "FSX")
 def digest(msg: torch.Tensor) -> torch.Tensor:
     """FSX's digest mode: the SHA-256 of (n,) uint8 bytes on a card -> (32,)."""
     msg = _check_msg(msg, "sha256_bytes")
@@ -197,6 +200,7 @@ def digest(msg: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@span("kernels", "FSX")
 def expand(msg: torch.Tensor, dst: bytes, len_in_bytes: int) -> torch.Tensor:
     """FSX's expand mode: RFC 9380 ``expand_message_xmd`` on a card."""
     msg = _check_msg(msg, "expand_message_xmd")
@@ -208,6 +212,7 @@ def expand(msg: torch.Tensor, dst: bytes, len_in_bytes: int) -> torch.Tensor:
     return out
 
 
+@span("kernels", "FSX")
 def compress(aff: torch.Tensor) -> torch.Tensor:
     """FSX's point compression on a card: (B, 2, 8) Montgomery affine ->
     (B, 32) uint8, a thread a point, one launch."""

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_lib
 from . import field as F
 
@@ -64,6 +65,7 @@ def plain(op: str, a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
     return F.from_limbs(fn(F.to_limbs(a), F.to_limbs(b), spec))
 
 
+@span("kernels", "K1")
 def binop(op: str, a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
     """``op`` in {"mul", "add", "sub"} on reduced (..., 8) word tensors
     (broadcast against each other)."""
@@ -124,6 +126,7 @@ def plain_batch_inv(a: torch.Tensor, spec: str) -> torch.Tensor:
     return torch.where(z, a, inv)
 
 
+@span("kernels", "K1INV")
 def inverse(a: torch.Tensor, spec: str, batch: bool) -> torch.Tensor:
     """Kernel K1INV. ``batch=False``: the inverse of each reduced Montgomery
     element of ``a`` (..., 8); ``batch=True``: Montgomery's trick over the

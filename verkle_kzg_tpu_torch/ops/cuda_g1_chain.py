@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_lib
 from . import curve as C
 from . import field as F
@@ -169,6 +170,7 @@ def _launch_butterfly(x: torch.Tensor, tw: torch.Tensor, stage: int, group: int)
     return out
 
 
+@span("kernels", "G1SMUL")
 def scalar_mul(p: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """k p on (..., 3, 8) points and (..., 8) scalars: G1SMUL, one launch."""
     if p.device.type == "cpu" and k.device.type == "cpu":
@@ -179,6 +181,7 @@ def scalar_mul(p: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return _launch_scalar_mul(p, k, GROUP[regime(p.numel() // (3 * F.WORDS))])
 
 
+@span("kernels", "G1BFLY")
 def butterfly(x: torch.Tensor, tw: torch.Tensor, stage: int) -> torch.Tensor:
     """Stage ``stage`` of the G1 NTT on (n, 3, 8) points with the
     (2^stage, 8) twiddles of one block: G1BFLY, one launch."""

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_field as KF
 from . import cuda_lib
 from . import field as F
@@ -120,6 +121,7 @@ def _pow2(v: int) -> bool:
     return v > 0 and v & (v - 1) == 0
 
 
+@span("kernels", "K1IPA")
 def halving_round(a, b, wts, x, w, half: int, ln: int):
     """One K1IPA launch: an IPA halving round on (n, 8) Fr Montgomery words.
 
@@ -167,6 +169,7 @@ def halving_round(a, b, wts, x, w, half: int, ln: int):
     return a_out, b_out, wts_out, sc
 
 
+@span("kernels", "K1IPA")
 def inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1IPA's inner product: <a, b> of (n, 8) Fr Montgomery words ->
     (1, 8) Montgomery words, one launch."""

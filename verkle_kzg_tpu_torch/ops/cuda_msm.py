@@ -52,6 +52,7 @@ import math
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_lib
 from . import curve as C
 from . import field as F
@@ -298,6 +299,7 @@ def launch_tail(buckets: torch.Tensor, c: int, key: str, parts: int = 3, sums=No
     return out, sums
 
 
+@span("kernels", "K4")
 def tail(buckets: torch.Tensor, c: int = 8) -> torch.Tensor:
     if buckets.device.type == "cpu":
         return plain_tail(buckets, c)

@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_lib
 from . import cuda_msm as K
 
@@ -54,6 +55,7 @@ def _check_c(c: int) -> None:
 plain_tail = K.plain_tail  # K7's plain version: (W, B, rows, 3, 8) -> (B, 3, 8)
 
 
+@span("kernels", "K7")
 def tail(buckets: torch.Tensor, c: int) -> torch.Tensor:
     _check_c(c)
     if buckets.device.type == "cpu":

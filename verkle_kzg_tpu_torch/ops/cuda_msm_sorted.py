@@ -89,6 +89,7 @@ import ctypes
 
 import torch
 
+from ..utils.metrics import span, wait_for
 from . import cuda_lib
 from . import cuda_msm as K
 from . import curve as C
@@ -401,18 +402,20 @@ def accumulate(pts: torch.Tensor, sc: torch.Tensor, c: int = 8, lanes: int = 1,
     signed only; without them the kernel computes the carries] ->
     (W, B, rows, 3, 8) reduced buckets. The plain version on the CPU; on a
     card the kernels or an error."""
-    if pts.device.type == "cpu":
-        return plain_accumulate(pts, sc, c, lanes, masks, signed)
-    _check_words(c)
-    n = pts.shape[0]
-    if pts.shape != (n, 2, 8) or sc.shape != (n, 8) or lanes < 1 or n % lanes:
-        raise ValueError("msm accumulate: (B S, 2, 8) points and (B S, 8) scalars in B lanes")
-    if masks is not None and (not signed or masks.shape != (n, K.mask_words(c))):
-        raise ValueError("msm accumulate: carry words must be (n, W // 32 + 1), and only for signed digits")
-    cuda_lib.require_cuda("msm.accumulate_sorted", pts, sc, *(() if masks is None else (masks,)))
-    if n == 0:
-        return C.infinity((windows(c), lanes, rows(c, signed)), pts.device)
-    return _run(pts, sc, None, masks, c, lanes, signed, launch_key(c, signed))
+    key = launch_key(c, signed)
+    with span("kernels", key):
+        if pts.device.type == "cpu":
+            return plain_accumulate(pts, sc, c, lanes, masks, signed)
+        _check_words(c)
+        n = pts.shape[0]
+        if pts.shape != (n, 2, 8) or sc.shape != (n, 8) or lanes < 1 or n % lanes:
+            raise ValueError("msm accumulate: (B S, 2, 8) points and (B S, 8) scalars in B lanes")
+        if masks is not None and (not signed or masks.shape != (n, K.mask_words(c))):
+            raise ValueError("msm accumulate: carry words must be (n, W // 32 + 1), and only for signed digits")
+        cuda_lib.require_cuda("msm.accumulate_sorted", pts, sc, *(() if masks is None else (masks,)))
+        if n == 0:
+            return C.infinity((windows(c), lanes, rows(c, signed)), pts.device)
+        return _run(pts, sc, None, masks, c, lanes, signed, key)
 
 
 def accumulate_digits(pts: torch.Tensor, digits: torch.Tensor, c: int, signed: bool = True,
@@ -423,21 +426,23 @@ def accumulate_digits(pts: torch.Tensor, digits: torch.Tensor, c: int, signed: b
     ``ops/msm.py::window_digits_signed`` and ``window_digits`` give them)
     -> (W, B, rows, 3, 8) reduced buckets. The plain version on the CPU; on
     a card the kernels or an error."""
-    if pts.device.type == "cpu":
-        return plain_accumulate_digits(pts, digits, c, signed)
-    _check_tensor(c)
-    w, b, s = digits.shape
-    pts = point_lanes(pts, b, s)
-    if w != windows(c) or b < 1 or pts.shape != (b, s, 2, 8):
-        raise ValueError("msm accumulate: (B, S, 2, 8) points and (ceil(256 / c), B, S) digits")
-    for t in (pts, digits):  # views at any strides: the kernel reads them so
-        if t.device.type != "cuda" or t.device != pts.device or t.dtype != torch.int32:
-            raise ValueError("msm accumulate_digits: int32 points and digits on one CUDA device")
-    if pts.data_ptr() % 16:
-        raise ValueError("msm accumulate_digits: points must be 16-byte aligned (loaded four words at a time)")
-    if s == 0:
-        return C.infinity((w, b, rows(c, signed)), pts.device)
-    return _run(pts, None, digits, None, c, b, signed, key or launch_key(c, signed, True))
+    key = key or launch_key(c, signed, True)
+    with span("kernels", key):
+        if pts.device.type == "cpu":
+            return plain_accumulate_digits(pts, digits, c, signed)
+        _check_tensor(c)
+        w, b, s = digits.shape
+        pts = point_lanes(pts, b, s)
+        if w != windows(c) or b < 1 or pts.shape != (b, s, 2, 8):
+            raise ValueError("msm accumulate: (B, S, 2, 8) points and (ceil(256 / c), B, S) digits")
+        for t in (pts, digits):  # views at any strides: the kernel reads them so
+            if t.device.type != "cuda" or t.device != pts.device or t.dtype != torch.int32:
+                raise ValueError("msm accumulate_digits: int32 points and digits on one CUDA device")
+        if pts.data_ptr() % 16:
+            raise ValueError("msm accumulate_digits: points must be 16-byte aligned (loaded four words at a time)")
+        if s == 0:
+            return C.infinity((w, b, rows(c, signed)), pts.device)
+        return _run(pts, None, digits, None, c, b, signed, key)
 
 
 def live_tensor_entries(pts: torch.Tensor, digits: torch.Tensor) -> int:
@@ -445,7 +450,7 @@ def live_tensor_entries(pts: torch.Tensor, digits: torch.Tensor) -> int:
     view) and their (W, n) or (W, B, S) digits: nonzero digit, not the
     (0, 0) sentinel."""
     on = digits.reshape(digits.shape[0], -1) != 0
-    return int((on & ~C.affine_is_infinity(pts.reshape(-1, 2, 8))[None, :]).sum())
+    return wait_for("msm.live_entries", int, (on & ~C.affine_is_infinity(pts.reshape(-1, 2, 8))[None, :]).sum())
 
 
 def live_entries(pts: torch.Tensor, sc: torch.Tensor, c: int, masks=None, signed: bool = True) -> int:

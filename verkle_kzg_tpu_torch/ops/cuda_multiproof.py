@@ -53,6 +53,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.metrics import span, wait_for
 from . import cuda_field as KF
 from . import cuda_lib
 from . import field as F
@@ -88,6 +89,7 @@ class SegmentPlan:
                                self.seg_first, self.seg_count]).astype(np.int32)
 
 
+@span("kernels", "K1MP.plan")
 def plan_segments(keys, rows) -> tuple:
     """Position m has segment key ``keys[m]`` and row ``rows[m]``; its
     exponent (weight index) is m. Returns the sorted distinct keys and the
@@ -157,6 +159,7 @@ def plain_segment_sum(rows, weights, plan: SegmentPlan, mode: int, g=None):
     return x if g is None else (x, _k1("sub", x[0], g))
 
 
+@span("kernels", "K1MP")
 def segment_sum(rows: torch.Tensor, weights: torch.Tensor, plan: SegmentPlan, mode: int, g=None):
     """Kernel K1MP: out[j] = sum over segment j's positions k of
     w_k rows[pos_row[k]], rows (R, N, 8) Fr Montgomery words, N a power of
@@ -180,7 +183,7 @@ def segment_sum(rows: torch.Tensor, weights: torch.Tensor, plan: SegmentPlan, mo
     if plan.chunk_len.max() > CHUNK:
         raise ValueError(f"segment sum: a chunk holds at most {CHUNK} positions")
     dev = rows.device
-    plan_t = torch.from_numpy(plan.packed()).to(dev)
+    plan_t = wait_for("K1MP.upload", torch.from_numpy(plan.packed()).to, dev)
     cuda_lib.require_cuda("multiproof.segment_sum", rows, weights, plan_t, *(() if g is None else (g,)))
     tc = min(n, 32)
     multi = bool((plan.seg_count > 1).any())
@@ -209,6 +212,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@span("kernels", "K1QUO")
 def quotient(vals: torch.Tensor, zs, omegas: torch.Tensor, table: torch.Tensor, sum_rows: bool) -> torch.Tensor:
     """One K1QUO launch on the card: vals (Zq, N, 8) Fr Montgomery rows, zs
     their Zq domain indices (ints in [0, N)), the domain's omegas and
@@ -225,7 +229,7 @@ def quotient(vals: torch.Tensor, zs, omegas: torch.Tensor, table: torch.Tensor, 
     if any(not 0 <= z < n for z in zs):
         raise ValueError(f"quotient: domain indices must lie in [0, {n})")
     dev = vals.device
-    idx = torch.tensor(list(zs), dtype=torch.int32, device=dev)
+    idx = wait_for("K1QUO.upload", torch.tensor(list(zs), dtype=torch.int32).to, dev)
     cuda_lib.require_cuda("quotient", vals, idx, omegas, table)
     blocks = -(-zq // QUO_ROWS) if sum_rows else zq
     out = torch.empty((n, F.WORDS) if sum_rows else (zq, n, F.WORDS), dtype=torch.int32, device=dev)

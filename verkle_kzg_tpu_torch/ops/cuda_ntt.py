@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_field as KF
 from . import cuda_lib
 from . import field as F
@@ -57,6 +58,7 @@ def plain(x_mont: torch.Tensor, seg: int, inverse: bool = False) -> torch.Tensor
     return KF.plain("mul", x, F.ints_to_mont([n_inv], "fr", x.device).expand_as(x), "fr")
 
 
+@span("kernels", "K1NTT")
 def ntt(x_mont: torch.Tensor, seg: int, inverse: bool = False) -> torch.Tensor:
     """Kernel K1NTT: (B seg, 8) Montgomery words in B contiguous segments ->
     each segment's size-seg NTT (INTT with its 1/seg): one CUDA launch up to

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from . import cuda_lib
 from . import curve as C
 from . import field as F
@@ -110,6 +111,7 @@ def lane_order(pts: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     return torch.argsort(bit_lengths(pts, sc), descending=True, stable=True)
 
 
+@span("kernels", "K5")
 def scalar_mul_affine(pts: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     """(n, 2, 8) affine x (n, 8) standard scalars -> (n, 3, 8) reduced
     projective; on the card one warp a lane up to :data:`SWITCH` lanes,

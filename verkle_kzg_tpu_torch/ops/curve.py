@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..params import Q
+from ..utils.metrics import span, wait_for
 
 from . import cuda_lib
 from . import field as F
@@ -134,7 +135,7 @@ def reduce16(p: torch.Tensor) -> torch.Tensor:
 
 def infinity16(shape, device) -> torch.Tensor:
     """(*shape, 3, 16) limbs of the identity (0 : 1 : 0)."""
-    one = torch.tensor(F._int_limbs(F.SPECS[_FQ].r_mod), dtype=torch.int64, device=device)
+    one = wait_for("curve.upload", torch.tensor(F._int_limbs(F.SPECS[_FQ].r_mod), dtype=torch.int64).to, device)
     p = torch.zeros(tuple(shape) + (3, F.LIMBS), dtype=torch.int64, device=device)
     p[..., 1, :] = one
     return p
@@ -198,6 +199,7 @@ def eq(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (inf1 & inf2) | (same & ~(inf1 ^ inf2))
 
 
+@span("orchestration", "curve.scalar_mul")
 def scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """Double-and-add (``ops/curve.py::scalar_mul``): (..., 3, 8) projective
     points x (..., 8) standard scalars, reduced domain, in one G1SMUL launch.
@@ -255,6 +257,7 @@ def to_affine(p: torch.Tensor) -> torch.Tensor:
     return torch.stack([F.mont_mul(x, zinv, _FQ), F.mont_mul(y, zinv, _FQ)], dim=-2)
 
 
+@span("orchestration", "curve.host_points_to_affine")
 def host_points_to_affine(points, device) -> torch.Tensor:
     """Host affine points ((x, y) ints or None) -> (N, 2, 8) Montgomery words
     with the (0, 0) sentinel."""
@@ -269,6 +272,7 @@ def host_point_to_projective(pt, device) -> torch.Tensor:
     return from_affine(host_points_to_affine([pt], device))
 
 
+@span("orchestration", "curve.affine_to_host_points")
 def affine_to_host_points(a: torch.Tensor) -> list:
     """(..., 2, 8) Montgomery affine with the (0, 0) sentinel -> flat list of
     host points (None for the sentinel), computed on the host
@@ -282,6 +286,7 @@ def affine_to_host_points(a: torch.Tensor) -> list:
     return out
 
 
+@span("orchestration", "curve.projective_to_host_points")
 def projective_to_host_points(p: torch.Tensor) -> list:
     """(..., 3, 8) projective -> flat list of canonical host affine points
     (None for infinity) (``ops/curve.py::projective_to_host_points``). On

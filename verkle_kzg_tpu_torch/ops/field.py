@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..params import FQ, FR, FieldSpec
+from ..utils.metrics import span, wait_for
 
 SPECS: dict[str, FieldSpec] = {"fq": FQ, "fr": FR}
 WORDS = 8
@@ -49,26 +50,30 @@ _M16 = 0xFFFF
 # ---------------------------------------------------------------------------
 
 
+@span("orchestration", "field.ints_to_words")
 def ints_to_words(xs, device) -> torch.Tensor:
     """Python ints in [0, 2^256) -> (len(xs), 8) int32 words."""
     buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
     arr = np.frombuffer(buf, dtype="<u4").reshape(len(xs), WORDS)
-    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+    return wait_for("field.upload", torch.from_numpy(arr.view(np.int32).copy()).to, device)
 
 
+@span("orchestration", "field.words_to_ints")
 def words_to_ints(t: torch.Tensor) -> list:
     """(..., 8) int32 words -> flat list of python ints (row-major)."""
-    arr = np.ascontiguousarray(t.detach().cpu().numpy()).astype("<i4")
+    arr = np.ascontiguousarray(wait_for("field.read", t.detach().cpu).numpy()).astype("<i4")
     flat = arr.reshape(-1, WORDS).tobytes()
     return [int.from_bytes(flat[32 * i : 32 * i + 32], "little") for i in range(len(flat) // 32)]
 
 
+@span("orchestration", "field.ints_to_mont")
 def ints_to_mont(xs, spec: str, device) -> torch.Tensor:
     """Python ints -> (len(xs), 8) Montgomery words, computed on the host."""
     m = SPECS[spec].modulus
     return ints_to_words([(int(x) % m << 256) % m for x in xs], device)
 
 
+@span("orchestration", "field.mont_to_ints")
 def mont_to_ints(t: torch.Tensor, spec: str) -> list:
     fs = SPECS[spec]
     rinv = pow(1 << 256, -1, fs.modulus)

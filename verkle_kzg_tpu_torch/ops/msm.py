@@ -40,6 +40,7 @@ import math
 import torch
 
 from ..utils import metrics
+from ..utils.metrics import span
 from . import cuda_curve as KC
 from . import cuda_msm as K
 from . import cuda_msm_batched as KB
@@ -185,11 +186,11 @@ def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | N
     return K.tail(buckets[:, 0].contiguous(), c)
 
 
+@span("orchestration", "msm_auto")
 def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None, lanes: int = 128):
     """Single MSM entry point (``ops/msm.py::msm_auto``): double-and-add
     (K5) and a K2FOLD fold below 64 points, whatever c is; Pippenger from 64 on
     (:func:`msm_pippenger`, signed digits). ``lanes`` has no effect."""
-    metrics.record("msm.single.calls")
     metrics.record("msm.single.points", points_affine.shape[0])
     return _msm_auto_impl(points_affine, scalars, c, lanes)
 
@@ -240,11 +241,11 @@ def _msm_lanewise(points_affine: torch.Tensor, scalars: torch.Tensor, c: int) ->
     return KB.tail(KS.accumulate_digits(pts, digits, c), c)
 
 
+@span("orchestration", "msm_batched")
 def msm_batched(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:
     """Batch of B independent MSMs (``ops/msm.py::msm_batched``):
     (B, N, 2, 8) affine x (B, N, 8) standard scalars -> (B, 3, 8) reduced."""
     b, n = scalars.shape[:2]
-    metrics.record("msm.batched.calls")
     metrics.record("msm.batched.points", b * n)
     return _msm_batched_impl(points_affine, scalars, c)
 
@@ -257,12 +258,12 @@ def _msm_batched_impl(points_affine: torch.Tensor, scalars: torch.Tensor, c: int
     return _msm_lanewise(points_affine, scalars, _auto_c_batched(n, c))
 
 
+@span("orchestration", "msm_fixed_base")
 def msm_fixed_base(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None) -> torch.Tensor:
     """Fixed-basis MSM for a stack of scalar vectors (``ops/msm.py::msm_fixed_base``):
     (N, 2, 8) affine x (B, N, 8) standard scalars -> (B, 3, 8) reduced. The
     basis is read by every lane and never copied per lane."""
     b, n = scalars.shape[:2]
-    metrics.record("msm.fixed_base.calls")
     metrics.record("msm.fixed_base.points", b * n)
     return _msm_fixed_base_impl(points_affine, scalars, c)
 

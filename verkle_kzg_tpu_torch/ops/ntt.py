@@ -34,6 +34,7 @@ import torch
 
 from ..hostmath.field import fr_inv
 from ..params import R, fr_root_of_unity
+from ..utils.metrics import span
 from . import cuda_g1_chain as G
 from . import curve as C
 from . import field as F
@@ -135,21 +136,25 @@ def ntt_g1_segments(pts_proj: torch.Tensor, seg: int, inverse: bool = False) -> 
     return C.scalar_mul(x, F.ints_to_words([fr_inv(seg)], x.device).expand(n, F.WORDS))
 
 
+@span("orchestration", "ntt_fr")
 def ntt_fr(x_mont: torch.Tensor) -> torch.Tensor:
     """(N, 8) coefficients -> evaluations [p(w^i)] (ark fft semantics)."""
     return ntt_fr_segments(x_mont, x_mont.shape[0])
 
 
+@span("orchestration", "intt_fr")
 def intt_fr(x_mont: torch.Tensor) -> torch.Tensor:
     """(N, 8) evaluations -> coefficients (ark ifft semantics, 1/N folded in)."""
     return ntt_fr_segments(x_mont, x_mont.shape[0], inverse=True)
 
 
+@span("orchestration", "ntt_g1")
 def ntt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) projective points -> the G1 NTT."""
     return ntt_g1_segments(pts_proj, pts_proj.shape[0])
 
 
+@span("orchestration", "intt_g1")
 def intt_g1(pts_proj: torch.Tensor) -> torch.Tensor:
     """(N, 3, 8) projective points -> the G1 inverse NTT, 1/N folded in."""
     return ntt_g1_segments(pts_proj, pts_proj.shape[0], inverse=True)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import TranscriptError
+from ..utils.metrics import wait_for
 from . import field as F
 
 # FIPS 180-4 constants.
@@ -49,7 +50,7 @@ _M32 = 0xFFFFFFFF
 
 def const_bytes(raw: bytes, device) -> torch.Tensor:
     """A byte string -> (len,) uint8 tensor on ``device``."""
-    return torch.tensor(list(raw), dtype=torch.uint8, device=device)
+    return wait_for("sha256.upload", torch.tensor(list(raw), dtype=torch.uint8).to, device)
 
 
 def _check_bytes(msg: torch.Tensor) -> None:

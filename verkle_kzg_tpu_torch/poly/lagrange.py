@@ -19,6 +19,7 @@ import torch
 
 from ..hostmath.serialize import fr_from_le_bytes_mod_order
 from ..params import R
+from ..utils.metrics import span
 
 from ..ops import cuda_field as KF
 from ..ops import cuda_lib
@@ -119,6 +120,7 @@ class FrVector:
     def device(self) -> torch.device:
         return self.vals.device
 
+    @span("protocol", "poly.to_ints")
     def to_ints(self) -> list:
         return F.mont_to_ints(self.vals, "fr")
 
@@ -129,6 +131,7 @@ class FrVector:
     def get(self, index: int) -> int:
         return F.mont_to_ints(self.vals[index : index + 1], "fr")[0]
 
+    @span("protocol", "poly.evaluate")
     def evaluate(self, point: int) -> int:
         """Stored / zero inside the domain / barycentric, with the
         reference's boundaries (``lagrange_basis.rs:59-72``)."""
@@ -148,6 +151,7 @@ class FrVector:
         q = quotient_in_domain(self.vals[None], [index], self.domain)[0]
         return FrVector(q, self.domain.size, self.domain)
 
+    @span("protocol", "poly.quotient_outside")
     def divide_by_vanishing_outside(self, point: int) -> "FrVector":
         """Out-of-domain quotient at ``point`` (``lagrange_basis.rs:121-142``):
         one batched inversion of (w^i - z), one K1INV launch."""

@@ -29,9 +29,11 @@ from ..ops import curve as C
 from ..ops import field as F
 from ..ops.ntt import intt_fr, intt_g1, ntt_fr, ntt_g1
 from ..poly import FrVector
+from ..utils.metrics import span
 from .kzg import KZGParams, KZGProof
 
 
+@span("protocol", "fk.prove_all_points")
 def prove_all_points(params: KZGParams, data: FrVector, mesh=None) -> list:
     """The N proofs of ``data`` at every domain point, on ``params.device``.
     With ``mesh``, every transform (Fr and G1, at N and 2N) is the four-step

@@ -54,7 +54,7 @@ from ..ops import field as F
 from ..ops import msm as M
 from ..ops import sha256 as S
 from ..poly import Domain, FrVector
-from ..utils import metrics
+from ..utils.metrics import span, wait_for
 from .generators import DEFAULT_IPA_SEED, ipa_generate_points
 
 
@@ -129,6 +129,7 @@ class IPA:
         return params.g_affine
 
     @staticmethod
+    @span("protocol", "ipa.commit")
     def commit(params: IPAParams, data: FrVector, mesh=None):
         """C = <g, a>: one MSM (``ipa/mod.rs:130-135``); with ``mesh``, the
         points and scalars split across its ranks (``parallel.msm_sharded``)."""
@@ -146,6 +147,7 @@ class IPA:
         return IPA.prove_point(params, commitment, index, data, None)
 
     @staticmethod
+    @span("protocol", "ipa.prove")
     def prove_point(params: IPAParams, commitment, point: int, data: FrVector, transcript=None) -> IPAProof:
         b = F.ints_to_mont(params.domain.barycentric_coefficients(point), "fr", data.vals.device)
         return _low_level_ipa(params, data.vals, b, commitment, point, transcript)
@@ -155,11 +157,11 @@ class IPA:
         return IPA.verify_point(params, commitment, index, proof, None)
 
     @staticmethod
+    @span("protocol", "ipa.verify")
     def verify_point(params: IPAParams, commitment, point: int, proof: IPAProof, transcript=None) -> bool:
         """``ipa/mod.rs:321-360`` as ONE MSM over {g_i, q, C, L_i, R_i}
         checked against the identity: every challenge replays from the
         proof's L/R points, so the whole check needs no other group work."""
-        metrics.record("ipa.verify.calls")
         b = params.domain.barycentric_coefficients(point)
         t = transcript if transcript is not None else Transcript(IPA.transcript_label)
         t.append_point(commitment, "C")
@@ -221,9 +223,10 @@ def _state_to_device(t: Transcript, device) -> torch.Tensor:
 def _read_back(*parts: torch.Tensor) -> torch.Tensor:
     """The device loop's one device -> host read: the parts' (..., 8) words
     in one (rows, 8) host tensor."""
-    return torch.cat([p.reshape(-1, F.WORDS) for p in parts]).cpu()
+    return wait_for("ipa.read_back", torch.cat([p.reshape(-1, F.WORDS) for p in parts]).cpu)
 
 
+@span("protocol", "ipa.rounds")
 def _device_rounds(basis, a, b, w, state, dst: bytes) -> tuple:
     """The halving rounds with every challenge drawn on the device: per
     round one K1IPA launch (the fold of the previous challenge, the two
@@ -250,6 +253,7 @@ def _device_rounds(basis, a, b, w, state, dst: bytes) -> tuple:
     return pairs, a[:1]
 
 
+@span("protocol", "ipa.unpack")
 def _unpack_fused(t: Transcript, pairs, tip) -> tuple:
     """The device loop's proof, already on the host, as host values; then
     the digest chain replayed through ``t``, so that the caller's transcript
@@ -272,7 +276,6 @@ def _low_level_ipa(params: IPAParams, a, b, commitment, input_point: int, transc
     ONE device -> host read of the L/R pairs, the tip and y, and the host
     replays the digests over them. On the CPU the same sequence runs the
     kernels' plain versions."""
-    metrics.record("ipa.prove.calls")
     n = a.shape[0]
     t = transcript if transcript is not None else Transcript(IPA.transcript_label)
     t.append_point(commitment, "C")

@@ -14,9 +14,9 @@ on PyTorch tensors.
   quotients are ``poly/lagrange.py``'s K1 passes.
 * Verify's two pairings run as one 2-pairing product on the host
   (``hostmath/pairing.py``, native first), as the reference leans on
-  arkworks there (``kzg/mod.rs:182-186``). Each verify adds its wall
-  seconds to the ``kzg.verify_point`` counters and the pairing product's
-  alone to ``kzg.pairing`` (``utils/metrics.py``).
+  arkworks there (``kzg/mod.rs:182-186``). Each verify is the span
+  ``protocol.kzg.verify_point`` and its pairing product the span
+  ``protocol.kzg.pairing`` inside it (``utils/metrics.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from ..ops import curve as C
 from ..ops import msm as M
 from ..params import R
 from ..poly import Domain, FrVector
-from ..utils import metrics
+from ..utils.metrics import span
 from .generators import DEFAULT_KZG_SECRET, generator_multiples, kzg_g2
 
 
@@ -94,6 +94,7 @@ class KZG:
         return params.lagrange_affine
 
     @staticmethod
+    @span("protocol", "kzg.commit")
     def commit(params: KZGParams, data: FrVector, mesh=None):
         """C = <lagrange_srs, a>: one MSM (``kzg/mod.rs:126-134``); with
         ``mesh``, split across its ranks (``parallel.msm_sharded``)."""
@@ -111,6 +112,7 @@ class KZG:
         return KZG.prove_point(params, commitment, index, data, None)
 
     @staticmethod
+    @span("protocol", "kzg.prove")
     def prove_point(params: KZGParams, commitment, point: int, data: FrVector, transcript=None) -> KZGProof:
         """``kzg/mod.rs:136-154``. The in-domain test is the reference's
         ``point <= max_size`` (its own boundary quirk, SURVEY.md §5 item 2):
@@ -132,18 +134,18 @@ class KZG:
         return KZG.verify_point(params, commitment, index, proof, None)
 
     @staticmethod
+    @span("protocol", "kzg.verify_point")
     def verify_point(params: KZGParams, commitment, point: int, proof: KZGProof, transcript=None) -> bool:
         """e(pi, alpha H - p H) == e(C - y G, H) (``kzg/mod.rs:165-189``),
         checked as one 2-pairing product with the right side negated (one
         shared final exponentiation). In-domain points (< max_size) map to
         w^point."""
-        with metrics.timed_region("kzg.verify_point"):
-            p = params.domain.element(point) if point < params.size else point
-            h = g2_generator()
-            lhs_g2 = g2_add(params.g2, g2_neg(g2_mul(h, p)))
-            rhs_g1 = g1_add(commitment, g1_neg(g1_mul(g1_generator(), proof.y)))
-            with metrics.timed_region("kzg.pairing"):
-                return multi_pairing([(proof.proof, lhs_g2), (g1_neg(rhs_g1), h)]) == Fq12.one()
+        p = params.domain.element(point) if point < params.size else point
+        h = g2_generator()
+        lhs_g2 = g2_add(params.g2, g2_neg(g2_mul(h, p)))
+        rhs_g1 = g1_add(commitment, g1_neg(g1_mul(g1_generator(), proof.y)))
+        with span("protocol", "kzg.pairing"):
+            return multi_pairing([(proof.proof, lhs_g2), (g1_neg(rhs_g1), h)]) == Fq12.one()
 
     @staticmethod
     def prove_batch(params, commitment, indexes, data):

@@ -41,6 +41,7 @@ from ..params import R
 from ..poly import FrVector
 from ..poly.lagrange import quotient_in_domain
 from ..utils import metrics
+from ..utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -69,6 +70,7 @@ class Multiproof:
     d: tuple  # commitment to g(x)
 
 
+@span("protocol", "multiproof.absorb")
 def _absorb_queries(t: Transcript, queries) -> None:
     for q in queries:
         t.append_point(q.commit, "C")
@@ -76,6 +78,7 @@ def _absorb_queries(t: Transcript, queries) -> None:
         t.append_scalar(q.y, "y")
 
 
+@span("protocol", "multiproof.group")
 def _scale_and_group(stack: torch.Tensor, sel: list, r: torch.Tensor, zs: list):
     """Kernel K1MP's grouped pass: the (U, N, 8) distinct data vectors, each
     query's vector ``sel[m]`` and point ``zs[m]``, and r as (8,) Montgomery
@@ -85,6 +88,7 @@ def _scale_and_group(stack: torch.Tensor, sel: list, r: torch.Tensor, zs: list):
     return distinct, KM.segment_sum(stack, r, plan, mode=0)
 
 
+@span("protocol", "multiproof.quotients")
 def _quotients_sum(grouped: torch.Tensor, domain, zs: list) -> torch.Tensor:
     """g(x) = sum over the distinct opening points z of the in-domain
     quotient of that point's grouped row (``multiproof.py::_quotients_sum_impl``):
@@ -92,6 +96,7 @@ def _quotients_sum(grouped: torch.Tensor, domain, zs: list) -> torch.Tensor:
     return quotient_in_domain(grouped, zs, domain, sum_rows=True)
 
 
+@span("protocol", "multiproof.h")
 def _h_accumulate(grouped: torch.Tensor, inv: torch.Tensor, g: torch.Tensor) -> tuple:
     """Kernel K1MP's h pass: h = sum_j grouped[j] inv[j] for the (Zq, 8)
     Montgomery inverses 1 / (t - z_j), and h - g; both (N, 8)."""
@@ -101,6 +106,7 @@ def _h_accumulate(grouped: torch.Tensor, inv: torch.Tensor, g: torch.Tensor) -> 
     return h[0], h_minus_g
 
 
+@span("protocol", "multiproof.prove")
 def prove_multiproof(scheme, params, queries: list, mesh=None) -> Multiproof:
     """``multiproof.rs:99-176``. ``scheme`` is the IPA or the KZG namespace;
     every tensor lives on ``params.device``. With ``mesh``, the D and E
@@ -110,7 +116,6 @@ def prove_multiproof(scheme, params, queries: list, mesh=None) -> Multiproof:
     domain = params.domain
     n = domain.size
     m = len(queries)
-    metrics.record("multiproof.prove.calls")
     metrics.record("multiproof.prove.queries", m)
     t = Transcript("multiproof")
     _absorb_queries(t, queries)
@@ -144,6 +149,7 @@ def prove_multiproof(scheme, params, queries: list, mesh=None) -> Multiproof:
     return Multiproof(proof=proof, d=d_commit)
 
 
+@span("protocol", "multiproof.verify")
 def verify_multiproof(scheme, params, queries: list, proof: Multiproof, mesh=None) -> bool:
     """``multiproof.rs:178-215``: the E aggregation is one MSM over the
     distinct commitments (``msm_auto``; K5 below 64 of them), split across

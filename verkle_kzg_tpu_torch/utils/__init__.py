@@ -1,7 +1,7 @@
 """Auxiliary subsystems: observability counters, persistence (checkpoint
 and resume of CRS parameters and tree state) and profiling hooks."""
 
-from .metrics import counters, record, reset_counters, timed_region
+from .metrics import counters, record, reset_counters, span
 from .persist import (
     load_ipa_params,
     load_kzg_params,
@@ -15,7 +15,7 @@ __all__ = [
     "counters",
     "record",
     "reset_counters",
-    "timed_region",
+    "span",
     "save_ipa_params",
     "load_ipa_params",
     "save_kzg_params",

@@ -1,21 +1,25 @@
-"""``torch.profiler`` capture helpers (``verkle_kzg_tpu/utils/profiling.py``;
-the reference's analogue is the criterion + pprof flamegraph wiring at
+"""``torch.profiler`` capture (``verkle_kzg_tpu/utils/profiling.py``; the
+reference's analogue is the criterion + pprof flamegraph wiring at
 ``benches/ipa.rs:161-169``).
 
 Usage::
 
-    from verkle_kzg_tpu_torch.utils.profiling import annotate, device_trace
+    from verkle_kzg_tpu_torch.utils.profiling import device_trace
     with device_trace("vkzg-trace") as prof:
-        with annotate("commit"):
-            IPA.commit(crs, data)
+        IPA.commit(crs, data)
         torch.cuda.synchronize()
     print(prof.key_averages().table())
 
 The directory gets a Chrome trace (TensorBoard's profile plugin and
 Perfetto open it) with the host's calls and each CUDA kernel on the
-card's timeline. Device busy time read from it is a lower bound: on the
-H100 the profiler has dropped the records of long kernels (3 of the 9
-stages of one G1 NTT), so time a kernel with CUDA events where it matters.
+card's timeline. The program's spans (``utils/metrics.span``) appear in it
+as ``vk.<layer>.<site>`` events on the same clock. On the H100 the
+benchmark's traced runs of both cells have kept a record of every kernel
+launch that ``ops/cuda_lib.launches`` counted, since kernels are named
+without their anonymous namespace; earlier smoke readings that lacked
+some records have no cause shown. Compare the kernel records with the
+launch counters (``vkbench/devtrace.py`` does) before reading device busy
+time from a trace.
 """
 
 from __future__ import annotations
@@ -33,12 +37,3 @@ def device_trace(log_dir: str):
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], on_trace_ready=tensorboard_trace_handler(log_dir)
     ) as prof:
         yield prof
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named span inside a ``device_trace`` capture."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield

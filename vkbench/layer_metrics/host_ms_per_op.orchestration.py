@@ -1,0 +1,11 @@
+"""Host milliseconds an op in the MSM and NTT orchestration (``ops/msm.py``,
+``ops/ntt.py``, ``ops/field.py``, ``ops/curve.py``, ``convert.py``): the
+self time of the program's ``span.orchestration.*`` spans, which leaves
+out the spans opened inside them and the host's waits for the card, over
+every op of the traced run's window (``vkbench/spans.py``)."""
+
+from vkbench.spans import layer_self_ms
+
+
+def read(run):
+    return layer_self_ms(run, "orchestration")
