@@ -336,6 +336,7 @@ def phase_kernels(dev, crs, probe=None) -> dict:
     rec.update(_kernels_k1quo_k1mp(dev, random.Random(15)))
     rec.update(_kernels_k1aff(dev, crs, random.Random(16)))
     rec.update(_kernels_k1ntt(dev, random.Random(17)))
+    rec.update(_kernels_fbmsm(dev, crs, random.Random(18)))
     return rec
 
 
@@ -868,6 +869,67 @@ def _kernels_k1quo_k1mp(dev, rng) -> dict:
 K1MP_LARGE = ((32768, 256), (40000, 16))
 #: The CUDA kernel of each wrapper, as the profiler names its records.
 KERNEL_NAMES = {"K1MP": "segment_sum_kernel", "K1QUO": "quotient_kernel"}
+
+
+def _kernels_fbmsm(dev, crs, rng) -> dict:
+    """FBMSM (``cuda_msm_table.msm``) over the IPA basis' fixed-base table
+    (``crs.basis``: the table at TABLE_C) against its plain version on the
+    card's tensors, exact, and against K3 + K4 as a group element, at 257
+    points (g || q, an IPA round's basis; the "FBMSM" record) and 256 (g, a
+    commit's), with 0 and r - 1 among the scalars. Each record: ms (the
+    wrapper, CUDA events), device_ms (the kernel alone: the profiler's
+    ``table_msm_kernel`` records, ``device_records`` of them, over the calls
+    they cover), the plain version's ms, the K3 + K4 ``msm_auto`` it
+    replaced on the IPA's path (CUDA events), the entries (the nonzero
+    digits), the bound (64 bytes an entry's table point; a lazy mixed add an
+    entry and an add a group but one for the tree), ptxas's registers, and
+    the table's MB and the ms of one more build of it (CUDA events, warm)."""
+    import torch
+
+    from verkle_kzg_tpu_torch.ops import cuda_lib
+    from verkle_kzg_tpu_torch.ops import cuda_msm_sorted as KS
+    from verkle_kzg_tpu_torch.ops import cuda_msm_table as KT
+    from verkle_kzg_tpu_torch.ops import curve as C
+    from verkle_kzg_tpu_torch.ops import field as F
+    from verkle_kzg_tpu_torch.ops import msm as M
+    from verkle_kzg_tpu_torch.params import R
+    from verkle_kzg_tpu_torch.tools import point_regimes as PR
+
+    basis = torch.cat([crs.g_affine, crs.q_affine])
+    build_ms = cuda_ms(lambda: M.build_table(basis), 1)
+    rec = {}
+    for name, rows in (("FBMSM", crs.basis(crs.n, q=True)), ("FBMSM@256", crs.basis(crs.n))):
+        n, c = rows.count, rows.table.c
+        ks = [rng.randrange(R) for _ in range(n)]
+        ks[3], ks[7] = 0, R - 1
+        sc = F.ints_to_words(ks, dev)
+        before = cuda_lib.launches["FBMSM"]
+        out = KT.msm(rows, sc)
+        launched = cuda_lib.launches["FBMSM"] - before
+        plain_out, plain_ms = timed_once(lambda: KT.plain_msm(rows, sc))
+        err = max_abs_err(out, plain_out)
+        assert err == 0 and launched == 1, (name, err, launched)
+        assert C.projective_to_host_points(out) == C.projective_to_host_points(M.msm_auto(basis[:n], sc)), name
+        entries = int((KS.carry_digits(sc.cpu(), c) != 0).sum())
+        groups = n * KT.segments(c)
+        alone, records = PR.kernel_ms(lambda: KT.msm(rows, sc), 10, name="table_msm_kernel")
+        rec[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: KT.msm(rows, sc), 20),
+            "device_ms": alone,
+            "device_records": records,
+            "plain_ms": plain_ms,
+            "k3_k4_ms": cuda_ms(lambda: M.msm_auto(basis[:n], sc), 20),
+            "launches_per_call": launched,
+            "library_ms": None,
+            "shape": f"{n} points, c = {c}, {entries} entries, {KT.blocks(n, c)} blocks",
+            "ptxas": ptxas_of("table_msm_kernel"),
+            "table_mb": rows.table.points.numel() * 4 / 1e6,
+            "table_build_ms": build_ms,
+            **bound(64 * entries + 32 * n + 96, MIXED_FMULS * entries + ADD_FMULS * (groups - 1)),
+        }
+        print("phase 2 fbmsm:", name, json.dumps(rec[name]), flush=True)
+    return rec
 
 
 K1AFF_CASES = (  # record, points: about the verkle commit's node commitments, then a KZG proof's one
@@ -1927,15 +1989,18 @@ def phase_ipa(dev, crs, small: int = 32):
     assert not bad_commit and not cross, "a tampered or cross proof was accepted"
     assert proof.y == vals[index] and len(proof.l) == 8
     assert commit == native.g1_msm(crs.g_host, vals), "commit != native oracle"
-    assert counts["commit"]["K3"] == 1 and counts["commit"]["K4"] == 1
-    assert counts["verify"]["K3"] == 1 and counts["verify"]["K4"] == 1
-    # the device loop: <a, b> and w, then 8 rounds of K1IPA, two MSMs (K3 +
-    # K4) and FSX, and the last fold; no K1, one read, no sync in between
+    # the commit and the prove's MSMs over the CRS run FBMSM on its table;
+    # the verify's MSM (g, q, C and the proof's points) runs K3 + K4
+    assert (counts["commit"]["FBMSM"], counts["commit"]["K3"], counts["commit"]["K4"]) == (1, 0, 0), counts
+    assert (counts["verify"]["K3"], counts["verify"]["K4"], counts["verify"]["FBMSM"]) == (1, 1, 0), counts
+    # the device loop: <a, b> and w, then 8 rounds of K1IPA, two MSMs
+    # (FBMSM) and FSX, and the last fold; no K1, one read, no sync in between
     c = counts["prove"]
-    assert (c["FSX"], c["K1IPA"], c["K3"], c["K4"], c["K1"]) == (9, 10, 16, 16, 0), c
-    assert (counts["prove_commitment"]["FSX"], counts["prove_commitment"]["K1IPA"]) == (8, 9), counts
+    assert (c["FSX"], c["K1IPA"], c["FBMSM"], c["K3"], c["K4"], c["K1"]) == (9, 10, 16, 0, 0, 0), c
+    c = counts["prove_commitment"]
+    assert (c["FSX"], c["K1IPA"], c["FBMSM"], c["K3"], c["K4"]) == (8, 9, 16, 0, 0), counts
     assert reads == creads == 1, (reads, creads)
-    assert min(main_path_launches[k] for k in ("K1", "K1IPA", "K3", "K4", "FSX")) > 0, main_path_launches
+    assert min(main_path_launches[k] for k in ("K1", "K1IPA", "K3", "K4", "FSX", "FBMSM")) > 0, main_path_launches
 
     # the host loop, the second implementation, on the same inputs
     same = {}
@@ -1950,7 +2015,7 @@ def phase_ipa(dev, crs, small: int = 32):
     same["commitment"] = (cproof.l, cproof.r, cproof.tip) == (hproof.l, hproof.r, hproof.tip)
     assert all(same.values()), f"device loop != host loop: {same}"
 
-    # both loops timed by CUDA events, 5 calls each in turns, and their K4 tails
+    # both loops timed by CUDA events, 5 calls each in turns, and their FBMSM calls
     b17 = F.ints_to_mont(crs.domain.barycentric_coefficients(index), "fr", dev)
     loops = {"device": lambda: IPA.prove_point(crs, commit, index, data, Transcript("ipa")),
              "host": lambda: I._low_level_ipa_hostloop(crs, data.vals, b17, commit, index, Transcript("ipa"))}
@@ -1974,8 +2039,8 @@ def phase_ipa(dev, crs, small: int = 32):
     assert proofs[0] == proofs[1], f"IPA proof at {small}: card != CPU"
     assert states[0] == states[1], f"IPA transcript at {small}: card != CPU"
     return {
-        "prove_k4_tails_ms": _prove_tails(crs, loops["device"]),
-        "hostloop_k4_tails_ms": _prove_tails(crs, loops["host"]),
+        "prove_fbmsm_ms": _prove_msms(crs, loops["device"]),
+        "hostloop_fbmsm_ms": _prove_msms(crs, loops["host"]),
         "loop_ms": loop_ms,
         "device_vs_host_identical": same,
         "reads_per_prove": reads,
@@ -2015,30 +2080,30 @@ def no_sync_window(fn) -> tuple:
         torch.cuda.set_sync_debug_mode(0)
 
 
-def _prove_tails(crs, prove) -> dict:
+def _prove_msms(crs, prove) -> dict:
     """One more IPA prove (``prove()``) with a CUDA-event pair around each of
-    its K4 tails (two a halving round, 16 at domain 256; ``cuda_msm.tail``
-    wrapped for that call): their sum and each."""
+    its FBMSM calls (two a halving round, 16 at domain 256;
+    ``cuda_msm_table.msm`` wrapped for that call): their sum and each."""
     import torch
 
-    from verkle_kzg_tpu_torch.ops import cuda_msm as K
+    from verkle_kzg_tpu_torch.ops import cuda_msm_table as KT
 
-    events, tail = [], K.tail
+    events, msm = [], KT.msm
 
-    def timed_tail(buckets, c=8):
+    def timed_msm(rows, scalars):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = tail(buckets, c)
+        out = msm(rows, scalars)
         end.record()
         events.append((start, end))
         return out
 
-    K.tail = timed_tail
+    KT.msm = timed_msm
     try:
         prove()
         torch.cuda.synchronize()
     finally:
-        K.tail = tail
+        KT.msm = msm
     each = [s.elapsed_time(e) for s, e in events]
     assert len(each) == 2 * (crs.n.bit_length() - 1), len(each)
     return {"sum": sum(each), "each": each}
@@ -3446,7 +3511,8 @@ def main() -> int:
                "K5": "scalar_mul.cu", "K6": "msm_sorted.cu", "K7": "msm_tail.cuh",
                "K8": "msm_sorted.cu", "K9": "msm_sorted.cu", "K10": "msm_sorted.cu",
                "K11": "curve.cu", "K12": "curve.cu", "K13": "msm_sorted.cu",
-               "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu", "FSX": "fiat_shamir.cu"}
+               "G1SMUL": "g1_chain.cu", "G1BFLY": "g1_chain.cu", "FSX": "fiat_shamir.cu",
+               "FBMSM": "msm_table.cu"}
     replaces = {
         "K1": "verkle_kzg_tpu/ops/pallas_field.py:298",
         # the K1 chain of verkle_kzg_tpu/ops/field.py:327's scan and :342's batch inversion
@@ -3481,9 +3547,12 @@ def main() -> int:
         # no pallas_call: the jnp digest chain in the fused loop's round body
         # (to_affine, g1_compressed_bytes, hash_to_fr, to_mont)
         "FSX": "verkle_kzg_tpu/schemes/ipa.py:249",
+        # no counterpart: the JAX package has no fixed-base table; on the
+        # IPA's path it takes the place of K3 + K4
+        "FBMSM": "none: replaces K3 + K4 over the IPA CRS",
     }
-    # launches: K1, K1IPA, K1QUO, K1MP, K1AFF, FSX, K2FOLD and K3-K7 from the verkle
-    # path of phase 5 (commit, prove, verify), which runs all of them; K8-K10 from the
+    # launches: K1, K1IPA, K1QUO, K1MP, K1AFF, FSX, K2FOLD, K3-K7 and FBMSM from the
+    # verkle path of phase 5 (commit, prove, verify), which runs all of them; K8-K10 from the
     # sweep of phase 7; K1INV, K1NTT, G1SMUL and G1BFLY from the KZG path of phase 8; K2,
     # K11 and K12 from phase 2, since no path calls the standalone add (its
     # folds are K2FOLD's), double (the scalar multiplication it served is
@@ -3491,13 +3560,15 @@ def main() -> int:
     # Timings: each kernel's first record in phase 2; max_abs_err over all
     # of its records (K3 at c = 1, 4, 8; K4 at c = 1, 4, 8, 12, 16; ...).
     path_of = {
-        **dict.fromkeys(("K1", "K1IPA", "K1QUO", "K1MP", "K1AFF", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7"),
-                        ("phase 5", verkle["path_launches"])),
+        **dict.fromkeys(("K1", "K1IPA", "K1QUO", "K1MP", "K1AFF", "FSX", "K2FOLD", "K3", "K4", "K5", "K6", "K7",
+                         "FBMSM"), ("phase 5", verkle["path_launches"])),
         "K1NTT": ("phase 8: FK's two Fr transforms, at 256 and at 16", kzg["path_launches"]),
         "K1INV": ("phase 8: no inversion runs on the card in phase 5 since K1QUO", kzg["path_launches"]),
-        "K2": ("phase 2 only: no path calls curve.add since K2FOLD", phase2_launches),
+        "K2": ("phase 2: no op of a path calls curve.add since K2FOLD (the IPA table's build does, once)",
+               phase2_launches),
         **dict.fromkeys(("K8", "K9", "K10"), ("phase 7", sweep["path_launches"])),
-        "K11": ("phase 2 only: no path calls curve.double since G1SMUL", phase2_launches),
+        "K11": ("phase 2: no op of a path calls curve.double since G1SMUL (the IPA table's build does, once)",
+                phase2_launches),
         "K12": ("phase 2 only: no path of either package calls it", phase2_launches),
         **dict.fromkeys(("G1SMUL", "G1BFLY"), ("phase 8", kzg["path_launches"])),
         "K13": ("phase 9", group["path_launches"]),

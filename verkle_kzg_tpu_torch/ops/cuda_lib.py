@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (K1-K13, K1INV, K1IPA, K1QUO, K1MP,
-K1AFF, K1NTT, K2FOLD, G1SMUL, G1BFLY, FSX) and count their launches.
+K1AFF, K1NTT, K2FOLD, G1SMUL, G1BFLY, FSX, FBMSM) and count their launches.
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and the objects are
@@ -47,9 +47,11 @@ BUILD = _PKG / "_build"
 #: one count a CUDA launch: one a transform up to the tile, one more a stage
 #: above it), K2FOLD the K2 chain of a point fold (``cuda_curve.py``).
 #: FSX, a Fiat-Shamir challenge or digest on the card (``cuda_fiat_shamir.py``),
-#: stands for no Pallas kernel: its JAX counterpart is jnp code.
+#: stands for no Pallas kernel: its JAX counterpart is jnp code. FBMSM, a
+#: single MSM over a fixed-base table (``cuda_msm_table.py``), stands for
+#: none either: the JAX package has no such table.
 launches = {**{f"K{i}": 0 for i in range(1, 14)}, "K1INV": 0, "K1IPA": 0, "K1QUO": 0, "K1MP": 0,
-            "K1AFF": 0, "K1NTT": 0, "K2FOLD": 0, "G1SMUL": 0, "G1BFLY": 0, "FSX": 0}
+            "K1AFF": 0, "K1NTT": 0, "K2FOLD": 0, "G1SMUL": 0, "G1BFLY": 0, "FSX": 0, "FBMSM": 0}
 
 #: CUDA launches since the last :func:`reset_launches` of the kernels whose
 #: one count above stands for several: the sorted accumulation's, whose C
@@ -87,6 +89,7 @@ _SIGNATURES = {
     "vkzg_mp_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int, ctypes.c_int, _P],
     "vkzg_affine": [_P, _P, _I, ctypes.c_int, _P],
     "vkzg_ntt_fr": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+    "vkzg_msm_table": [_P, _P, _I, _I, _I, ctypes.c_int, _I, _P, _P, _P],
 }
 
 

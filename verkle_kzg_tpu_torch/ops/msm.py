@@ -22,6 +22,12 @@ Below 64 points ``msm_auto`` multiplies each point by its scalar with K5
 package's K2 halving tree in one launch: the bucket machinery costs
 W x 2^(c-1) rows whatever N is.
 
+Over a basis with a fixed-base table (:func:`build_table`: the IPA's CRS,
+built once per parameters), ``msm_auto(rows, ...)``, the table's rows
+standing for the points, takes kernel FBMSM (``cuda_msm_table``) at any N
+instead: one signed table point a (point, window) digit, summed, with no
+buckets and no Horner. Every other MSM keeps the route above.
+
 A batch of B independent MSMs (``msm_fixed_base``: one basis for every
 lane, the dense verkle node commits; ``msm_batched``: points per lane)
 takes LSB-carry signed digits (:func:`window_digits_signed`) with c from
@@ -45,6 +51,7 @@ from . import cuda_curve as KC
 from . import cuda_msm as K
 from . import cuda_msm_batched as KB
 from . import cuda_msm_sorted as KS
+from . import cuda_msm_table as KT
 from . import curve as C
 from . import field as F
 
@@ -187,11 +194,22 @@ def msm_pippenger(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | N
 
 
 @span("orchestration", "msm_auto")
-def msm_auto(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | None = None, lanes: int = 128):
+def msm_auto(points_affine: torch.Tensor | KT.TableRows, scalars: torch.Tensor, c: int | None = None,
+             lanes: int = 128):
     """Single MSM entry point (``ops/msm.py::msm_auto``): double-and-add
     (K5) and a K2FOLD fold below 64 points, whatever c is; Pippenger from 64 on
-    (:func:`msm_pippenger`, signed digits). ``lanes`` has no effect."""
+    (:func:`msm_pippenger`, signed digits). ``lanes`` has no effect.
+
+    ``points_affine`` may instead be the rows of a fixed-base table
+    (:func:`build_table`) that stand for the basis: the MSM is then kernel
+    FBMSM at the table's own width, whatever N and c are. Each call counts
+    ``msm.table.calls``: one on the table, zero off it."""
+    if isinstance(points_affine, KT.TableRows):
+        metrics.record("msm.single.points", points_affine.count)
+        metrics.record("msm.table.calls")
+        return KT.msm(points_affine, scalars)
     metrics.record("msm.single.points", points_affine.shape[0])
+    metrics.record("msm.table.calls", 0)
     return _msm_auto_impl(points_affine, scalars, c, lanes)
 
 
@@ -201,6 +219,38 @@ def _msm_auto_impl(points_affine: torch.Tensor, scalars: torch.Tensor, c: int | 
     if points_affine.shape[0] < 64:
         return fold_reduce_lanes(C.scalar_mul_affine(points_affine, scalars), dim=0)[0]
     return msm_pippenger(points_affine, scalars, c=c, lanes=lanes)
+
+
+@span("orchestration", "msm.build_table")
+def build_table(points_affine: torch.Tensor, c: int = KT.TABLE_C) -> KT.Table:
+    """The fixed-base table of an (N, 2, 8) affine basis with no (0, 0)
+    sentinel, for kernel FBMSM: T[i][w][m - 1] = m 2^(c w) P_i for w < 256 /
+    c and m in [1, 2^(c-1)], as affine Montgomery words, built on the
+    basis' device by the port's kernels: the shifts 2^(c w) P_i by a chain
+    of K11 doublings over the N points, c a window (G1SMUL would take the
+    N W shifts in one launch, but its first launch in a process costs
+    seconds on the card, which every run's set-up would pay); then the
+    multiples in log2 2^(c-1) K2 launches (m + 2^j = T[2^j] + T[m] for
+    m <= 2^j); then one K1AFF for the affine words and one K1 product into
+    the Montgomery form. No entry is the identity: the group order is a
+    prime above every factor of m 2^(c w). The kernel takes c = TABLE_C
+    alone; the plain version any c that divides 32."""
+    KT.check_c(c)
+    n, dev = points_affine.shape[0], points_affine.device
+    w, h = KT.windows(c), 1 << (c - 1)
+    tab = torch.empty((n, w, h, 3, F.WORDS), dtype=torch.int32, device=dev)
+    shift = C.from_affine(points_affine)
+    tab[:, 0, 0] = shift
+    for i in range(1, w):
+        for _ in range(c):
+            shift = C.double(shift)
+        tab[:, i, 0] = shift
+    size = 1
+    while size < h:
+        tab[:, :, size : 2 * size] = C.add(tab[:, :, size - 1 : size], tab[:, :, :size])
+        size *= 2
+    aff = F.to_mont(KC.affine_words(tab), "fq")  # K1AFF's standard words, then R^2 / R
+    return KT.Table(aff.reshape(n, w, h, 2, F.WORDS), c)
 
 
 # ---------------------------------------------------------------------------

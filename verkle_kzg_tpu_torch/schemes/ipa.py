@@ -2,10 +2,13 @@
 (``verkle_kzg_tpu/schemes/ipa.py``), on PyTorch tensors.
 
 The data vector, the barycentric b vector and the CRS live on one device;
-every group operation is a single Pippenger MSM (``ops/msm.py``), and the
-prove's vector math is kernel K1IPA (``ops/cuda_ipa.py``): one launch for
-<a, b>, one a halving round, one for the last fold. Proofs, transcript
-bytes and commitments are bit-identical to the JAX package's.
+every group operation is a single MSM (``ops/msm.py``): the commit's and
+the prove's over the CRS run kernel FBMSM on the parameters' fixed-base
+table (:meth:`IPAParams.basis`, built on a card at the first call), the
+verify's a Pippenger MSM. The prove's vector math is kernel K1IPA
+(``ops/cuda_ipa.py``): one launch for <a, b>, one a halving round, one for
+the last fold. Proofs, transcript bytes and commitments are bit-identical
+to the JAX package's.
 
 Prove runs in coefficient space, as the JAX fused loop does
 (``_fused_ipa_loop``): per ORIGINAL basis index i the accumulated challenge
@@ -49,6 +52,7 @@ from ..params import R
 from ..ops import cuda_fiat_shamir as FSX
 from ..ops import cuda_ipa as KI
 from ..ops import cuda_lib
+from ..ops import cuda_msm_table as KT
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as M
@@ -62,16 +66,31 @@ from .generators import DEFAULT_IPA_SEED, ipa_generate_points
 class IPAParams:
     """N basis points g, the inner-product point q, the domain, and the
     device the CRS tensors live on (``ipa/mod.rs:22-68``): the CUDA card
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise. The parameters also own ``table``, the
+    fixed-base table of g || q (``ops/msm.py::build_table``, q in row N),
+    whose rows stand for the basis in the commit's and the prove's MSMs
+    (:meth:`basis`). On a card it is built at the first :meth:`basis`, where
+    it lands in set-up; on the CPU it stays None unless a caller sets one (of
+    any width the plain version takes)."""
 
     n: int
     g_host: list
     q_host: tuple
     domain: Domain
     device: torch.device | str | None = None
+    table: KT.Table | None = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = cuda_lib.resolve_device(self.device)
+
+    def basis(self, n: int, q: bool = False):
+        """The basis g[:n], then q when ``q``, as ``msm_auto`` takes it: the
+        table's rows where there is a table, else the affine points."""
+        if self.table is None and self.device.type == "cuda":
+            self.table = M.build_table(torch.cat([self.g_affine, self.q_affine]))
+        if self.table is not None:
+            return self.table.rows(n, self.n if q else None)
+        return torch.cat([self.g_affine[:n], self.q_affine]) if q else self.g_affine[:n]
 
     @functools.cached_property
     def g_affine(self) -> torch.Tensor:
@@ -139,7 +158,7 @@ class IPA:
 
             out = msm_sharded(params.g_affine, scalars, mesh)
         else:
-            out = M.msm_auto(params.g_affine, scalars)
+            out = M.msm_auto(params.basis(params.n), scalars)
         return C.projective_to_host_points(out)[0]
 
     @staticmethod
@@ -230,10 +249,10 @@ def _read_back(*parts: torch.Tensor) -> torch.Tensor:
 def _device_rounds(basis, a, b, w, state, dst: bytes) -> tuple:
     """The halving rounds with every challenge drawn on the device: per
     round one K1IPA launch (the fold of the previous challenge, the two
-    MSMs' scalars), the two MSMs over the fixed ``basis`` (g, plus q as its
-    last point when ``b`` is given, ``w`` the inner-product challenge's
-    Montgomery words), then one FSX launch that draws the challenge from
-    ``state`` (the transcript state, (len,) uint8) and writes the round's
+    MSMs' scalars), the two MSMs over the fixed ``basis``
+    (:meth:`IPAParams.basis`: g, plus q as its last point when ``b`` is
+    given, ``w`` the inner-product challenge's Montgomery words), then one
+    FSX launch that draws the challenge from ``state`` (the transcript state, (len,) uint8) and writes the round's
     affine pair into the proof buffer; one more K1IPA launch folds the last
     challenge. Nothing is read back and the host does not wait: every size
     and every length is known to it. -> (pairs (rounds, 2, 2, 8) Montgomery
@@ -288,8 +307,7 @@ def _low_level_ipa(params: IPAParams, a, b, commitment, input_point: int, transc
         return IPAProof(l=[], r=[], tip=F.mont_to_ints(a, "fr")[0], y=y_int)
     state = _state_to_device(t, a.device)
     w, state = FSX.challenge(state, t._dst, [b"output point", y], b"w")
-    basis = torch.cat([params.g_affine[:n], params.q_affine])
-    pairs, tip = _device_rounds(basis, a, b, w[1], state, t._dst)
+    pairs, tip = _device_rounds(params.basis(n, q=True), a, b, w[1], state, t._dst)
     host = _read_back(pairs, tip, y)
     y_int = F.mont_to_ints(host[-1:], "fr")[0]
     t.append_scalar(y_int, "output point")
@@ -313,8 +331,7 @@ def _low_level_ipa_hostloop(params: IPAParams, a, b, commitment, input_point: in
     w = t.digest("w", True)
     if n == 1:
         return IPAProof(l=[], r=[], tip=F.mont_to_ints(a, "fr")[0], y=y)
-    basis = torch.cat([params.g_affine[:n], params.q_affine])
-    l_pts, r_pts, tip = _halving_loop(basis, a, b, w, t)
+    l_pts, r_pts, tip = _halving_loop(params.basis(n, q=True), a, b, w, t)
     return IPAProof(l=l_pts, r=r_pts, tip=tip, y=y)
 
 
@@ -329,7 +346,7 @@ def _commitment_proof(params: IPAParams, commitment, data: FrVector, hostloop: b
     t.digest("x", True)  # state <- fr(x0) || "x"; x0 itself is unused
     if n2 == 1:
         return IPACommitProof(l=[], r=[], tip=F.mont_to_ints(a, "fr")[0])
-    basis = params.g_affine[:n2]
+    basis = params.basis(n2)
     if hostloop:
         return IPACommitProof(*_halving_loop(basis, a, None, None, t))
     pairs, tip = _device_rounds(basis, a, None, None, _state_to_device(t, a.device), t._dst)
@@ -338,10 +355,10 @@ def _commitment_proof(params: IPAParams, commitment, data: FrVector, hostloop: b
 
 
 def _halving_loop(basis, a, b, w, t: Transcript):
-    """The host loop's rounds over the fixed ``basis`` (g, plus q as its
-    last point when ``b`` is given, with ``w`` the inner-product challenge,
-    an int), challenges drawn from ``t``: per round one K1IPA launch, the
-    two MSMs, a read of L and R, their digest on the host, and the
+    """The host loop's rounds over the fixed ``basis`` (:meth:`IPAParams.basis`:
+    g, plus q as its last point when ``b`` is given, with ``w`` the
+    inner-product challenge, an int), challenges drawn from ``t``: per round
+    one K1IPA launch, the two MSMs, a read of L and R, their digest on the host, and the
     challenge's copy to the card; one more launch folds the last
     challenge. Returns the L and R points and the tip."""
     n = a.shape[0]
